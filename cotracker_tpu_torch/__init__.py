@@ -3,9 +3,11 @@
 The package mirrors the JAX package's module names (`ops/`, `models/`,
 `predictor.py`) and its public layouts: channel-last feature maps
 (B, T, H, W, C), track-major tokens (B, N, T, C), videos (B, T, 3, H, W) at
-the predictor. Plain tensor code is PyTorch; the four hot kernels of the
-offline fast path are hand-written CUDA for sm_90a (`csrc/`), built at first
-use and bound through ctypes (`ops/kernels/_build.py`).
+the predictor. Plain tensor code is PyTorch; the kernels of the offline and
+streaming paths (K1-K7) are hand-written CUDA for sm_90a (`csrc/`), built at
+first use and bound through ctypes (`ops/kernels/_build.py`).
+
+    from cotracker_tpu_torch import CoTrackerPredictor, CoTrackerOnlinePredictor
 
 Entry points run on the GPU by default: `device="cuda"` raises when no CUDA
 device is present, and `device="cpu"` selects the plain PyTorch versions of
@@ -14,7 +16,8 @@ every kernel (what the CPU tests run).
 
 import torch
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+__all__ = ["CoTrackerOnlinePredictor", "CoTrackerPredictor", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -27,3 +30,9 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+# after resolve_device, which the model factory imports from here
+from cotracker_tpu_torch.predictor import (  # noqa: E402
+    CoTrackerOnlinePredictor, CoTrackerPredictor,
+)

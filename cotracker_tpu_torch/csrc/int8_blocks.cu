@@ -13,6 +13,8 @@
 //   ct_time_attention per-track softmax attention over T (K1)
 //   ct_p2v_attention  per-(track, frame) attention over the V virtual tokens (K2)
 //   ct_v2p_flash      virtual queries over all N point keys, online softmax (K3)
+// The three attention cores are the device code of attention_cores.cuh, here
+// reading the chains' fused buffers and writing f32 for the next quantization.
 //
 // What bounds them: at the bench shape (10,240 tracks x 60 frames, C=384)
 // a points time block is ~2.2 s8 TOP, near 1.1 ms at the card's 1,979 TOP/s
@@ -33,9 +35,7 @@
 // accumulation. Epilogue arithmetic uses explicit _rn intrinsics so the
 // compiler does not contract it into FMAs the PyTorch reference lacks.
 
-#include "common.cuh"
-
-#include <math.h>
+#include "attention_cores.cuh"
 
 namespace ct {
 
@@ -185,230 +185,6 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sa,
   }
 }
 
-// ---------------------------------------------------------------- attention
-constexpr int kDimHead = 48;
-// Keys staged per block (frames for K1, virtual tokens for K2): 105 floats
-// each in shared memory, so at most 512 of them fit the 227 KB of an SM.
-constexpr int kMaxFrames = 512;
-
-// Softmax of one warp's scores p[0..n) in place: exp(s - max) / sum, then
-// rounded to the value dtype T (kept as float). Lane j owns p[j], p[j+32], ...
-template <typename T>
-__device__ __forceinline__ void warp_softmax(float* p, int n, float mx) {
-  const int lane = threadIdx.x & 31;
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < n; j += 32) {
-    const float e = expf(__fsub_rn(p[j], mx));
-    p[j] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int j = lane; j < n; j += 32) p[j] = to_f(from_f<T>(__fdiv_rn(p[j], sum)));
-  __syncwarp();
-}
-
-// K1 core. qkv (M*T, 3C) = [q | k | v] rows; out (M*T, C) float32.
-// Block (track, head): the head's K and V for all T frames are staged in
-// shared memory as float (K rows padded to 49: conflict-free when lanes
-// read different keys), then one warp per query frame.
-template <typename T>
-__global__ void __launch_bounds__(256)
-time_attention_kernel(const T* __restrict__ qkv, float* __restrict__ out, int Tn, int H,
-                      float scale) {
-  constexpr int D = kDimHead, LK = D + 1;
-  extern __shared__ float sm[];
-  float* ks = sm;            // Tn * LK
-  float* vs = ks + Tn * LK;  // Tn * D
-  const int m = blockIdx.x, h = blockIdx.y;
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int C = H * D, ld = 3 * C;
-  const T* base = qkv + static_cast<size_t>(m) * Tn * ld;
-  for (int i = threadIdx.x; i < Tn * D; i += blockDim.x) {
-    const int j = i / D, d = i - j * D;
-    const T* row = base + static_cast<size_t>(j) * ld + h * D + d;
-    ks[j * LK + d] = to_f(row[C]);
-    vs[j * D + d] = to_f(row[2 * C]);
-  }
-  __syncthreads();
-  float* p = vs + Tn * D + warp * Tn;
-  for (int i = warp; i < Tn; i += nw) {
-    const T* qr = base + static_cast<size_t>(i) * ld + h * D;
-    float q[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) q[d] = to_f(qr[d]);
-    float mx = -INFINITY;
-    for (int j = lane; j < Tn; j += 32) {
-      const float* kr = ks + j * LK;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s += q[d] * kr[d];
-      s = __fmul_rn(s, scale);
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    warp_softmax<T>(p, Tn, mx);
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < Tn; ++j) {
-      const float pj = p[j];
-      a0 += pj * vs[j * D + lane];
-      if (lane < D - 32) a1 += pj * vs[j * D + lane + 32];
-    }
-    float* orow = out + (static_cast<size_t>(m) * Tn + i) * C + h * D;
-    orow[lane] = a0;
-    if (lane < D - 32) orow[lane + 32] = a1;
-    __syncwarp();
-  }
-}
-
-// K2 core. q (N*T, C) rows (track-major); kv (T, V, 2C); out (N*T, C) f32.
-// Block (frame, head, 64 tracks): the frame's V keys and values of the head
-// are staged in shared memory once and reused by the 64 tracks, one warp
-// per (track, head) at a time.
-template <typename T>
-__global__ void __launch_bounds__(256)
-p2v_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                     float* __restrict__ out, int N, int Tn, int V, float scale) {
-  constexpr int D = kDimHead, LK = D + 1, NB = 64;
-  extern __shared__ float sm[];
-  float* ks = sm;           // V * LK
-  float* vs = ks + V * LK;  // V * D
-  const int t = blockIdx.x, h = blockIdx.y, n0 = blockIdx.z * NB;
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int C = gridDim.y * D;
-  const T* kvt = kv + static_cast<size_t>(t) * V * 2 * C + h * D;
-  for (int i = threadIdx.x; i < V * D; i += blockDim.x) {
-    const int j = i / D, d = i - j * D;
-    ks[j * LK + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + d]);
-    vs[j * D + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + C + d]);
-  }
-  __syncthreads();
-  float* p = vs + V * D + warp * V;
-  const int n_end = min(n0 + NB, N);
-  for (int n = n0 + warp; n < n_end; n += nw) {
-    const size_t row = static_cast<size_t>(n) * Tn + t;
-    const T* qr = q + row * C + h * D;
-    float qv[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) qv[d] = to_f(qr[d]);
-    float mx = -INFINITY;
-    for (int j = lane; j < V; j += 32) {
-      const float* kr = ks + j * LK;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s += qv[d] * kr[d];
-      s = __fmul_rn(s, scale);
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    warp_softmax<T>(p, V, mx);
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < V; ++j) {
-      const float pj = p[j];
-      a0 += pj * vs[j * D + lane];
-      if (lane < D - 32) a1 += pj * vs[j * D + lane + 32];
-    }
-    float* orow = out + row * C + h * D;
-    orow[lane] = a0;
-    if (lane < D - 32) orow[lane + 32] = a1;
-    __syncwarp();
-  }
-}
-
-// K3 core. q (T, V, C); kv (N*T, 2C) rows (track-major); bias (N,) f32
-// additive key mask; out (T, V, C). Block (frame, head, 64-query group),
-// 4 threads per query: each owns 8 keys of a 32-key tile and 12 of the 48
-// output dims. Online softmax exactly as _v2p_proj_kernel: running max from
-// -0.7 * FLT_MAX, f32 row sums of the unrounded p, P.V with p rounded to T.
-template <typename T>
-__global__ void __launch_bounds__(256)
-v2p_flash_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                 const float* __restrict__ bias, T* __restrict__ out, int N, int Tn,
-                 int V, int H, float scale) {
-  constexpr int D = kDimHead, KT = 32, QG = 64, DPT = D / 4;
-  __shared__ float ks[KT][D + 1];
-  __shared__ float vs[KT][D];
-  __shared__ float ps[QG][KT + 1];
-  __shared__ float bs[KT];
-  const int t = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, r = tid >> 2, qd = tid & 3;
-  const int vq = blockIdx.z * QG + r;
-  const bool active = vq < V;
-  const int C = H * D;
-  float qv[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    qv[d] = active ? to_f(q[(static_cast<size_t>(t) * V + vq) * C + h * D + d]) : 0.f;
-  float m = -0.7f * 3.4028234663852886e38f, l = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += KT) {
-    for (int i = tid; i < KT * D; i += 256) {
-      const int j = i / D, d = i - j * D, n = n0 + j;
-      float kval = 0.f, vval = 0.f;
-      if (n < N) {
-        const T* rowp = kv + (static_cast<size_t>(n) * Tn + t) * 2 * C;
-        kval = to_f(rowp[h * D + d]);
-        vval = to_f(rowp[C + h * D + d]);
-      }
-      ks[j][d] = kval;
-      vs[j][d] = vval;
-    }
-    if (tid < KT) bs[tid] = (n0 + tid < N) ? bias[n0 + tid] : -INFINITY;
-    __syncthreads();
-    float s[8];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int j = qd * 8 + jj;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot += qv[d] * ks[j][d];
-      s[jj] = __fadd_rn(__fmul_rn(dot, scale), bs[j]);
-      tmax = fmaxf(tmax, s[jj]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(__fsub_rn(m, m_new));
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float e = expf(__fsub_rn(s[jj], m_new));
-      psum += e;
-      ps[r][qd * 8 + jj] = to_f(from_f<T>(e));
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = __fadd_rn(__fmul_rn(l, alpha), psum);
-    m = m_new;
-    __syncwarp();
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) {
-      const int d = qd * DPT + dd;
-      float pv = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < KT; ++j) pv += ps[r][j] * vs[j][d];
-      acc[dd] = __fadd_rn(__fmul_rn(acc[dd], alpha), pv);
-    }
-    __syncthreads();
-  }
-  if (active) {
-    T* orow = out + (static_cast<size_t>(t) * V + vq) * C + h * D + qd * DPT;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) orow[dd] = from_f<T>(__fdiv_rn(acc[dd], l));
-  }
-}
-
-template <typename Kern>
-cudaError_t set_smem(Kern k, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int MODE, typename ResT, typename OutT>
 cudaError_t launch_gemm(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
                         const float* bias, const void* res, void* out, int M, int N, int K,
@@ -474,63 +250,33 @@ int ct_gemm_s8(const int8_t* A, const float* sa, const int8_t* W, const float* s
 
 int ct_time_attention(const void* qkv, int bf16, float* out, int M, int T, int H, int D,
                       float scale, void* stream) {
-  if (M < 1 || T < 1 || T > kMaxFrames || D != kDimHead) return cudaErrorInvalidValue;
+  if (!time_shape_ok(M, T, H, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const size_t smem = static_cast<size_t>(T) * (2 * kDimHead + 1 + threads / 32) * sizeof(float);
-  dim3 grid(M, H);
+  const int C = H * D;
   if (bf16) {
-    auto k = time_attention_kernel<__nv_bfloat16>;
-    cudaError_t e = set_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid, threads, smem, s>>>(static_cast<const __nv_bfloat16*>(qkv), out, T, H, scale);
-  } else {
-    auto k = time_attention_kernel<float>;
-    cudaError_t e = set_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid, threads, smem, s>>>(static_cast<const float*>(qkv), out, T, H, scale);
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(qkv);
+    return launch_time_attention<__nv_bfloat16, float>(p, 3 * C, p + C, p + 2 * C, 3 * C, out, M,
+                                                       T, H, scale, s);
   }
-  return cudaGetLastError();
+  const float* p = static_cast<const float*>(qkv);
+  return launch_time_attention<float, float>(p, 3 * C, p + C, p + 2 * C, 3 * C, out, M, T, H,
+                                             scale, s);
 }
 
 int ct_p2v_attention(const void* q, const void* kv, int bf16, float* out, int N, int T, int V,
                      int H, int D, float scale, void* stream) {
-  if (N < 1 || T < 1 || V < 1 || V > kMaxFrames || H < 1 || D != kDimHead)
-    return cudaErrorInvalidValue;
+  if (!p2v_shape_ok(N, T, V, H, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const size_t smem = static_cast<size_t>(V) * (2 * kDimHead + 1 + threads / 32) * sizeof(float);
-  dim3 grid(T, H, (N + 63) / 64);
-  if (bf16) {
-    auto k = p2v_attention_kernel<__nv_bfloat16>;
-    cudaError_t e = set_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid, threads, smem, s>>>(static_cast<const __nv_bfloat16*>(q),
-                                  static_cast<const __nv_bfloat16*>(kv), out, N, T, V, scale);
-  } else {
-    auto k = p2v_attention_kernel<float>;
-    cudaError_t e = set_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid, threads, smem, s>>>(static_cast<const float*>(q), static_cast<const float*>(kv),
-                                  out, N, T, V, scale);
-  }
-  return cudaGetLastError();
+  return bf16 ? launch_p2v_attention<__nv_bfloat16, float>(q, kv, out, N, T, V, H, scale, s)
+              : launch_p2v_attention<float, float>(q, kv, out, N, T, V, H, scale, s);
 }
 
 int ct_v2p_flash(const void* q, const void* kv, const float* bias, int bf16, void* out, int N,
                  int T, int V, int H, int D, float scale, void* stream) {
-  if (N < 1 || T < 1 || V < 1 || D != kDimHead) return cudaErrorInvalidValue;
+  if (!v2p_shape_ok(N, T, V, H, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(T, H, (V + 63) / 64);
-  if (bf16)
-    v2p_flash_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv), bias,
-        static_cast<__nv_bfloat16*>(out), N, T, V, H, scale);
-  else
-    v2p_flash_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(q),
-                                                 static_cast<const float*>(kv), bias,
-                                                 static_cast<float*>(out), N, T, V, H, scale);
-  return cudaGetLastError();
+  return bf16 ? launch_v2p_flash<__nv_bfloat16>(q, kv, bias, out, N, T, V, H, scale, s)
+              : launch_v2p_flash<float>(q, kv, bias, out, N, T, V, H, scale, s);
 }
 
 }  // extern "C"

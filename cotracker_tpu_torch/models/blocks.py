@@ -7,10 +7,15 @@ run NCHW inside the encoder; its input and output are channel-last like the
 JAX package's. Statistics of every norm and softmax are float32 whatever the
 compute dtype.
 
-With `quant_int8`, AttnBlock and CrossAttnBlock run their bodies through the
-W8A8 kernels of ops/kernels (K1 time block, K2 points<-virtual block, K3
-virtual<-points projection+attention). Unlike the JAX package there are no
-tiling gates: the kernels take any track count and frame count.
+Two independent kernel switches, with the JAX package's meaning
+(`quant_int8` and `use_pallas_attn` there) and precedence. With `quant_int8`,
+AttnBlock and CrossAttnBlock run their bodies through the W8A8 kernels of
+ops/kernels (K1 time block, K2 points<-virtual block, K3 virtual<-points
+projection+attention). With `attn_kernels`, Attention runs its products
+through the attention-core kernels (K5 time, K6 points<-virtual, K7
+virtual<-points) between plain projections; a block with both switches set
+runs the W8A8 kernel wherever that applies. Unlike the JAX package there are
+no tiling gates: the kernels take any track count and frame count.
 """
 
 from typing import Optional
@@ -159,16 +164,23 @@ def _softmax_attend(q, k, v, scale, bias=None):
 class Attention(nn.Module):
     """Multi-head attention, heads * dim_head == 384, float32 softmax."""
 
-    def __init__(self, query_dim, num_heads=8, dim_head=48, qkv_bias=False, dtype=F32):
+    def __init__(self, query_dim, num_heads=8, dim_head=48, qkv_bias=False, dtype=F32,
+                 attn_kernels: bool = False):
         super().__init__()
         inner = num_heads * dim_head
         self.num_heads, self.dim_head, self.dtype = num_heads, dim_head, dtype
+        self.attn_kernels = attn_kernels
         self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
         self.to_kv = nn.Linear(query_dim, inner * 2, bias=qkv_bias)
         self.to_out = nn.Linear(inner, query_dim)
 
     def forward(self, x, context=None, attn_bias=None):
         h, d = self.num_heads, self.dim_head
+        if self.attn_kernels and context is None and attn_bias is None:
+            q = dense(self.to_q, x, self.dtype)
+            kv = dense(self.to_kv, x, self.dtype)  # K|V unsplit: the kernel slices heads
+            out = attention_cuda.fused_time_attention(q, kv, h, d)
+            return dense(self.to_out, out, self.dtype)
         context = x if context is None else context
         q = dense(self.to_q, x, self.dtype)
         k, v = dense(self.to_kv, context, self.dtype).chunk(2, dim=-1)
@@ -186,6 +198,18 @@ class Attention(nn.Module):
         h, d = self.num_heads, self.dim_head
         B, T, V, _ = virtual.shape
         N = points.shape[1]
+        if self.attn_kernels:
+            q = dense(self.to_q, virtual, self.dtype)  # (B, T, V, C)
+            kv = dense(self.to_kv, points, self.dtype)  # (B, N, T, 2C)
+            bias = None
+            if key_mask is not None:
+                bias = torch.where(key_mask, 0.0, attention_cuda.NEG_BIG)
+            out = torch.stack([
+                attention_cuda.fused_virtual_from_points(
+                    q[b], kv[b], h, d, key_bias=None if bias is None else bias[b])
+                for b in range(B)
+            ])
+            return dense(self.to_out, out, self.dtype)
         q = dense(self.to_q, virtual, self.dtype).reshape(B, T, V, h, d).permute(0, 1, 3, 2, 4)
         k, v = dense(self.to_kv, points, self.dtype).chunk(2, dim=-1)
         k = k.reshape(B, N, T, h, d).permute(0, 2, 3, 1, 4)  # (B, T, h, N, d)
@@ -203,6 +227,13 @@ class Attention(nn.Module):
         h, d = self.num_heads, self.dim_head
         B, N, T, _ = points.shape
         V = virtual.shape[2]
+        if self.attn_kernels and query_mask is None:
+            q = dense(self.to_q, points, self.dtype)  # (B, N, T, C)
+            kv = dense(self.to_kv, virtual, self.dtype)  # (B, T, V, 2C)
+            out = torch.stack([
+                attention_cuda.fused_points_from_virtual(q[b], kv[b], h, d) for b in range(B)
+            ])
+            return dense(self.to_out, out, self.dtype)
         q = dense(self.to_q, points, self.dtype).reshape(B, N, T, h, d).permute(0, 2, 3, 1, 4)
         k, v = dense(self.to_kv, virtual, self.dtype).chunk(2, dim=-1)
         k = k.reshape(B, T, V, h, d).transpose(2, 3)  # (B, T, h, V, d)
@@ -217,14 +248,16 @@ class Attention(nn.Module):
 
 class AttnBlock(nn.Module):
     """Pre-norm self-attention + MLP block. With `quant_int8` (and no mask)
-    the body is the K1 whole-block W8A8 kernel."""
+    the body is the K1 whole-block W8A8 kernel; otherwise, with
+    `attn_kernels` (and no mask), its attention core is the K5 kernel."""
 
     def __init__(self, hidden_size=384, num_heads=8, mlp_ratio=4.0, dtype=F32,
-                 quant_int8: bool = False):
+                 attn_kernels: bool = False, quant_int8: bool = False):
         super().__init__()
         self.num_heads, self.dtype, self.quant_int8 = num_heads, dtype, quant_int8
         self.dim_head = hidden_size // num_heads
-        self.attn = Attention(hidden_size, num_heads, self.dim_head, qkv_bias=True, dtype=dtype)
+        self.attn = Attention(hidden_size, num_heads, self.dim_head, qkv_bias=True, dtype=dtype,
+                              attn_kernels=attn_kernels)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
                        approximate_gelu=True, dtype=dtype)
 
@@ -256,16 +289,17 @@ class AttnBlock(nn.Module):
 class CrossAttnBlock(nn.Module):
     """Pre-norm cross-attention + MLP block; `key_mask` masks context keys.
     With `quant_int8` the points-side work of the two factorized space
-    attentions runs through the K2/K3 kernels."""
+    attentions runs through the K2/K3 kernels; otherwise, with
+    `attn_kernels`, their attention cores are the K6/K7 kernels."""
 
     def __init__(self, hidden_size=384, context_dim=384, num_heads=8, mlp_ratio=4.0,
-                 dtype=F32, quant_int8: bool = False):
+                 dtype=F32, attn_kernels: bool = False, quant_int8: bool = False):
         super().__init__()
         self.num_heads, self.dtype, self.quant_int8 = num_heads, dtype, quant_int8
         self.dim_head = hidden_size // num_heads
         self.norm_context = AffineLayerNorm(context_dim, eps=1e-5)
         self.cross_attn = Attention(hidden_size, num_heads, self.dim_head, qkv_bias=True,
-                                    dtype=dtype)
+                                    dtype=dtype, attn_kernels=attn_kernels)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
                        approximate_gelu=True, dtype=dtype)
 

@@ -1,20 +1,29 @@
-"""CoTracker3 offline model (port of the offline part of
-cotracker_tpu/models/cotracker3.py).
+"""CoTracker3 model, offline and streaming (port of
+cotracker_tpu/models/cotracker3.py, inference).
 
 Layouts as in the JAX package: videos (B, T, H, W, 3) in [0, 255], feature
 maps (B, T, H/4, W/4, 128), queries (B, N, 3) as (t, x, y) model pixels,
 coords/vis/conf carried in float32 across iterations whatever the compute
 dtype. The scanned iteration core of the JAX package is a Python loop.
 
+Three ways through the model, all over the same per-window `iterate`:
+`forward` (the whole video as one window), `forward_windows` (sliding
+windows with warm-started chaining over a full video) and the streaming pair
+`online_init` / `online_step` (one window per call, constant memory in video
+length, explicit OnlineState carry).
+
 Two iteration forms: the reference one (per-level correlation embeddings
 concatenated into the 1110-d input and projected), and `fold_input_proj`,
 which folds the input projection into each level's correlation MLP second
 layer. With `kernels` (the fast path, which requires fold_input_proj) the
 correlation runs through the K4 int8 kernel and the update transformer's
-point-side blocks through the W8A8 kernels K1-K3.
+point-side blocks through the W8A8 kernels K1-K3; `attn_quant_int8=False`
+beside it keeps K4 and swaps K1-K3 for the attention-core kernels K5-K7
+between plain projections (the JAX package's `use_pallas_attn` without
+`attn_quant_int8`).
 """
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +40,8 @@ from cotracker_tpu_torch.ops.embeddings import get_1d_sincos_pos_embed, posenc
 from cotracker_tpu_torch.ops.kernels import corr_cuda
 
 F32 = torch.float32
+# get_track_feat gathers at most this many points' windows at once
+_TRACK_FEAT_CHUNK = 8192
 
 
 def sample_patch_features(fmaps, coords, radius: int):
@@ -74,6 +85,16 @@ def get_track_feat(fmaps, queried_frames, queried_coords, radius: int):
     if T < 2:
         support = _get_track_feat_taps(fmaps, queried_frames, queried_coords, radius)
         return support[:, None, (P * P) // 2], support
+    if N > _TRACK_FEAT_CHUNK * 2:
+        # bounds the (B, N, 2, WIN, WIN, C) window transient, which the
+        # streaming accumulate holds for four levels at quasi-dense N
+        parts = [
+            get_track_feat(fmaps, queried_frames[:, s0 : s0 + _TRACK_FEAT_CHUNK],
+                           queried_coords[:, s0 : s0 + _TRACK_FEAT_CHUNK], radius)
+            for s0 in range(0, N, _TRACK_FEAT_CHUNK)
+        ]
+        return (torch.cat([f for f, _ in parts], dim=2),
+                torch.cat([s for _, s in parts], dim=2))
     wsx, wsy, wx, wy = window_starts_and_weights(queried_coords, radius, H, W)
     t = queried_frames.to(F32).clamp(0.0, T - 1.0)
     t0 = torch.floor(t)
@@ -102,6 +123,31 @@ def get_track_feat(fmaps, queried_frames, queried_coords, radius: int):
     return support[:, None, (P * P) // 2], support
 
 
+class OnlineState(NamedTuple):
+    """Streaming-tracker carry; all buffers have fixed capacity. `online_step`
+    consumes the state it is given: the prediction and support buffers are
+    updated in place and handed on in the state it returns, so a state is
+    used for one step only."""
+
+    ind: int  # start frame of the next window (host integer)
+    track_feat: Tuple[torch.Tensor, ...]  # per level (B, 1, N, C)
+    track_support: Tuple[torch.Tensor, ...]  # per level (B, P*P, N, C)
+    coords: torch.Tensor  # (B, CAP, N, 2) predicted tracks, model pixels, f32
+    vis: torch.Tensor  # (B, CAP, N) visibility logits, f32
+    conf: torch.Tensor  # (B, CAP, N) confidence logits, f32
+    # level-0 feature maps of the previous window's last `step` frames:
+    # consecutive windows overlap by S/2 and fnet is per-frame, so the cache
+    # is exact; (B, S/2, H/stride, W/stride, latent)
+    fmaps_tail: torch.Tensor
+    # number of real (non-padded) frames in fmaps_tail (host integer): a tail
+    # cached from a padded chunk holds features of repeated frames and is not
+    # reused; online_step re-encodes everything unless tail_valid == step
+    tail_valid: int
+    # host copy of the queries' frames, taken at the first window: decides
+    # without a device synchronisation whether a window has queries to absorb
+    query_frames: Optional[np.ndarray] = None
+
+
 class CoTrackerThree(nn.Module):
     """The CoTracker3 tracker; one parameterization serves the offline
     (window_len=60) and online (window_len=16) checkpoints."""
@@ -121,10 +167,19 @@ class CoTrackerThree(nn.Module):
         corr_chunk: Optional[int] = None,
         fold_input_proj: bool = False,
         kernels: bool = False,
+        attn_kernels: Optional[bool] = None,
+        attn_quant_int8: Optional[bool] = None,
     ):
+        """kernels: the K4 correlation kernel, and the default of the two
+        updateformer switches. attn_kernels: the attention-core kernels
+        K5-K7; attn_quant_int8: the W8A8 block kernels K1-K3, which take
+        precedence where both are set. `kernels=True` alone is everything on
+        (K1-K4 run); `kernels=True, attn_quant_int8=False` runs K4-K7."""
         super().__init__()
         if kernels and not fold_input_proj:
             raise ValueError("kernels=True runs the folded correlation path; set fold_input_proj")
+        attn_kernels = kernels if attn_kernels is None else attn_kernels
+        attn_quant_int8 = kernels if attn_quant_int8 is None else attn_quant_int8
         self.window_len, self.stride = window_len, stride
         self.corr_radius, self.corr_levels = corr_radius, corr_levels
         self.model_resolution = tuple(model_resolution)
@@ -136,7 +191,8 @@ class CoTrackerThree(nn.Module):
         self.updateformer = EfficientUpdateFormer(
             space_depth=3, time_depth=3, input_dim=input_dim, hidden_size=384, num_heads=8,
             output_dim=4, mlp_ratio=4.0, num_virtual_tracks=num_virtual_tracks,
-            add_space_attn=add_space_attn, dtype=dtype, quant_int8=kernels,
+            add_space_attn=add_space_attn, dtype=dtype, attn_kernels=attn_kernels,
+            quant_int8=attn_quant_int8,
         )
         grid = np.linspace(0, window_len - 1, window_len)
         self.register_buffer(
@@ -327,3 +383,183 @@ class CoTrackerThree(nn.Module):
             self.build_pyramid(fmaps), queries, iters=iters, track_mask=track_mask
         )
         return cp[-1], torch.sigmoid(vp[-1]), torch.sigmoid(fp[-1]), None
+
+    # ------------------------------------------------------------ multi-window
+
+    def forward_windows(self, video, queries, iters: int = 4, track_mask=None,
+                        is_train: bool = False, fmaps_chunk_size: Optional[int] = 200):
+        """Sliding-window forward over a full video with warm-started window
+        chaining: how the window-16 model runs non-streaming inference over
+        videos longer than one window. video (B, T, H, W, 3) in [0, 255];
+        queries (B, N, 3) (t, x, y) model pixels. Returns (coords (B, T, N, 2)
+        pixels, vis, conf (B, T, N) probabilities, None)."""
+        if is_train:
+            raise NotImplementedError("forward_windows: the training outputs are not ported")
+        B, T = video.shape[:2]
+        N = queries.shape[1]
+        S = self.window_len
+        step = S // 2
+        overlap = S - step
+        dev = video.device
+        queried_frames = queries[..., 0].to(F32)
+        queried_coords = queries[..., 1:3].to(F32) / self.stride
+
+        num_windows = max(1, -(-(T - S) // step) + 1)
+        T_buf = step * (num_windows - 1) + S
+        if T_buf > T:  # repeat the last frame
+            video = torch.cat([video, video[:, -1:].expand(-1, T_buf - T, -1, -1, -1)], dim=1)
+        fmaps_pyramid = self.build_pyramid(self.compute_fmaps(video, chunk_size=fmaps_chunk_size))
+        support_pyramid = self.track_feat_pyramid(fmaps_pyramid, queried_frames, queried_coords)
+        if track_mask is not None:
+            support_pyramid = [s * track_mask[:, None, :, None].to(s.dtype)
+                               for s in support_pyramid]
+
+        coords_buf = torch.zeros((B, T_buf, N, 2), dtype=F32, device=dev)
+        vis_buf = torch.zeros((B, T_buf, N), dtype=F32, device=dev)  # logits
+        conf_buf = torch.zeros((B, T_buf, N), dtype=F32, device=dev)
+        for w in range(num_windows):
+            ind = w * step
+            coords_init, vis_init, conf_init = self._window_init(
+                coords_buf, vis_buf, conf_buf, ind, overlap, queried_frames, queried_coords)
+            # tracks not queried yet: support zeroed, excluded as keys
+            active = queried_frames < float(ind + S)
+            wmask = active if track_mask is None else active & track_mask.bool()
+            sup = [s * active[:, None, :, None].to(s.dtype) for s in support_pyramid]
+            cp, vp, fp = self.iterate(
+                [f[:, ind : ind + S] for f in fmaps_pyramid], sup, coords_init, vis_init,
+                conf_init, iters, track_mask=wmask,
+            )
+            coords_buf[:, ind : ind + S] = cp[-1]
+            vis_buf[:, ind : ind + S] = vp[-1]
+            conf_buf[:, ind : ind + S] = fp[-1]
+        return (coords_buf[:, :T], torch.sigmoid(vis_buf[:, :T]), torch.sigmoid(conf_buf[:, :T]),
+                None)
+
+    def _window_init(self, coords_buf, vis_buf, conf_buf, ind: int, overlap: int,
+                     queried_frames, queried_coords):
+        """Initial coords (fmap units), vis and conf logits of the window at
+        `ind`: the query position and zeros, and, past the first window, for
+        tracks queried before `ind + overlap`, the previous window's
+        predictions on the overlap followed by its last frame repeated."""
+        B, N = queried_frames.shape
+        S = self.window_len
+        coords = queried_coords[:, None].expand(B, S, N, 2)
+        vis = torch.zeros((B, S, N), dtype=F32, device=queried_frames.device)
+        conf = torch.zeros_like(vis)
+        if ind == 0:
+            return coords.contiguous(), vis, conf
+        copy_over = (queried_frames < float(ind + overlap))[:, None, :]
+
+        def warm(buf, init, scale=1.0):
+            sl = buf[:, ind : ind + overlap] / scale
+            prev = torch.cat([sl, sl[:, -1:].expand(-1, S - overlap, *sl.shape[2:])], dim=1)
+            cw = copy_over.reshape(copy_over.shape + (1,) * (buf.dim() - 3))
+            return torch.where(cw, prev, init)
+
+        return (warm(coords_buf, coords, float(self.stride)), warm(vis_buf, vis),
+                warm(conf_buf, conf))
+
+    # ------------------------------------------------------------ streaming
+
+    def online_init(self, batch: int, num_tracks: int, capacity: int) -> OnlineState:
+        """Fresh streaming state with `capacity` frames of prediction buffer,
+        on the model's device."""
+        dev = self.time_emb.device
+        P = 2 * self.corr_radius + 1
+        ih, iw = self.model_resolution
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return OnlineState(
+            ind=0,
+            track_feat=tuple(zeros(batch, 1, num_tracks, self.latent_dim)
+                             for _ in range(self.corr_levels)),
+            track_support=tuple(zeros(batch, P * P, num_tracks, self.latent_dim)
+                                for _ in range(self.corr_levels)),
+            coords=zeros(batch, capacity, num_tracks, 2, dtype=F32),
+            vis=zeros(batch, capacity, num_tracks, dtype=F32),
+            conf=zeros(batch, capacity, num_tracks, dtype=F32),
+            fmaps_tail=zeros(batch, self.window_len // 2, ih // self.stride, iw // self.stride,
+                             self.latent_dim),
+            tail_valid=0,
+        )
+
+    def online_step(self, state: OnlineState, video_chunk, queries, iters: int = 4,
+                    track_mask=None, chunk_valid_len: Optional[int] = None):
+        """Process one sliding window [ind, ind+S) of the stream.
+
+        video_chunk (B, S, H, W, 3): the current window, already padded to
+        S = window_len frames (callers pad a short tail by repeating the last
+        frame); queries (B, N, 3) global (t, x, y) in model pixels, the same
+        at every step; chunk_valid_len: the number of real frames in the
+        chunk before padding (default S), which gates the fmaps_tail cache.
+
+        Returns (new_state, coords (B, CAP, N, 2) pixels, vis, conf
+        (B, CAP, N) probabilities), valid on [0, ind + S). `state` is
+        consumed (see OnlineState); the three returned tensors are copies
+        that later steps do not touch. The window index, the cache validity
+        and the queries' frames are host values, so no step waits for the
+        device (the first one copies the queries' frames to the host)."""
+        B, S = video_chunk.shape[:2]
+        if S != self.window_len:
+            raise ValueError(f"online_step takes chunks of window_len={self.window_len} frames, "
+                             f"got {S}")
+        step = S // 2
+        overlap = S - step
+        ind = state.ind
+        if ind + S > state.coords.shape[1]:
+            raise ValueError(f"online prediction buffer overflow: window [{ind}, {ind + S}) "
+                             f"exceeds capacity={state.coords.shape[1]}")
+        queried_frames = queries[..., 0].to(F32)
+        queried_coords = queries[..., 1:3].to(F32) / self.stride
+        qf_host = state.query_frames
+        if qf_host is None:
+            qf_host = queried_frames.cpu().numpy()
+
+        # the first `overlap` frames of this chunk are the previous chunk's
+        # last frames, whose level-0 fmaps sit in state.fmaps_tail: encode
+        # only the new ones, unless this is the first window or the tail was
+        # cached from a padded chunk
+        if ind == 0 or state.tail_valid < step:
+            fmaps = self.compute_fmaps(video_chunk)
+        else:
+            fmaps = torch.cat(
+                [state.fmaps_tail, self.compute_fmaps(video_chunk[:, S - step :])], dim=1)
+        fmaps_pyramid = self.build_pyramid(fmaps)
+
+        # absorb the queries that fall in the fresh part of this window; each
+        # query adds its features exactly once. Skipped when no query does.
+        left = 0 if ind == 0 else ind + step
+        right = ind + S
+        if ((qf_host >= left) & (qf_host < right)).any():
+            sample_mask = ((queried_frames >= left) & (queried_frames < right))
+            sample_mask = sample_mask[:, None, :, None].to(self.dtype)
+            for i, fmaps_lvl in enumerate(fmaps_pyramid):
+                f, s = get_track_feat(fmaps_lvl, queried_frames - float(ind),
+                                      queried_coords / 2**i, self.corr_radius)
+                # cast before the mask multiply: no full-size f32 temporary,
+                # and the state stays in the compute dtype
+                state.track_feat[i].add_(f.to(self.dtype) * sample_mask)
+                state.track_support[i].add_(s.to(self.dtype) * sample_mask)
+
+        coords_init, vis_init, conf_init = self._window_init(
+            state.coords, state.vis, state.conf, ind, overlap, queried_frames, queried_coords)
+        # no mask on the support of tracks not queried yet (forward_windows
+        # has one): a query's support is accumulated only once its window has
+        # arrived, so it is still zero wherever that mask would apply
+        cp, vp, fp = self.iterate(fmaps_pyramid, list(state.track_support), coords_init,
+                                  vis_init, conf_init, iters, track_mask=track_mask)
+        state.coords[:, ind : ind + S] = cp[-1]
+        state.vis[:, ind : ind + S] = vp[-1]
+        state.conf[:, ind : ind + S] = fp[-1]
+
+        valid = S if chunk_valid_len is None else int(chunk_valid_len)
+        new_state = state._replace(
+            ind=ind + step,
+            fmaps_tail=fmaps[:, S - step :],  # the next window's first frames
+            tail_valid=min(max(valid - step, 0), step),
+            query_frames=qf_host,
+        )
+        return (new_state, state.coords.clone(), torch.sigmoid(state.vis),
+                torch.sigmoid(state.conf))

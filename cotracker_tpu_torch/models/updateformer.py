@@ -31,6 +31,7 @@ class EfficientUpdateFormer(nn.Module):
         num_virtual_tracks: int = 64,
         add_space_attn: bool = True,
         dtype=F32,
+        attn_kernels: bool = False,
         quant_int8: bool = False,
     ):
         super().__init__()
@@ -40,20 +41,22 @@ class EfficientUpdateFormer(nn.Module):
         self.input_transform = nn.Linear(input_dim, hidden_size)
         self.virtual_tracks = nn.Parameter(torch.randn(1, num_virtual_tracks, 1, hidden_size))
         blk = dict(num_heads=num_heads, mlp_ratio=mlp_ratio, dtype=dtype)
+        # the two kernel switches (attention cores K5-K7, W8A8 blocks K1-K3)
+        # reach the time blocks and the two cross blocks; the virtual
+        # self-attention blocks get neither, as in the JAX package
+        kern = dict(attn_kernels=attn_kernels, quant_int8=quant_int8, **blk)
         self.time_blocks = nn.ModuleList(
-            AttnBlock(hidden_size, quant_int8=quant_int8, **blk) for _ in range(time_depth)
+            AttnBlock(hidden_size, **kern) for _ in range(time_depth)
         )
         if add_space_attn:
             self.space_virtual_blocks = nn.ModuleList(
                 AttnBlock(hidden_size, **blk) for _ in range(space_depth)
             )
             self.space_point2virtual_blocks = nn.ModuleList(
-                CrossAttnBlock(hidden_size, hidden_size, quant_int8=quant_int8, **blk)
-                for _ in range(space_depth)
+                CrossAttnBlock(hidden_size, hidden_size, **kern) for _ in range(space_depth)
             )
             self.space_virtual2point_blocks = nn.ModuleList(
-                CrossAttnBlock(hidden_size, hidden_size, quant_int8=quant_int8, **blk)
-                for _ in range(space_depth)
+                CrossAttnBlock(hidden_size, hidden_size, **kern) for _ in range(space_depth)
             )
         self.flow_head = nn.Linear(hidden_size, output_dim - 2)
         self.vis_conf_head = nn.Linear(hidden_size, 2)

@@ -1,6 +1,8 @@
-"""K3: virtual<-points attention with the context norm and kv projection fused.
+"""The attention kernels: K3 (virtual<-points with the context norm and kv
+projection fused, W8A8) and the three stand-alone attention cores K5 (time),
+K6 (points<-virtual) and K7 (virtual<-points) on projections computed outside.
 
-Replaces cotracker_tpu/ops/kernels/attention_pallas.py::_v2p_proj_kernel
+K3 replaces cotracker_tpu/ops/kernels/attention_pallas.py::_v2p_proj_kernel
 (wrapper fused_virtual_from_points_proj). Per frame, the V virtual queries
 attend over all N point tokens, whose keys|values are
 to_kv(affine_layer_norm(x)) computed W8A8 (LN eps 1e-5, two-pass f32
@@ -16,13 +18,31 @@ and the point tokens are ~0.47 GB in bf16 (~0.14 ms at 3.35 TB/s), so
 compute and bytes are of the same order; this first version writes the
 projected kv (~0.94 GB) to device memory and reads it back in the flash
 pass, which the fused form would avoid.
+
+K5, K6 and K7 replace attention_pallas.py::_kernel, ::_p2v_kernel and
+::_v2p_kernel (wrappers fused_time_attention, fused_points_from_virtual,
+fused_virtual_from_points): the attention products alone, in the dtype of
+the operands (bfloat16 on the card, float32 in the CPU tests), for the
+configuration that runs the attention-core kernels without W8A8. Common
+contract: heads of 48 read as lane slices of the unsplit K|V projection,
+float32 logits and softmax, probabilities rounded to the value dtype before
+P.V, float32 accumulation, one rounding to the query dtype. The kernels are
+csrc/attention_cores.cu (see there for what bounds them); unlike the Pallas
+wrappers they take any number of rows, tracks and keys, up to 512 frames
+(K5) or virtual tokens (K6).
+
+Each wrapper takes its plain PyTorch version for CPU tensors, and for CUDA
+tensors launches its kernel or raises; `launches` counts the kernel runs.
 """
+
+import ctypes
 
 import torch
 
 from cotracker_tpu_torch.ops.kernels import _build, mlp_int8_cuda
 from cotracker_tpu_torch.ops.kernels.mlp_int8_cuda import (
-    F32, MODE_AFFINE, QLinear, gemm_cuda, ln_quant_cuda, ln_rows, qlinear_plain, quant_rows,
+    F32, MAX_KEYS, MODE_AFFINE, QLinear, _attend, gemm_cuda, ln_quant_cuda, ln_rows,
+    qlinear_plain, quant_rows,
 )
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
@@ -36,15 +56,7 @@ def v2p_proj_plain(q, x, wkv: QLinear, gamma, beta, num_heads, dim_head, key_bia
     h = ln_rows(x.to(F32).reshape(N * T, C), eps) * gamma.to(F32) + beta.to(F32)
     hq, sr = quant_rows(h)
     kv = qlinear_plain(hq, sr, wkv).to(q.dtype).reshape(N, T, 2 * C)
-    k, v = (t.reshape(N, T, num_heads, dim_head).permute(1, 2, 0, 3) for t in kv.split(C, -1))
-    qh = q.reshape(T, V, num_heads, dim_head).transpose(1, 2)  # (T, h, V, d)
-    s = torch.einsum("thvd,thnd->thvn", qh.to(F32), k.to(F32)) * dim_head**-0.5
-    s = s + key_bias.to(F32)
-    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG)
-    p = torch.exp(s - m)
-    out = torch.einsum("thvn,thnd->thvd", p.to(q.dtype).to(F32), v.to(F32))
-    out = out / p.sum(dim=-1, keepdim=True)
-    return out.transpose(1, 2).reshape(T, V, C).to(q.dtype)
+    return v2p_plain(q, kv, num_heads, dim_head, key_bias)
 
 
 def _v2p_proj_cuda(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps):
@@ -80,3 +92,151 @@ def fused_virtual_from_points_proj(q, x, wkv: QLinear, gamma, beta, num_heads, d
 
 
 fused_virtual_from_points_proj.launches = 0
+
+
+# ------------------------------------------------------------ K5, K6, K7
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_fns = {}
+
+
+def _cores_lib():
+    """ctypes functions of csrc/attention_cores.cu."""
+    if not _fns:
+        lib = _build.load("attention_cores")
+        _fns["k5"] = _build.bind(lib, "ct_k5_time_attention", _P, _P, _I, _P, _I, _I, _I, _I, _F, _P)
+        _fns["k6"] = _build.bind(lib, "ct_k6_points_from_virtual", _P, _P, _I, _P, _I, _I, _I, _I,
+                                 _I, _F, _P)
+        _fns["k7"] = _build.bind(lib, "ct_k7_virtual_from_points", _P, _P, _P, _I, _P, _I, _I, _I,
+                                 _I, _I, _F, _P)
+    return _fns
+
+
+def _heads(t, num_heads, dim_head):
+    """(..., L, H*D) -> (..., H, L, D)."""
+    return t.reshape(*t.shape[:-1], num_heads, dim_head).transpose(-2, -3)
+
+
+def _flash_plain(q, k, v, dim_head, bias=None):
+    """The flash kernels' arithmetic on (..., H, L, D) operands: f32 logits
+    (+ additive key bias), exp against the row max (never below NEG_BIG, the
+    kernels' starting max), unnormalized probabilities rounded to v's dtype
+    before P.V, f32 accumulation, f32 row sums of the unrounded
+    probabilities. (K5 and K6 normalize before the rounding: `_attend`.)"""
+    s = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)) * dim_head**-0.5
+    if bias is not None:
+        s = s + bias.to(F32)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG))
+    out = torch.einsum("...ij,...jd->...id", p.to(v.dtype).to(F32), v.to(F32))
+    return out / p.sum(dim=-1, keepdim=True)
+
+
+def time_attention_plain(q, kv, num_heads, dim_head):
+    """Plain K5: q (M, T, C); kv (M, T, 2C) = [K | V] -> (M, T, C) in q.dtype."""
+    C = q.shape[-1]
+    qh, kh, vh = (_heads(t, num_heads, dim_head) for t in (q, kv[..., :C], kv[..., C:]))
+    out = _attend(qh, kh, vh, dim_head**-0.5, vh.dtype)  # (M, H, T, D)
+    return out.transpose(1, 2).reshape(q.shape).to(q.dtype)
+
+
+def p2v_plain(q, kv, num_heads, dim_head):
+    """Plain K6: q (N, T, C) point queries; kv (T, V, 2C) the frames' virtual
+    keys|values -> (N, T, C) in q.dtype."""
+    C = q.shape[-1]
+    qh = _heads(q.transpose(0, 1), num_heads, dim_head)  # (T, H, N, D)
+    kh, vh = (_heads(t, num_heads, dim_head) for t in (kv[..., :C], kv[..., C:]))
+    out = _attend(qh, kh, vh, dim_head**-0.5, vh.dtype)  # (T, H, N, D)
+    return out.permute(2, 0, 1, 3).reshape(q.shape).to(q.dtype)
+
+
+def v2p_plain(q, kv, num_heads, dim_head, key_bias=None):
+    """Plain K7: q (T, V, C) virtual queries; kv (N, T, 2C) point keys|values;
+    key_bias (N,) f32 additive (0 = valid key, NEG_BIG = masked) -> (T, V, C)
+    in q.dtype. A row whose keys are all masked is the plain average of the
+    values, as in the kernel."""
+    C = q.shape[-1]
+    qh = _heads(q, num_heads, dim_head)  # (T, H, V, D)
+    kvt = kv.transpose(0, 1)
+    kh, vh = (_heads(t, num_heads, dim_head) for t in (kvt[..., :C], kvt[..., C:]))
+    out = _flash_plain(qh, kh, vh, dim_head, bias=key_bias)  # (T, H, V, D)
+    return out.transpose(1, 2).reshape(q.shape).to(q.dtype)
+
+
+def _check_core(q, kv, num_heads, dim_head, kv_shape, keys=0):
+    for t in (q, kv):
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel inputs must all be CUDA tensors, got {t.device}")
+    if q.dtype != kv.dtype:
+        raise TypeError(f"q and kv must share a dtype, got {q.dtype} and {kv.dtype}")
+    if q.shape[-1] != num_heads * dim_head or tuple(kv.shape) != kv_shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, kv {tuple(kv.shape)} (expected {kv_shape})")
+    if keys > MAX_KEYS:
+        raise ValueError(f"the attention core stages at most {MAX_KEYS} keys, got {keys}")
+    return mlp_int8_cuda._is_bf16(q)
+
+
+def fused_time_attention(q, kv, num_heads, dim_head):
+    """K5: self-attention over axis 1, independently per row of axis 0.
+    q (M, T, H*D); kv (M, T, 2*H*D), K in [:H*D] and V in [H*D:] (the
+    unsplit to_kv projection). Returns (M, T, H*D) in q.dtype."""
+    if q.device.type == "cpu":
+        return time_attention_plain(q, kv, num_heads, dim_head)
+    M, T, C = q.shape
+    bf16 = _check_core(q, kv, num_heads, dim_head, (M, T, 2 * C), keys=T)
+    q, kv = q.contiguous(), kv.contiguous()
+    out = torch.empty_like(q)
+    _build.check(_cores_lib()["k5"](
+        _build.ptr(q), _build.ptr(kv), bf16, _build.ptr(out), M, T, num_heads, dim_head,
+        dim_head**-0.5, _build.stream_ptr(q)), "ct_k5_time_attention")
+    fused_time_attention.launches += 1
+    return out
+
+
+fused_time_attention.launches = 0
+
+
+def fused_points_from_virtual(q, kv, num_heads, dim_head):
+    """K6: every (track, frame) query attends over that frame's V virtual
+    keys|values. q (N, T, H*D) track-major; kv (T, V, 2*H*D). Returns
+    (N, T, H*D) in q.dtype."""
+    if q.device.type == "cpu":
+        return p2v_plain(q, kv, num_heads, dim_head)
+    N, T, C = q.shape
+    V = kv.shape[1]
+    bf16 = _check_core(q, kv, num_heads, dim_head, (T, V, 2 * C), keys=V)
+    q, kv = q.contiguous(), kv.contiguous()
+    out = torch.empty_like(q)
+    _build.check(_cores_lib()["k6"](
+        _build.ptr(q), _build.ptr(kv), bf16, _build.ptr(out), N, T, V, num_heads, dim_head,
+        dim_head**-0.5, _build.stream_ptr(q)), "ct_k6_points_from_virtual")
+    fused_points_from_virtual.launches += 1
+    return out
+
+
+fused_points_from_virtual.launches = 0
+
+
+def fused_virtual_from_points(q, kv, num_heads, dim_head, key_bias=None):
+    """K7: per frame, the V virtual queries attend over all N point tokens
+    with an online softmax. q (T, V, H*D); kv (N, T, 2*H*D) track-major;
+    key_bias (N,) f32 additive (0 = valid key, NEG_BIG = masked; None = no
+    mask). Returns (T, V, H*D) in q.dtype."""
+    if q.device.type == "cpu":
+        return v2p_plain(q, kv, num_heads, dim_head, key_bias)
+    T, V, C = q.shape
+    N = kv.shape[0]
+    bf16 = _check_core(q, kv, num_heads, dim_head, (N, T, 2 * C))
+    if key_bias is None:
+        key_bias = torch.zeros((N,), dtype=F32, device=q.device)
+    if key_bias.device.type != "cuda" or tuple(key_bias.shape) != (N,):
+        raise ValueError(f"key_bias must be a CUDA tensor of shape ({N},)")
+    q, kv, bias = q.contiguous(), kv.contiguous(), key_bias.to(F32).contiguous()
+    out = torch.empty_like(q)
+    _build.check(_cores_lib()["k7"](
+        _build.ptr(q), _build.ptr(kv), _build.ptr(bias), bf16, _build.ptr(out), N, T, V,
+        num_heads, dim_head, dim_head**-0.5, _build.stream_ptr(q)), "ct_k7_virtual_from_points")
+    fused_virtual_from_points.launches += 1
+    return out
+
+
+fused_virtual_from_points.launches = 0

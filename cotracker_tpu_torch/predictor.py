@@ -1,4 +1,5 @@
-"""Offline predictor (port of cotracker_tpu/predictor.py:CoTrackerPredictor).
+"""User-facing predictors (port of cotracker_tpu/predictor.py):
+CoTrackerPredictor (offline) and CoTrackerOnlinePredictor (streaming).
 
 Videos are (B, T, 3, H, W) in [0, 255] (numpy or torch); results are torch
 tensors on the model's device: tracks (B, T, N, 2) at the input resolution
@@ -157,3 +158,134 @@ class CoTrackerPredictor:
         scale = torch.tensor([(W - 1) / (iw - 1), (H - 1) / (ih - 1)], dtype=torch.float32,
                              device=video.device)
         return tracks * scale, visibility
+
+
+class CoTrackerOnlinePredictor:
+    """Streaming predictor. Call once with `is_first_step=True` (registers the
+    queries or the grid and resets the stream), then with consecutive
+    `window_len`-frame chunks every `step = window_len // 2` frames:
+
+        op = CoTrackerOnlinePredictor(fast=True, capacity=256)
+        op(video[:, :1], is_first_step=True, grid_size=10)
+        for ind in range(0, T - op.step, op.step):
+            tracks, vis = op(video[:, ind : ind + 2 * op.step])
+
+    Each call returns the tracks (B, frames_seen, N, 2) and visibility
+    (B, frames_seen, N) of every frame so far, at the input resolution; with
+    `return_full_buffers` the full (B, capacity, ...) buffers instead, valid
+    on [0, frames_seen). Memory is constant in video length: `capacity`
+    frames of predictions. A chunk shorter than the window is padded by
+    repeating its last frame."""
+
+    def __init__(
+        self,
+        checkpoint: Optional[str] = None,
+        window_len: int = 16,
+        capacity: int = 4096,
+        dtype=torch.float32,
+        model_resolution: Tuple[int, int] = (384, 512),
+        fast: bool = False,
+        return_full_buffers: bool = False,
+        device="cuda",
+        seed: int = 0,
+    ):
+        self.model = build_cotracker(
+            checkpoint, offline=False, window_len=window_len, dtype=dtype,
+            model_resolution=model_resolution, fast=fast, device=device, seed=seed,
+        )
+        self.device = next(self.model.parameters()).device
+        self.interp_shape = self.model.model_resolution
+        self.support_grid_size = 6
+        self.step = self.model.window_len // 2
+        self.capacity = capacity
+        self.return_full_buffers = return_full_buffers
+        self._n_bucket = 512 if fast else N_BUCKET
+        self._state = None
+        self._queries = self._track_mask = self._orig_hw = None
+        self._n_user = 0
+        self._frames_seen = 0
+
+    @property
+    def frames_seen(self) -> int:
+        """Frames covered by predictions so far: the valid prefix of the
+        full-capacity buffers when return_full_buffers is set."""
+        return self._frames_seen
+
+    @torch.inference_mode()
+    def __call__(self, video_chunk, is_first_step: bool = False, queries=None,
+                 grid_size: int = 5, grid_query_frame: int = 0, add_support_grid: bool = False):
+        """video_chunk (B, T <= window_len, 3, H, W) in [0, 255]; queries
+        (B, N, 3) as (t, x, y) at the input resolution, read at the first
+        step only. The first step returns (None, None)."""
+        B, T_true, _, H, W = video_chunk.shape
+        ih, iw = self.interp_shape
+        if is_first_step:
+            self._register(B, H, W, queries, grid_size, grid_query_frame, add_support_grid)
+            return None, None
+        if self._queries is None:
+            raise RuntimeError("call the predictor with is_first_step=True first")
+
+        S = self.model.window_len
+        if T_true > S:
+            raise ValueError(f"online mode: a chunk holds at most window_len={S} frames, "
+                             f"got {T_true}")
+        chunk = torch.as_tensor(video_chunk, dtype=torch.float32).to(self.device)
+        if T_true < S:  # pad with the last frame
+            chunk = torch.cat([chunk, chunk[:, -1:].expand(-1, S - T_true, -1, -1, -1)], dim=1)
+        if self._state is None:
+            self._state = self.model.online_init(B, self._queries.shape[1], self.capacity)
+        ind = self._state.ind
+        if ind + S > self.capacity:
+            raise ValueError(
+                f"online prediction buffer overflow: window [{ind}, {ind + S}) exceeds "
+                f"capacity={self.capacity}; construct CoTrackerOnlinePredictor(capacity=...) "
+                f"to cover the stream length"
+            )
+        chunk = resize_bilinear(chunk.permute(0, 1, 3, 4, 2), (ih, iw), align_corners=True)
+        self._state, coords, vis, conf = self.model.online_step(
+            self._state, chunk, self._queries, iters=6, track_mask=self._track_mask,
+            chunk_valid_len=T_true,
+        )
+        self._frames_seen = min(ind + T_true, self.capacity)
+
+        n = self._n_user
+        end = self.capacity if self.return_full_buffers else self._frames_seen
+        H0, W0 = self._orig_hw
+        scale = torch.tensor([(W0 - 1) / (iw - 1), (H0 - 1) / (ih - 1)], dtype=torch.float32,
+                             device=self.device)
+        tracks = coords[:, :end, :n] * scale
+        visibility = vis[:, :end, :n] * conf[:, :end, :n] > 0.6
+        return tracks, visibility
+
+    def _register(self, B, H, W, queries, grid_size, grid_query_frame, add_support_grid):
+        """First step: reset the stream and build the padded model-resolution
+        queries with their track mask."""
+        ih, iw = self.interp_shape
+        if queries is not None:
+            q = np.array(torch.as_tensor(queries).cpu(), dtype=np.float32, copy=True)
+            q[:, :, 1] *= (iw - 1) / (W - 1)
+            q[:, :, 2] *= (ih - 1) / (H - 1)
+            n_user = q.shape[1]
+            if add_support_grid:
+                grid_pts = get_points_on_a_grid(self.support_grid_size, self.interp_shape).numpy()
+                support = np.concatenate([np.zeros_like(grid_pts[:, :, :1]), grid_pts], axis=2)
+                q = np.concatenate([q, np.tile(support, (q.shape[0], 1, 1))], axis=1)
+        elif grid_size > 0:
+            grid_pts = get_points_on_a_grid(grid_size, self.interp_shape).numpy()
+            n_user = grid_size**2
+            q = np.concatenate(
+                [np.full_like(grid_pts[:, :, :1], grid_query_frame), grid_pts], axis=2)
+        else:
+            raise ValueError("the first step needs queries or a grid_size > 0")
+        n_active = q.shape[1]
+        n_pad = _round_up(n_active, self._n_bucket)
+        qp = np.zeros((q.shape[0], n_pad, 3), np.float32)
+        qp[:, :n_active] = q
+        mask = np.zeros((q.shape[0], n_pad), bool)
+        mask[:, :n_active] = True
+        self._queries = torch.from_numpy(qp).to(self.device)
+        self._track_mask = torch.from_numpy(mask).to(self.device)
+        self._state = None
+        self._n_user = n_user
+        self._frames_seen = 0
+        self._orig_hw = (H, W)

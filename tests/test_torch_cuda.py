@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card,
-at small shapes, float32 and bfloat16 (marker `cuda`; skips without a GPU).
+"""The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
+at small shapes (K5-K7 also at the full streaming width), float32 and
+bfloat16 (marker `cuda`; skips without a GPU).
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py -q
 
@@ -7,7 +8,10 @@ Bounds: float32 outputs differ only by summation order and rounding ties
 of the int8 codes (see test_torch_kernels); bfloat16 outputs additionally by
 one bf16 ulp (2^-8 relative) where the two sides round differently. K4's
 arithmetic is identical on both sides, so its codes and scales must match
-exactly.
+exactly. The attention cores K5-K7 have no int8 step: float32 within 1e-5
+of the output scale (summation order, expf against torch.exp), bfloat16
+within the rounding of the output and of the probabilities (two bf16 ulps,
+2^-7 relative to the largest output).
 """
 
 import numpy as np
@@ -98,3 +102,69 @@ def test_corr_volume(dev, T):
     rvol, rscale = corr_cuda.corr_volume_plain(fmq, supq.reshape(NP, 49, 128), starts, wxy)
     assert torch.equal(scale, rscale)
     assert torch.equal(vol, rvol)
+
+
+def _core_close(out, ref, dtype):
+    assert out.dtype == dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    assert err <= tol * max(ref.float().abs().max().item(), 1.0), err
+
+
+CORE_SHAPES = [(37, 6), (64, 60), (10240, 16)]  # (rows or tracks, frames)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,T", CORE_SHAPES + [(3, 512)])
+def test_time_attention(dev, dtype, M, T):
+    g = torch.Generator().manual_seed(M + T)
+    q = torch.randn(M, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(M, T, 2 * C, generator=g).to(dev, dtype)
+    n = attention_cuda.fused_time_attention.launches
+    out = attention_cuda.fused_time_attention(q, kv, H, D)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_time_attention.launches == n + 1
+    _core_close(out, attention_cuda.time_attention_plain(q, kv, H, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T", CORE_SHAPES)
+def test_points_from_virtual(dev, dtype, N, T):
+    g = torch.Generator().manual_seed(N + T)
+    q = torch.randn(N, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(T, 64, 2 * C, generator=g).to(dev, dtype)
+    n = attention_cuda.fused_points_from_virtual.launches
+    out = attention_cuda.fused_points_from_virtual(q, kv, H, D)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_points_from_virtual.launches == n + 1
+    _core_close(out, attention_cuda.p2v_plain(q, kv, H, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", ["none", "tail", "all"])
+@pytest.mark.parametrize("N,T", CORE_SHAPES)
+def test_virtual_from_points(dev, dtype, masked, N, T):
+    g = torch.Generator().manual_seed(N + T)
+    q = (0.3 * torch.randn(T, 64, C, generator=g)).to(dev, dtype)
+    kv = torch.randn(N, T, 2 * C, generator=g).to(dev, dtype)
+    bias = None
+    if masked != "none":
+        bias = torch.zeros(N, device=dev)
+        bias[(N * 2 // 3 if masked == "tail" else 0):] = attention_cuda.NEG_BIG
+    n = attention_cuda.fused_virtual_from_points.launches
+    out = attention_cuda.fused_virtual_from_points(q, kv, H, D, key_bias=bias)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_virtual_from_points.launches == n + 1
+    assert torch.isfinite(out.float()).all()
+    _core_close(out, attention_cuda.v2p_plain(q, kv, H, D, key_bias=bias), dtype)
+
+
+def test_cores_raise_instead_of_falling_back(dev):
+    q = torch.randn(4, 5, C, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_cuda.fused_time_attention(q, torch.randn(4, 5, 2 * C), H, D)
+    with pytest.raises(TypeError, match="dtype"):
+        attention_cuda.fused_time_attention(q, torch.randn(4, 5, 2 * C, device=dev).bfloat16(), H, D)
+    with pytest.raises(ValueError, match="at most"):
+        attention_cuda.fused_time_attention(torch.randn(1, 513, C, device=dev),
+                                            torch.randn(1, 513, 2 * C, device=dev), H, D)
