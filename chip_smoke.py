@@ -15,6 +15,10 @@ Phases, each raising on failure:
      CUDA-event times, the bytes/operations bound and, for K5-K7, the time
      of the one PyTorch call that computes the same function
      (scaled_dot_product_attention: a yardstick, never called by the port);
+     then the training kernels K4r (raw int8 volume) and K4f (raw float
+     volume) at level 0 at the training shape (768 points x 16 frames, f32)
+     and the inference chunk (2,048 points x 60 frames): K4r's codes and
+     scales bit-identical to its plain version, K4f within a float32 bound;
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
      (384x512, 4 levels, 3+3 blocks, iters=6) on a synthetic
      (1, 60, 3, 384, 512) video with a 100x100 grid of queries (10,000
@@ -32,17 +36,38 @@ Phases, each raising on failure:
      kernels off and the attention cores on, driven through online_init /
      online_step over the same windows (K4 120, K5 36, K6 18, K7 18, K1-K3 0
      per window), its tracks within a stated band of (a)'s, and on a small
-     input against the same model's plain path on the CPU.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     input against the same model's plain path on the CPU;
+  7. training at full width: train(args, dataset=...) of the online model
+     (384x512, 24-frame clips in windows of 16, 768 tracks, iters=4, f32,
+     K4r + autograd wrapper, remat, AdamW) on an in-memory clip of a texture
+     moving at constant velocity, 8 steps with a checkpoint at step 4, then
+     the step-8 checkpoint removed and a second train() that auto-resumes at
+     step 4 and ends at step 8 with the same losses; losses finite and
+     decreasing, K4r 64 launches per step (4 levels x 4 iterations x 2
+     windows x 2: the checkpointed forward runs again in the backward), K4f
+     and K1-K7 none; ms per step and peak memory. Then 3 steps of the
+     offline model (one 16-frame window, K4r 32 per step) and 2 steps of the
+     online model with K4f instead of K4r (corr_quant_int8=False, K4f 64 per
+     step, K4r none);
+  8. gradients on the card: one batch at 64x96, 8 frames, 32 tracks,
+     iters=2 through the K4r, the K4f and the plain training models of the
+     same weights; the loss within rtol 1e-3 and every gradient within rtol
+     2e-2, atol max(2e-3 x its largest, 1e-7) of the plain model's (the
+     bounds of tests/test_training.py for the JAX package's kernel model).
+No phase is cut in depth. The line before the last is a JSON object with
+one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 from torch.nn.functional import scaled_dot_product_attention as sdpa  # library_ms yardstick only
@@ -119,6 +144,12 @@ T_STREAM = 16  # the streaming window; T_FRAMES is the offline window
 # error is within the rounding of the output (2^-8 of its mean) and the
 # largest within two ulps of the largest output (2^-6)
 CORE_TOL = (2.0**-8, 2.0**-6)
+# K4f against its plain version: float32 sums of 128 products of unit-norm
+# features in another order (FMA chains against cuBLAS's tiling); 1e-5 of
+# the largest |g| is ~80 float32 ulps of it
+K4F_TOL = 1e-5
+# the training shape (768 points x 16 frames) and the inference chunk
+TRAIN_SHAPE, INFER_SHAPE = (768, 16), (CHUNK, T_FRAMES)
 # streaming configuration (b) against (a) after 7 warm-started windows of 6
 # iterations with random weights: W8A8 quantization noise separates them;
 # (median, 90th percentile, max) of the per-point distance in pixels, about
@@ -296,6 +327,69 @@ def kernel_phase(dev):
     return [results[k] for k in sorted(results)]
 
 
+def train_kernel_phase(dev):
+    """K4r and K4f against their plain versions at level 0 (96x128), f32
+    level maps and support, at the training shape (the contract's keys) and
+    the inference chunk (`*_t60`)."""
+    g = torch.Generator().manual_seed(3)
+    Hh, W = LVL0
+    out = {}
+    for (n, T) in (TRAIN_SHAPE, INFER_SHAPE):
+        sfx = "" if (n, T) == TRAIN_SHAPE else f"_t{T}"
+        fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
+        sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g).to(dev), dim=-1)
+        coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+        starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        Tp = starts.shape[1]
+        mm = n * Tp * 64 * 49 * 128 * 2  # multiply-adds of the window products, as operations
+
+        fmq = corr_cuda.build_int8_level(fm, 3)
+        supq, _ = corr_cuda.quantize_support(sup.transpose(1, 2), torch.float32)
+        supq = supq.reshape(n, 49, 128)
+        vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
+        rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+        same = torch.equal(vol, rvol) and torch.equal(scale, rscale)
+        log(f"  K4r raw int8 volume {n} points x {T} frames: codes and scales bit-identical: {same}")
+        if not same:
+            raise AssertionError("K4r: kernel disagrees with its plain version")
+        e = out.setdefault("K4r_corr_volume_raw", dict(
+            name="K4r_corr_volume_raw", route="cuda", source=SRC_CORR,
+            replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
+            shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames"))
+        bnd = bound(nbytes(fmq, supq, starts, vol, scale), [(mm, INT8_OPS)])
+        e.update({"ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)),
+                  "plain_ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_raw_plain(fmq, supq, starts),
+                                            reps=2),
+                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
+        del fmq, supq, vol, rvol
+
+        fmf = corr_cuda.build_float_level(fm, 3, torch.float32)
+        supf = sup.reshape(n, 49, 128).contiguous()
+        vol = corr_cuda.corr_volume_float(fmf, supf, starts)
+        ref = corr_cuda.corr_volume_float_plain(fmf, supf, starts)
+        err = (vol - ref).abs().max().item()
+        lim = K4F_TOL * ref.abs().max().item()
+        log(f"  K4f raw f32 volume {n} points x {T} frames: max_abs_err {err:.3e} (bound {lim:.3e})")
+        if not err <= lim:
+            raise AssertionError("K4f: kernel disagrees with its plain version")
+        e = out.setdefault("K4f_corr_volume_float", dict(
+            name="K4f_corr_volume_float", route="cuda", source=SRC_CORR,
+            replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
+            shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames, f32"))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        bnd = bound(nbytes(fmf, supf, starts, vol), [(mm, F32_OPS)])
+        e.update({"ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_float(fmf, supf, starts)),
+                  "plain_ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_float_plain(fmf, supf, starts),
+                                            reps=2),
+                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
+        for k in out.values():
+            if ("ms" + sfx) in k:
+                log(f"  {k['name']} {n}x{T}: {k['ms' + sfx]:.3f} ms (plain {k['plain_ms' + sfx]:.3f} ms, "
+                    f"bound {k['bound_ms' + sfx]:.3f} ms by {k['bound_by' + sfx]})")
+        del fm, fmf, sup, supf, vol, ref
+    return [out[k] for k in sorted(out)]
+
+
 def synthetic_video(T, H, W, dev):
     """A smooth random texture drifting a few pixels per frame, in [0, 255]."""
     g = torch.Generator().manual_seed(1)
@@ -376,6 +470,8 @@ WRAPPERS = {
     "K5_time_attention": attention_cuda.fused_time_attention,
     "K6_points_from_virtual": attention_cuda.fused_points_from_virtual,
     "K7_virtual_from_points": attention_cuda.fused_virtual_from_points,
+    "K4r_corr_volume_raw": corr_cuda.corr_volume_raw_int8,
+    "K4f_corr_volume_float": corr_cuda.corr_volume_float,
 }
 
 
@@ -518,6 +614,185 @@ def streaming_paths(dev):
     return counts_a, counts_b, n * step / steady_a, n * step / steady_b
 
 
+class MovingClip:
+    """One T-frame clip of a smooth random texture moving (-2, -1) px per
+    frame, and N tracks of texture points that start inside frame 0: track
+    n at (x0 - 2t, y0 - t), visible while inside the frame. In-memory, from
+    a seed; the trainer's dataset interface (data_loader)."""
+
+    def __init__(self, T, H, W, N, seed=0):
+        from cotracker_tpu_torch.training.data_loader import Sample
+
+        g = torch.Generator().manual_seed(seed)
+        tex = torch.nn.functional.interpolate(
+            torch.rand(1, 3, (H + T) // 8 + 2, (W + 2 * T) // 8 + 2, generator=g),
+            scale_factor=8, mode="bicubic")[0].clamp(0, 1) * 255
+        video = torch.stack([tex[:, t : t + H, 2 * t : 2 * t + W] for t in range(T)])
+        x0 = torch.rand(N, generator=g) * (W - 1)
+        y0 = torch.rand(N, generator=g) * (H - 1)
+        t = torch.arange(T, dtype=torch.float32)[:, None]
+        trajs = torch.stack([x0 - 2 * t, y0 - t], dim=-1)  # (T, N, 2)
+        vis = ((trajs[..., 0] >= 0) & (trajs[..., 1] >= 0)).float()
+        self.sample = Sample(video.numpy(), trajs.numpy(), vis.numpy(), np.ones((T, N), np.float32))
+
+    def __len__(self):
+        return 1
+
+    def get(self, ix, rng):
+        return self.sample, True
+
+
+TRAIN_RES, TRAIN_TRACKS, TRAIN_ITERS = (384, 512), 768, 4
+
+
+def train_run(exp_dir, clip, steps, **kw):
+    """train() on `clip` for `steps` steps (resuming from exp_dir when it
+    holds a checkpoint); a visualisation hook at every step reads and zeroes
+    the launch counts and times the step. Returns per-step (step, counts, ms)."""
+    from cotracker_tpu_torch.training.trainer import TrainerArgs, train
+
+    args = TrainerArgs(exp_dir=exp_dir, batch_size=1, traj_per_sample=TRAIN_TRACKS,
+                       num_steps=steps, train_iters=TRAIN_ITERS, crop_size=TRAIN_RES,
+                       save_vis_every_n_steps=1, num_loader_workers=1, loader_prefetch=2,
+                       dataset_repeats=1, device="cuda", **kw)
+    per_step = []
+    clock = {}
+
+    def hook(model, batch, step):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        per_step.append((step, read_counts(), 1e3 * (now - clock["t"])))
+        zero_counts()
+        clock["t"] = time.perf_counter()
+
+    zero_counts()
+    torch.cuda.synchronize()
+    clock["t"] = time.perf_counter()
+    train(args, dataset=clip, vis_hook=hook)
+    return per_step
+
+
+def read_losses(exp_dir):
+    with open(os.path.join(exp_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_launches(name, per_step, expected):
+    for step, counts, _ in per_step:
+        if counts != expected:
+            raise AssertionError(f"{name}: step {step} launched {counts}, expected {expected}")
+    log(f"  launches per step, every step: {[k for k, v in expected.items() if v]} "
+        f"{[v for v in expected.values() if v]}, every other kernel 0")
+
+
+def training_phase(dev, smi):
+    """Phase 7 (see the module docstring). Returns the per-step launch
+    counts of the online K4r run and of the K4f run, and the metrics."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    zeros = dict.fromkeys(WRAPPERS, 0)
+    try:
+        log(f"training (a): online model, {TRAIN_RES[0]}x{TRAIN_RES[1]}, 24 frames in windows "
+            f"of 16, {TRAIN_TRACKS} tracks, iters={TRAIN_ITERS}, f32, K4r + remat, AdamW:")
+        clip = MovingClip(24, *TRAIN_RES, TRAIN_TRACKS)
+        online = dict(seq_len=24, offline_model=False, model_window_len=16, save_every_n_steps=4)
+        exp = os.path.join(root, "online")
+        torch.cuda.reset_peak_memory_stats()
+        run1 = train_run(exp, clip, 8, **online)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        windows = 2  # 24 frames in windows of 16 at step 8
+        k4r = 4 * TRAIN_ITERS * windows * 2
+        check_launches("training (a)", run1, {**zeros, "K4r_corr_volume_raw": k4r})
+        losses = [r["total_loss"] for r in read_losses(exp)]
+        ms = sorted(m for _, _, m in run1[2:])
+        ms_step = ms[len(ms) // 2] if len(ms) % 2 else 0.5 * (ms[len(ms) // 2 - 1] + ms[len(ms) // 2])
+        log(f"  total loss per step {[round(x, 4) for x in losses]}")
+        log(f"  ms per step {[round(m, 1) for _, _, m in run1]}; median of steps 3-8 "
+            f"{ms_step:.1f} ms; peak memory {peak:.2f} GiB ({smi})")
+        if not all(math.isfinite(x) for x in losses) or not min(losses) < losses[0]:
+            raise AssertionError("training (a): losses not finite or not decreasing")
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        if ckpts != ["model_000000004.pth", "model_000000008.pth", "model_final.pth"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+        os.remove(os.path.join(exp, "checkpoints", "model_000000008.pth"))
+        run2 = train_run(exp, clip, 8, **online)
+        resumed = read_losses(exp)[8:]
+        steps2 = [r["step"] for r in resumed]
+        diff = max(abs(a["total_loss"] - b["total_loss"]) / abs(a["total_loss"])
+                   for a, b in zip(read_losses(exp)[4:8], resumed))
+        log(f"  resumed from the step-4 checkpoint: steps {steps2}, hooks at {[s for s, _, _ in run2]}; "
+            f"losses of steps 4-7 against the first run: max relative difference {diff:.2e} "
+            f"(bound 1e-3: atomics in the backward's scatter-adds sum in another order)")
+        if steps2 != [4, 5, 6, 7] or [s for s, _, _ in run2] != [5, 6, 7, 8] or not diff <= 1e-3:
+            raise AssertionError("training (a): auto-resume did not continue from step 4")
+        check_launches("training (a) resumed", run2, {**zeros, "K4r_corr_volume_raw": k4r})
+
+        log("training (b): offline model, one 16-frame window, 3 steps:")
+        exp = os.path.join(root, "offline")
+        run = train_run(exp, MovingClip(16, *TRAIN_RES, TRAIN_TRACKS), 3, seq_len=16,
+                        offline_model=True, model_window_len=16, save_every_n_steps=0)
+        check_launches("training (b)", run, {**zeros, "K4r_corr_volume_raw": 4 * TRAIN_ITERS * 2})
+        off = [r["total_loss"] for r in read_losses(exp)]
+        log(f"  total loss per step {[round(x, 4) for x in off]}; ms per step "
+            f"{[round(m, 1) for _, _, m in run]}")
+        if not all(math.isfinite(x) for x in off):
+            raise AssertionError("training (b): non-finite loss")
+
+        log("training (c): online model with K4f (corr_quant_int8=False), 2 steps:")
+        exp = os.path.join(root, "k4f")
+        run_f = train_run(exp, clip, 2, corr_quant_int8=False, **online)
+        check_launches("training (c)", run_f, {**zeros, "K4f_corr_volume_float": k4r})
+        fl = [r["total_loss"] for r in read_losses(exp)]
+        log(f"  total loss per step {[round(x, 4) for x in fl]}; ms per step "
+            f"{[round(m, 1) for _, _, m in run_f]}")
+        if not all(math.isfinite(x) for x in fl):
+            raise AssertionError("training (c): non-finite loss")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return run1[-1][1], run_f[-1][1], dict(ms_per_step=ms_step, peak_gib=peak,
+                                           ms_per_step_offline=[m for _, _, m in run],
+                                           ms_per_step_k4f=[m for _, _, m in run_f])
+
+
+def gradient_phase(dev):
+    """Phase 8: the K4r and K4f training models against the plain one."""
+    from cotracker_tpu_torch.models.build import build_training_model
+    from cotracker_tpu_torch.training.train_step import (
+        TrainConfig, sample_queries_from_gt, tracker_loss_fn,
+    )
+
+    T, (H, W), N = 8, (64, 96), 32
+    clip = MovingClip(T, H, W, N, seed=4).sample
+    video = torch.from_numpy(clip.video).permute(0, 2, 3, 1)[None].to(dev)
+    trajs, vis = (torch.from_numpy(x)[None].to(dev) for x in (clip.trajectory, clip.visibility))
+    valids = torch.ones_like(vis)
+    queries = sample_queries_from_gt(trajs, vis, torch.Generator().manual_seed(0))
+    cfg = TrainConfig(iters=2, offline_model=True, sliding_window_len=T)
+    out = {}
+    for name, kw in (("plain", dict(corr_kernels=False)),
+                     ("K4r", dict(corr_kernels=True, corr_quant_int8=True)),
+                     ("K4f", dict(corr_kernels=True, corr_quant_int8=False))):
+        model = build_training_model(offline=True, window_len=T, model_resolution=(H, W),
+                                     device="cuda", seed=0, **kw)
+        loss, _ = tracker_loss_fn(model, video, trajs, vis, valids, queries, cfg)
+        loss.backward()
+        out[name] = (loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    loss0, g0 = out["plain"]
+    for name in ("K4r", "K4f"):
+        loss, g = out[name]
+        worst, worst_k = 0.0, None
+        for k, ref in g0.items():
+            tol = 2e-2 * ref.abs() + max(2e-3 * ref.abs().max().item(), 1e-7)
+            r = ((g[k] - ref).abs() / tol).max().item()
+            if r > worst:
+                worst, worst_k = r, k
+        rel = abs(loss - loss0) / abs(loss0)
+        log(f"  {name} against plain, 64x96, 8 frames, 32 tracks, iters=2: loss {loss:.6f} vs "
+            f"{loss0:.6f} (rel {rel:.2e}, bound 1e-3); largest gradient error / its bound "
+            f"{worst:.3f} ({worst_k})")
+        if not (rel <= 1e-3 and worst <= 1.0):
+            raise AssertionError(f"{name}: training gradients disagree with the plain model")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -542,20 +817,36 @@ def main():
 
     log("kernels vs plain versions (bf16, offline T=60 and streaming T=16 shapes):")
     kernels = kernel_phase(dev)
+    log("training kernels vs plain versions (f32, level 0, training shape and inference chunk):")
+    train_kernels = train_kernel_phase(dev)
     torch.cuda.empty_cache()
 
     log("offline main path: CoTrackerPredictor(fast=True), 384x512, iters=6:")
     launches, pfs = main_path(dev)
     torch.cuda.empty_cache()
     counts_a, counts_b, pfs_a, pfs_b = streaming_paths(dev)
+    torch.cuda.empty_cache()
+    step_r, step_f, train_metrics = training_phase(dev, smi)
+    torch.cuda.empty_cache()
+    log("gradients on the card, K4r and K4f training models against the plain model:")
+    gradient_phase(dev)
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming (b)
         k["launches"] = launches[k["name"]] or counts_b[k["name"]]
         k["launches_per_window"] = {"a": counts_a[k["name"]], "b": counts_b[k["name"]]}
+    for k in train_kernels:
+        # per training step: K4r in the online K4r run, K4f in the K4f run
+        k["launches"] = step_r[k["name"]] or step_f[k["name"]]
+        k["launches_per_step"] = {"k4r_run": step_r[k["name"]], "k4f_run": step_f[k["name"]]}
+    kernels += train_kernels
+    for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"points*frames/s: offline {pfs:.0f}, streaming (a) {pfs_a:.0f}, streaming (b) {pfs_b:.0f}")
+    log(f"training: {train_metrics['ms_per_step']:.1f} ms per online step "
+        f"({TRAIN_RES[0]}x{TRAIN_RES[1]}, 24 frames, {TRAIN_TRACKS} tracks, iters={TRAIN_ITERS}), "
+        f"peak memory {train_metrics['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

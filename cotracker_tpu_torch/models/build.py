@@ -1,4 +1,5 @@
-"""Model factory (port of cotracker_tpu/models/build.py, CoTracker3 only)."""
+"""Model factories (port of cotracker_tpu/models/build.py, CoTracker3 only,
+and of the model that cotracker_tpu/training/trainer.py builds)."""
 
 from typing import Optional, Tuple
 
@@ -42,3 +43,33 @@ def build_cotracker(
 
         load_checkpoint(model, checkpoint)
     return model.to(dev).eval()
+
+
+def build_training_model(
+    offline: bool = False,
+    window_len: Optional[int] = None,
+    model_resolution: Tuple[int, int] = (384, 512),
+    corr_kernels: bool = True,
+    corr_quant_int8: bool = True,
+    remat_iterations: bool = False,
+    device="cuda",
+    seed: int = 0,
+) -> CoTrackerThree:
+    """The model the trainer trains (JAX trainer.py:228-236): float32, the
+    unfolded iteration with plain updateformer blocks (K1-K7 off), and by
+    default the fast training configuration: each level's correlation
+    through K4r and the autograd wrapper (`corr_kernels`, int8 with
+    `corr_quant_int8`, K4f without), every iteration rematerialised (on
+    whenever corr_kernels is, as in JAX). Randomly initialised from `seed`,
+    in training mode, on `device` (CUDA by default)."""
+    dev = resolve_device(device)
+    if window_len is None:
+        window_len = 60 if offline else 16
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = CoTrackerThree(
+            window_len=window_len, model_resolution=model_resolution, dtype=torch.float32,
+            corr_kernels=corr_kernels, corr_quant_int8=corr_kernels and corr_quant_int8,
+            remat_iterations=remat_iterations or corr_kernels,
+        )
+    return model.to(dev).train()

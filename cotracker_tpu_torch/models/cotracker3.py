@@ -1,5 +1,5 @@
-"""CoTracker3 model, offline and streaming (port of
-cotracker_tpu/models/cotracker3.py, inference).
+"""CoTracker3 model, offline and streaming, inference and training (port of
+cotracker_tpu/models/cotracker3.py).
 
 Layouts as in the JAX package: videos (B, T, H, W, 3) in [0, 255], feature
 maps (B, T, H/4, W/4, 128), queries (B, N, 3) as (t, x, y) model pixels,
@@ -21,6 +21,13 @@ point-side blocks through the W8A8 kernels K1-K3; `attn_quant_int8=False`
 beside it keeps K4 and swaps K1-K3 for the attention-core kernels K5-K7
 between plain projections (the JAX package's `use_pallas_attn` without
 `attn_quant_int8`).
+
+Training (`is_train=True` of `forward` and `forward_windows`) runs the
+unfolded form with plain updateformer blocks. `corr_kernels` (the JAX
+package's `use_pallas_corr` with `corr_pallas_grad`) puts each level's
+correlation through K4r (`corr_quant_int8`) or K4f and the epilogue,
+wrapped in an autograd Function whose backward is the plain featurizer;
+`remat_iterations` recomputes each iteration in the backward pass.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cotracker_tpu_torch.models.blocks import BasicEncoder, Mlp
 from cotracker_tpu_torch.models.updateformer import EfficientUpdateFormer
@@ -169,15 +177,30 @@ class CoTrackerThree(nn.Module):
         kernels: bool = False,
         attn_kernels: Optional[bool] = None,
         attn_quant_int8: Optional[bool] = None,
+        corr_kernels: bool = False,
+        corr_quant_int8: bool = False,
+        remat_iterations: bool = False,
     ):
         """kernels: the K4 correlation kernel, and the default of the two
         updateformer switches. attn_kernels: the attention-core kernels
         K5-K7; attn_quant_int8: the W8A8 block kernels K1-K3, which take
         precedence where both are set. `kernels=True` alone is everything on
-        (K1-K4 run); `kernels=True, attn_quant_int8=False` runs K4-K7."""
+        (K1-K4 run); `kernels=True, attn_quant_int8=False` runs K4-K7.
+
+        The training switches, apart from `kernels` and turning on none of
+        K1-K7: corr_kernels, the per-level correlation through K4r or K4f
+        and the autograd wrapper (JAX `use_pallas_corr` + `corr_pallas_grad`:
+        one switch here, because the wrapper costs nothing without a
+        gradient); corr_quant_int8, K4r (int8 windows and support, JAX
+        `corr_quant_int8`) instead of K4f; remat_iterations, each iteration
+        checkpointed and recomputed in the backward pass (JAX `nn.remat` of
+        the iteration core)."""
         super().__init__()
         if kernels and not fold_input_proj:
             raise ValueError("kernels=True runs the folded correlation path; set fold_input_proj")
+        if kernels and corr_kernels:
+            raise ValueError("kernels=True (K4) and corr_kernels (K4r/K4f) are two correlation "
+                             "paths; set one")
         attn_kernels = kernels if attn_kernels is None else attn_kernels
         attn_quant_int8 = kernels if attn_quant_int8 is None else attn_quant_int8
         self.window_len, self.stride = window_len, stride
@@ -185,6 +208,8 @@ class CoTrackerThree(nn.Module):
         self.model_resolution = tuple(model_resolution)
         self.latent_dim, self.dtype = latent_dim, dtype
         self.corr_chunk, self.fold_input_proj, self.kernels = corr_chunk, fold_input_proj, kernels
+        self.corr_kernels, self.corr_quant_int8 = corr_kernels, corr_quant_int8
+        self.remat_iterations = remat_iterations
         P = 2 * corr_radius + 1
         self.fnet = BasicEncoder(output_dim=latent_dim, stride=stride)
         self.corr_mlp = Mlp(P**4, 384, 256)
@@ -260,7 +285,17 @@ class CoTrackerThree(nn.Module):
         # the int8 support
         packs = self.updateformer.quantize()
         corr_in = None
-        if self.kernels:
+        if self.corr_kernels:
+            # each level's codes (K4r) or padded float map (K4f) once per
+            # forward; the support is quantized per chunk inside the kernel
+            # path, from the compute dtype, as the JAX training path does
+            with torch.no_grad():
+                corr_in = {"raw_levels": [
+                    corr_cuda.build_int8_level(f, self.corr_radius) if self.corr_quant_int8
+                    else corr_cuda.build_float_level(f, self.corr_radius, self.dtype)
+                    for f in fmaps_pyramid
+                ]}
+        elif self.kernels:
             w1, _, _, _ = self._corr_weights()
             corr_in = {
                 "w1": corr_cuda.quantize_w1(w1, self.dtype),
@@ -270,12 +305,15 @@ class CoTrackerThree(nn.Module):
                     for f, s in zip(fmaps_pyramid, support_pyramid)
                 ],
             }
+        remat = self.remat_iterations and torch.is_grad_enabled()
         cp, vp, fp = [], [], []
         for _ in range(iters):
-            coords, vis, conf = self._iteration(
-                coords, vis, conf, fmaps_pyramid, support_pyramid, track_mask, time_emb,
-                packs, corr_in,
-            )
+            args = (coords, vis, conf, fmaps_pyramid, support_pyramid, track_mask, time_emb,
+                    packs, corr_in)
+            if remat:
+                coords, vis, conf = checkpoint(self._iteration, *args, use_reentrant=False)
+            else:
+                coords, vis, conf = self._iteration(*args)
             cp.append(coords * float(self.stride))
             vp.append(vis)
             fp.append(conf)
@@ -297,15 +335,20 @@ class CoTrackerThree(nn.Module):
         w1, b1, w2, b2 = self._corr_weights()
         uf = self.updateformer
 
+        def level_embs(i, w2_, b2_):
+            """Level i's correlation embedding (B, N, T, Do), plain or
+            through K4r/K4f and the autograd wrapper."""
+            args = (fmaps_pyramid[i], support_pyramid[i].transpose(1, 2), coords.to(cd) / 2**i,
+                    w1, b1, w2_, b2_)
+            kw = dict(radius=self.corr_radius, chunk=self.corr_chunk, compute_dtype=cd)
+            if self.corr_kernels:
+                return corr_cuda.fused_corr_embs_trainable(
+                    corr_in["raw_levels"][i], *args, quant_int8=self.corr_quant_int8, **kw)
+            return fused_corr_embs(*args, track_major=True, **kw)
+
         if not self.fold_input_proj:
-            corr_embs = torch.cat([
-                fused_corr_embs(
-                    fmaps_pyramid[i], support_pyramid[i].transpose(1, 2),
-                    coords.to(cd) / 2**i, w1, b1, w2, b2, radius=self.corr_radius,
-                    chunk=self.corr_chunk, compute_dtype=cd, track_major=True,
-                )
-                for i in range(self.corr_levels)
-            ], dim=-1)  # (B, N, T, 1024)
+            corr_embs = torch.cat([level_embs(i, w2, b2) for i in range(self.corr_levels)],
+                                  dim=-1)  # (B, N, T, 1024)
             x = torch.cat([
                 vis.transpose(1, 2)[..., None].to(cd), conf.transpose(1, 2)[..., None].to(cd),
                 corr_embs, posenc(rel, 0, 10).to(cd),
@@ -343,12 +386,7 @@ class CoTrackerThree(nn.Module):
             else:
                 x = None
                 for i in range(self.corr_levels):
-                    contrib = fused_corr_embs(
-                        fmaps_pyramid[i], support_pyramid[i].transpose(1, 2),
-                        coords.to(cd) / 2**i, w1, b1, w2.to(F32) @ slices[i],
-                        b2.to(F32) @ slices[i], radius=self.corr_radius,
-                        chunk=self.corr_chunk, compute_dtype=cd, track_major=True,
-                    )
+                    contrib = level_embs(i, w2.to(F32) @ slices[i], b2.to(F32) @ slices[i])
                     x = contrib if x is None else x + contrib
                 small = small_terms(vis.transpose(1, 2), conf.transpose(1, 2), rel)
                 x = x + small.to(cd)
@@ -372,35 +410,47 @@ class CoTrackerThree(nn.Module):
         conf = torch.zeros((B, T, N), dtype=F32, device=queries.device)
         return self.iterate(fmaps_pyramid, supports, coords, vis, conf, iters, track_mask)
 
-    def forward(self, video, queries, iters: int = 4, track_mask=None,
+    def forward(self, video, queries, iters: int = 4, track_mask=None, is_train: bool = False,
                 fmaps_chunk_size: Optional[int] = 200):
         """Offline forward, whole video as one window. video (B, T, H, W, 3)
         in [0, 255]; queries (B, N, 3) (t, x, y) model pixels; track_mask
         (B, N) marks real tracks. Returns (coords (B, T, N, 2) pixels,
-        vis, conf (B, T, N) probabilities, None)."""
-        fmaps = self.compute_fmaps(video, chunk_size=fmaps_chunk_size)
+        vis, conf (B, T, N) probabilities, train_data): train_data is None,
+        or with is_train the per-iteration stacks (coords (iters, B, T, N, 2)
+        pixels, vis and conf (iters, B, T, N) probabilities) and a valid mask
+        of ones (B, T, N)."""
+        fmaps = self.compute_fmaps(video, chunk_size=None if is_train else fmaps_chunk_size)
         cp, vp, fp = self.forward_from_pyramid(
             self.build_pyramid(fmaps), queries, iters=iters, track_mask=track_mask
         )
-        return cp[-1], torch.sigmoid(vp[-1]), torch.sigmoid(fp[-1]), None
+        train_data = None
+        if is_train:
+            train_data = (torch.stack(cp), torch.sigmoid(torch.stack(vp)),
+                          torch.sigmoid(torch.stack(fp)), torch.ones_like(vp[-1]))
+        return cp[-1], torch.sigmoid(vp[-1]), torch.sigmoid(fp[-1]), train_data
 
     # ------------------------------------------------------------ multi-window
 
     def forward_windows(self, video, queries, iters: int = 4, track_mask=None,
                         is_train: bool = False, fmaps_chunk_size: Optional[int] = 200):
         """Sliding-window forward over a full video with warm-started window
-        chaining: how the window-16 model runs non-streaming inference over
-        videos longer than one window. video (B, T, H, W, 3) in [0, 255];
-        queries (B, N, 3) (t, x, y) model pixels. Returns (coords (B, T, N, 2)
-        pixels, vis, conf (B, T, N) probabilities, None)."""
-        if is_train:
-            raise NotImplementedError("forward_windows: the training outputs are not ported")
+        chaining: how the window-16 model is trained and runs non-streaming
+        inference over videos longer than one window. video (B, T, H, W, 3)
+        in [0, 255]; queries (B, N, 3) (t, x, y) model pixels. Returns
+        (coords (B, T, N, 2) pixels, vis, conf (B, T, N) probabilities,
+        train_data): train_data is None, or with is_train the per-window
+        tuples of the iteration stacks (coords (iters, B, S, N, 2) pixels,
+        vis and conf (iters, B, S, N) probabilities; windows past T keep all
+        S frames) and the "query started" valid mask (B, T, N).
+
+        Each window starts from the previous window's last outputs and no
+        buffer is written in place, so gradients flow across windows
+        through the warm-started vis and conf (coords are detached at every
+        iteration, as in the reference)."""
         B, T = video.shape[:2]
-        N = queries.shape[1]
         S = self.window_len
         step = S // 2
         overlap = S - step
-        dev = video.device
         queried_frames = queries[..., 0].to(F32)
         queried_coords = queries[..., 1:3].to(F32) / self.stride
 
@@ -408,19 +458,20 @@ class CoTrackerThree(nn.Module):
         T_buf = step * (num_windows - 1) + S
         if T_buf > T:  # repeat the last frame
             video = torch.cat([video, video[:, -1:].expand(-1, T_buf - T, -1, -1, -1)], dim=1)
-        fmaps_pyramid = self.build_pyramid(self.compute_fmaps(video, chunk_size=fmaps_chunk_size))
+        fmaps = self.compute_fmaps(video, chunk_size=None if is_train else fmaps_chunk_size)
+        fmaps_pyramid = self.build_pyramid(fmaps)
         support_pyramid = self.track_feat_pyramid(fmaps_pyramid, queried_frames, queried_coords)
         if track_mask is not None:
             support_pyramid = [s * track_mask[:, None, :, None].to(s.dtype)
                                for s in support_pyramid]
 
-        coords_buf = torch.zeros((B, T_buf, N, 2), dtype=F32, device=dev)
-        vis_buf = torch.zeros((B, T_buf, N), dtype=F32, device=dev)  # logits
-        conf_buf = torch.zeros((B, T_buf, N), dtype=F32, device=dev)
+        prev = (None, None, None)  # the previous window's final coords, vis, conf logits
+        kept = []  # per window, the frames no later window rewrites
+        windows = []
         for w in range(num_windows):
             ind = w * step
             coords_init, vis_init, conf_init = self._window_init(
-                coords_buf, vis_buf, conf_buf, ind, overlap, queried_frames, queried_coords)
+                *prev, ind, overlap, queried_frames, queried_coords, buf_start=ind - step)
             # tracks not queried yet: support zeroed, excluded as keys
             active = queried_frames < float(ind + S)
             wmask = active if track_mask is None else active & track_mask.bool()
@@ -429,18 +480,28 @@ class CoTrackerThree(nn.Module):
                 [f[:, ind : ind + S] for f in fmaps_pyramid], sup, coords_init, vis_init,
                 conf_init, iters, track_mask=wmask,
             )
-            coords_buf[:, ind : ind + S] = cp[-1]
-            vis_buf[:, ind : ind + S] = vp[-1]
-            conf_buf[:, ind : ind + S] = fp[-1]
-        return (coords_buf[:, :T], torch.sigmoid(vis_buf[:, :T]), torch.sigmoid(conf_buf[:, :T]),
-                None)
+            prev = (cp[-1], vp[-1], fp[-1])
+            keep = S if w == num_windows - 1 else step
+            kept.append([t[:, :keep] for t in prev])
+            if is_train:
+                windows.append((torch.stack(cp), torch.sigmoid(torch.stack(vp)),
+                                torch.sigmoid(torch.stack(fp))))
+        coords, vis, conf = (torch.cat(parts, dim=1)[:, :T] for parts in zip(*kept))
+        train_data = None
+        if is_train:
+            valid_mask = (queried_frames[:, None, :]
+                          <= torch.arange(T, dtype=F32, device=video.device)[None, :, None])
+            train_data = (tuple(c for c, _, _ in windows), tuple(v for _, v, _ in windows),
+                          tuple(f for _, _, f in windows), valid_mask.to(F32))
+        return coords, torch.sigmoid(vis), torch.sigmoid(conf), train_data
 
     def _window_init(self, coords_buf, vis_buf, conf_buf, ind: int, overlap: int,
-                     queried_frames, queried_coords):
+                     queried_frames, queried_coords, buf_start: int = 0):
         """Initial coords (fmap units), vis and conf logits of the window at
         `ind`: the query position and zeros, and, past the first window, for
         tracks queried before `ind + overlap`, the previous window's
-        predictions on the overlap followed by its last frame repeated."""
+        predictions on the overlap followed by its last frame repeated. The
+        buffers hold frames from `buf_start` on (pixels for coords)."""
         B, N = queried_frames.shape
         S = self.window_len
         coords = queried_coords[:, None].expand(B, S, N, 2)
@@ -451,7 +512,7 @@ class CoTrackerThree(nn.Module):
         copy_over = (queried_frames < float(ind + overlap))[:, None, :]
 
         def warm(buf, init, scale=1.0):
-            sl = buf[:, ind : ind + overlap] / scale
+            sl = buf[:, ind - buf_start : ind - buf_start + overlap] / scale
             prev = torch.cat([sl, sl[:, -1:].expand(-1, S - overlap, *sl.shape[2:])], dim=1)
             cw = copy_over.reshape(copy_over.shape + (1,) * (buf.dim() - 3))
             return torch.where(cw, prev, init)

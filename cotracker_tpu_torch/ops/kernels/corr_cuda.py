@@ -1,7 +1,8 @@
-"""K4: the int8 correlation kernel of the fast featurizer, and the plain
-PyTorch around it (port of cotracker_tpu/ops/kernels/corr_pallas.py in its
-quant_int8 + fuse_combine mode: `_corr_level_plan.hidden` and
-`fused_corr_tokens_pallas`).
+"""K4, K4r, K4f: the correlation-volume kernels, and the plain PyTorch
+around them (port of cotracker_tpu/ops/kernels/corr_pallas.py).
+
+K4 is the inference fast path (quant_int8 + fuse_combine:
+`_corr_level_plan.hidden` and `fused_corr_tokens_pallas`):
 
 Per pyramid level and chunk of points, `corr_volume_int8` (the kernel,
 csrc/corr_window.cu) emits each point's bilinearly combined correlation
@@ -12,8 +13,16 @@ results, as XLA's s8 dot in the JAX package), dequantizes, adds the bias and
 applies the exact-erf GELU. The folded second layer and the small token
 terms are accumulated per chunk, so per-level embeddings never exist at full N.
 
+K4r and K4f emit the RAW window volume (no combine): K4r as int8 codes with
+a per-point scale over the raw volume (quant_int8), K4f in the compute
+dtype. `fused_corr_embs_kernel` runs either per level with the XLA epilogue
+of `fused_corr_embs_pallas` (combine, MLP1, exact GELU, fc2), and
+`fused_corr_embs_trainable` wraps it in an autograd Function whose backward
+is the plain `fused_corr_embs` (port of `fused_corr_embs_pallas_trainable`):
+the training path.
+
 The JAX kernel's eight x-shifted copies of the map are TPU DMA alignment
-work: the port pads and quantizes each level once per forward.
+work: the port pads (and quantizes) each level once per forward.
 """
 
 import ctypes
@@ -23,7 +32,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from cotracker_tpu_torch.ops.corr import edge_pad_index, window_starts_and_weights
+from cotracker_tpu_torch.ops.corr import (
+    edge_pad_index, fused_corr_embs, pad_fmaps, window_starts_and_weights,
+)
 from cotracker_tpu_torch.ops.kernels import _build
 
 F32 = torch.float32
@@ -41,6 +52,14 @@ def build_int8_level(fmaps, radius: int):
     padded = fmaps[:, :, iy][:, :, :, ix].to(F32)
     q = torch.round(padded * 128.0).clamp(-127.0, 127.0).to(torch.int8)
     return q.reshape(B * T, H + 2 * pad, W + 2 * pad, C).contiguous()
+
+
+def build_float_level(fmaps, radius: int, dtype):
+    """(B, T, H, W, C) level map -> (B*T, H+2p, W+2p, C) edge-padded in
+    `dtype`, p = 2*radius + 2: the K4f operand."""
+    B, T, H, W, C = fmaps.shape
+    pad = 2 * radius + 2
+    return pad_fmaps(fmaps, radius).to(dtype).reshape(B * T, H + 2 * pad, W + 2 * pad, C).contiguous()
 
 
 def quantize_support(support, dtype):
@@ -70,19 +89,27 @@ def quantize_w1(w1, compute_dtype):
 # ------------------------------------------------------------ the kernel
 
 
+def _window_products(fm, sup, starts):
+    """g (NP, Tp*64, 49) in f32: every frame's 8x8 window of `fm` (F, Hp, Wp,
+    C) at starts (NP, Tp, 3) int32 (frame, wsy, wsx) against sup (NP, 49, C),
+    rows in (t, y, x) order."""
+    NP, Tp, _ = starts.shape
+    C = fm.shape[-1]
+    d = torch.arange(WIN, device=fm.device)
+    f = starts[..., 0].long()[..., None, None]
+    yy = (starts[..., 1].long()[..., None] + d)[..., :, None]
+    xx = (starts[..., 2].long()[..., None] + d)[..., None, :]
+    win = fm[f, yy, xx].reshape(NP, Tp * WIN * WIN, C)
+    return torch.bmm(win.to(F32), sup.to(F32).transpose(1, 2))
+
+
 def corr_volume_plain(fmq, supq, starts, wxy):
     """Plain K4. fmq (F, Hp, Wp, C) int8 level codes; supq (NP, 49, C) int8;
     starts (NP, Tp, 3) int32 (frame, wsy, wsx); wxy (NP, Tp, 2) f32.
     Returns vol (NP, Tp, 64, 49) int8 and scale (NP,) f32."""
     NP, Tp, _ = starts.shape
-    C = fmq.shape[-1]
-    d = torch.arange(WIN, device=fmq.device)
-    f = starts[..., 0].long()[..., None, None]
-    yy = (starts[..., 1].long()[..., None] + d)[..., :, None]
-    xx = (starts[..., 2].long()[..., None] + d)[..., None, :]
-    win = fmq[f, yy, xx].reshape(NP, Tp * WIN * WIN, C)
     # integer products and partial sums stay below 2^24: exact in float32
-    g = torch.bmm(win.to(F32), supq.to(F32).transpose(1, 2))  # (NP, R, 49)
+    g = _window_products(fmq, supq, starts)  # (NP, R, 49)
     g01 = torch.roll(g, -1, dims=1)  # lane r+1 (x+1), wrapping over the slab
     g10 = torch.roll(g, -WIN, dims=1)  # lane r+8 (y+1)
     g11 = torch.roll(g, -WIN - 1, dims=1)
@@ -91,35 +118,69 @@ def corr_volume_plain(fmq, supq, starts, wxy):
     gx = g + wx * (g01 - g)
     gx1 = g10 + wx * (g11 - g10)
     c = gx + wy * (gx1 - gx)
+    return _quantize_volume(c, NP, Tp)
+
+
+def _quantize_volume(c, NP, Tp):
     scale = c.abs().amax(dim=(1, 2)).clamp_min(1e-20) * (1.0 / 127.0)
     q = torch.round(c * (1.0 / scale)[:, None, None]).to(torch.int8)
     return q.reshape(NP, Tp, WIN * WIN, S), scale
 
 
-_fn = []
+def corr_volume_raw_plain(fmq, supq, starts):
+    """Plain K4r: the raw volume g of corr_volume_plain's operands (no
+    combine) as int8 codes rint(g * (1/scale)), scale = max(absmax(g),
+    1e-20)/127 per point. Returns vol (NP, Tp, 64, 49) int8, scale (NP,) f32."""
+    NP, Tp, _ = starts.shape
+    return _quantize_volume(_window_products(fmq, supq, starts), NP, Tp)
 
 
-def _corr_volume_cuda(fmq, supq, starts, wxy):
-    for t in (fmq, supq, starts, wxy):
+def corr_volume_float_plain(fm, sup, starts):
+    """Plain K4f: fm (F, Hp, Wp, C) and sup (NP, 49, C) in one float dtype;
+    the raw volume accumulated in f32 and returned in that dtype as
+    (NP, Tp, 64, 49)."""
+    NP, Tp, _ = starts.shape
+    g = _window_products(fm, sup, starts)
+    return g.to(fm.dtype).reshape(NP, Tp, WIN * WIN, S)
+
+
+_fn = {}
+
+
+def _bound(name, *argtypes):
+    if name not in _fn:
+        _fn[name] = _build.bind(_build.load("corr_window"), name, *argtypes)
+    return _fn[name]
+
+
+def _check_operands(fm, sup, starts, dtypes, what):
+    for t in (fm, sup, starts):
         if t.device.type != "cuda":
             raise ValueError("kernel inputs must all be CUDA tensors")
-    if fmq.dtype != torch.int8 or supq.dtype != torch.int8 or fmq.shape[-1] != 128:
-        raise TypeError("K4 takes int8 level codes and support with C = 128")
-    if not _fn:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _fn.append(_build.bind(_build.load("corr_window"), "ct_corr_volume",
-                               P, P, P, P, P, P, I, I, I, I, P))
+    if fm.dtype not in dtypes or sup.dtype != fm.dtype or fm.shape[-1] != 128:
+        raise TypeError(f"{what} takes level map and support of one dtype in {dtypes} with C = 128")
+    if sup.shape[1:] != (S, 128) or starts.shape[0] != sup.shape[0]:
+        raise ValueError(f"{what}: support {tuple(sup.shape)}, starts {tuple(starts.shape)}")
+
+
+def _corr_volume_cuda(fmq, supq, starts, wxy, combine: bool):
+    _check_operands(fmq, supq, starts, (torch.int8,), "K4/K4r")
+    if combine and wxy.device.type != "cuda":
+        raise ValueError("kernel inputs must all be CUDA tensors")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bound("ct_corr_volume", P, P, P, P, P, P, I, I, I, I, I, P)
     NP, Tp, _ = starts.shape
     _, Hp, Wp, _ = fmq.shape
     starts = starts.to(torch.int32).contiguous()
-    wxy = wxy.to(F32).contiguous()
-    supq = supq.contiguous()
+    if combine:
+        wxy = wxy.to(F32).contiguous()
+    fmq, supq = fmq.contiguous(), supq.contiguous()
     vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
     scale = torch.empty((NP,), dtype=F32, device=fmq.device)
-    _build.check(_fn[0](
+    _build.check(fn(
         _build.ptr(fmq), _build.ptr(supq), _build.ptr(starts), _build.ptr(wxy),
-        _build.ptr(vol), _build.ptr(scale), NP, Tp, Hp, Wp, _build.stream_ptr(fmq)),
-        "ct_corr_volume")
+        _build.ptr(vol), _build.ptr(scale), NP, Tp, Hp, Wp, int(combine),
+        _build.stream_ptr(fmq)), "ct_corr_volume")
     return vol, scale
 
 
@@ -128,12 +189,48 @@ def corr_volume_int8(fmq, supq, starts, wxy):
     all frames and its scale; see corr_volume_plain for the layouts."""
     if fmq.device.type == "cpu":
         return corr_volume_plain(fmq, supq, starts, wxy)
-    out = _corr_volume_cuda(fmq, supq, starts, wxy)
+    out = _corr_volume_cuda(fmq, supq, starts, wxy, combine=True)
     corr_volume_int8.launches += 1
     return out
 
 
 corr_volume_int8.launches = 0
+
+
+def corr_volume_raw_int8(fmq, supq, starts):
+    """K4r: per point, the raw int8 correlation volume over all frames and
+    its scale; see corr_volume_raw_plain."""
+    if fmq.device.type == "cpu":
+        return corr_volume_raw_plain(fmq, supq, starts)
+    out = _corr_volume_cuda(fmq, supq, starts, None, combine=False)
+    corr_volume_raw_int8.launches += 1
+    return out
+
+
+corr_volume_raw_int8.launches = 0
+
+
+def corr_volume_float(fm, sup, starts):
+    """K4f: per point, the raw correlation volume over all frames in the
+    input dtype (f32 or bf16), accumulated in f32; see corr_volume_float_plain."""
+    if fm.device.type == "cpu":
+        return corr_volume_float_plain(fm, sup, starts)
+    _check_operands(fm, sup, starts, (F32, torch.bfloat16), "K4f")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    name = "ct_corr_volume_f32" if fm.dtype == F32 else "ct_corr_volume_bf16"
+    fn = _bound(name, P, P, P, P, I, I, I, I, P)
+    NP, Tp, _ = starts.shape
+    _, Hp, Wp, _ = fm.shape
+    starts = starts.to(torch.int32).contiguous()
+    fm, sup = fm.contiguous(), sup.contiguous()
+    vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=fm.dtype, device=fm.device)
+    _build.check(fn(_build.ptr(fm), _build.ptr(sup), _build.ptr(starts), _build.ptr(vol),
+                    NP, Tp, Hp, Wp, _build.stream_ptr(fm)), name)
+    corr_volume_float.launches += 1
+    return vol
+
+
+corr_volume_float.launches = 0
 
 
 # ------------------------------------------------------------ around it
@@ -212,3 +309,111 @@ def fused_corr_tokens(
             out = torch.empty((B, N) + tok.shape[2:], dtype=cd, device=tok.device)
         out[:, sl] = tok
     return out
+
+
+# ------------------------------------------------------------ per level, trainable
+
+
+def corr_hidden_raw(level, sup_c, coords, w1, b1, H, W, radius, compute_dtype, quant_int8):
+    """One level, one chunk, through K4r (quant_int8) or K4f and the XLA
+    epilogue of corr_pallas.py:757-783: GELU(MLP1(combined volume)) as
+    (B, n, T, Dh). level: build_int8_level / build_float_level output;
+    sup_c (B, n, 49, C); coords (B, T, n, 2) in this level's pixels."""
+    B, T, n, _ = coords.shape
+    cd = compute_dtype
+    P = 2 * radius + 1
+    starts, wxy = level_operands(coords, B, T, H, W, radius)
+    Tp = starts.shape[1]
+    if quant_int8:
+        # per-point support quantization, per chunk, from the compute dtype
+        amax = sup_c.to(cd).abs().amax(dim=(2, 3)).to(F32).clamp_min(1e-20)  # (B, n)
+        supq = torch.round(sup_c.to(cd).to(F32) * (127.0 / amax[..., None, None])).to(torch.int8)
+        vol, kscale = corr_volume_raw_int8(level, supq.reshape(B * n, S, -1), starts)
+        gscale = kscale.reshape(B, n) * (amax * (1.0 / 127.0 / 128.0))
+    else:
+        vol = corr_volume_float(level, sup_c.to(cd).reshape(B * n, S, -1), starts)
+    g = vol.reshape(B, n, Tp, WIN, WIN, S)[:, :, :T].to(cd)  # (B, n, T, y, x, s)
+    wxy = wxy.reshape(B, n, Tp, 2)[:, :, :T]
+    wxb = wxy[..., 0].to(cd)[..., None, None, None]
+    wyb = wxy[..., 1].to(cd)[..., None, None, None]
+    oyb, oxb = 1 - wyb, 1 - wxb
+    if quant_int8:
+        # the per-point dequant scale rides the y-weight pair: every combine
+        # term carries exactly one of wy / (1 - wy)
+        sc = gscale.to(cd)[:, :, None, None, None, None]
+        wyb = wyb * sc
+        oyb = oyb * sc
+    corr = (oyb * oxb * g[..., :P, :P, :] + oyb * wxb * g[..., :P, 1:, :]
+            + wyb * oxb * g[..., 1:, :P, :] + wyb * wxb * g[..., 1:, 1:, :])  # (B, n, T, y, x, s)
+    # w1 rows d = i_x*P*S + j_y*S + s, reordered to the volume's (y, x, s)
+    w1r = w1.reshape(P, P, S, -1).transpose(0, 1).reshape(P * P * S, -1)
+    h = corr.reshape(B, n, T, P * P * S) @ w1r.to(cd) + b1.to(cd)
+    return F.gelu(h, approximate="none")
+
+
+def fused_corr_embs_kernel(level, fmaps_hw, support, coords, w1, b1, w2, b2, radius: int = 3,
+                           chunk: Optional[int] = None, compute_dtype=F32,
+                           quant_int8: bool = True):
+    """Port of fused_corr_embs_pallas (track-major, unfolded): the same
+    contract as ops.corr.fused_corr_embs(track_major=True), the window
+    products on K4r (quant_int8) or K4f. level: this level's codes or float
+    map (build_int8_level / build_float_level); fmaps_hw: its unpadded
+    (H, W); support (B, N, 49, C); coords (B, T, N, 2) in level pixels.
+    Returns (B, N, T, Do) in the compute dtype."""
+    N = coords.shape[2]
+    cd = compute_dtype
+    H, W = fmaps_hw
+    chunk = N if chunk is None else chunk
+    outs = []
+    for s0 in range(0, N, chunk):
+        sl = slice(s0, min(s0 + chunk, N))
+        h = corr_hidden_raw(level, support[:, sl], coords[:, :, sl], w1, b1, H, W, radius, cd,
+                            quant_int8)
+        outs.append(h @ w2.to(cd) + b2.to(cd))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+class _TrainableCorr(torch.autograd.Function):
+    """K4r / K4f forward, plain-PyTorch backward (see fused_corr_embs_trainable)."""
+
+    @staticmethod
+    def forward(ctx, level, fmaps, support, coords, w1, b1, w2, b2, opts):
+        radius, chunk, cd, quant_int8 = opts
+        ctx.opts = opts
+        ctx.save_for_backward(fmaps, support, coords, w1, b1, w2, b2)
+        return fused_corr_embs_kernel(level, fmaps.shape[2:4], support, coords, w1, b1, w2, b2,
+                                      radius, chunk, cd, quant_int8)
+
+    @staticmethod
+    def backward(ctx, ct):
+        radius, chunk, cd, _ = ctx.opts
+        needs = ctx.needs_input_grad[1:8]
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = fused_corr_embs(*inputs, radius=radius, chunk=chunk, compute_dtype=cd,
+                                      track_major=True)
+            grads = iter(torch.autograd.grad(out, wanted, ct))
+        return (None, *(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def fused_corr_embs_trainable(level, fmaps, support, coords, w1, b1, w2, b2, radius: int = 3,
+                              chunk: Optional[int] = None, compute_dtype=F32,
+                              quant_int8: bool = True):
+    """Differentiable fused_corr_embs_kernel (port of
+    fused_corr_embs_pallas_trainable): K4r or K4f plus the epilogue forward,
+    and as backward the exact autograd of the plain ops.corr.fused_corr_embs
+    evaluated at the same inputs, recomputed from them. With quant_int8 the
+    forward is quantized while the backward stays full precision: a
+    straight-through estimator, as in the JAX package.
+
+    The backward is plain PyTorch on purpose: the JAX package's is XLA
+    autodiff (jax.vjp of fused_corr_embs), not a kernel, so there is none
+    to port. `level` is build_int8_level / build_float_level(fmaps) and gets
+    no gradient; `fmaps` (B, T, H, W, C) is the raw map, the gradient
+    channel to the encoder. Gradients reach fmaps, support, coords and the
+    MLP weights (the model detaches coords at each iteration)."""
+    return _TrainableCorr.apply(level, fmaps, support, coords, w1, b1, w2, b2,
+                                (radius, chunk, compute_dtype, quant_int8))

@@ -2,6 +2,7 @@
 
     python3 scripts/torch_breakdown.py [--frames 60]
     python3 scripts/torch_breakdown.py --online
+    python3 scripts/torch_breakdown.py --train
 
 Profiles (torch.profiler, CUDA activity) one call of each kernel wrapper
 K1-K4 at the bench shape (10,240 tracks x 60 frames, bf16; K4 at level 0,
@@ -18,6 +19,14 @@ attention-core kernels K5-K7 on, driven through online_step; device time is
 also summed by group (the hand-written kernels by name, library GEMMs,
 convolutions, everything else), and the window's feature stage (fnet on the
 8 new frames plus the pyramid) is profiled on its own. Writes chiprun_out/torch_breakdown_online.json.
+
+With --train it profiles one steady online training step (the third) at
+the reference training shape: 384x512, a 24-frame clip in two windows of
+16, 768 tracks, iters=4, f32, K4r with the autograd wrapper and remat,
+AdamW; the clip is chip_smoke's moving texture. Device time by group (K4r,
+the plain backward's gathers and scatters, library GEMMs, convolutions,
+the optimizer, everything else) and device busy against wall. Writes
+chiprun_out/torch_breakdown_train.json.
 """
 
 import argparse
@@ -59,22 +68,33 @@ GROUPS = (  # first match wins, on the device kernel's name
 )
 
 
-def group_table(prof):
-    """Device ms by group of GROUPS; what matches none is 'other'."""
+TRAIN_GROUPS = (
+    ("K4r corr_volume_kernel", ("corr_volume_kernel",)),
+    ("K4f corr_volume_float_kernel", ("corr_volume_float_kernel",)),
+    ("gathers and scatters (window gathers, their backward)", ("index", "gather", "scatter")),
+    ("convolutions (fnet, forward and backward)",
+     ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm", "nchw", "nhwc")),
+    ("library GEMMs (cuBLAS / CUTLASS)", ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
+    ("optimizer (multi-tensor AdamW)", ("multi_tensor", "foreach")),
+)
+
+
+def group_table(prof, groups=GROUPS):
+    """Device ms by group of `groups`; what matches none is 'other'."""
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         if t <= 0 or e.device_type.name != "CUDA":
             continue
         key = e.key.lower()
-        name = next((g for g, pats in GROUPS if any(p in key for p in pats)),
+        name = next((g for g, pats in groups if any(p in key for p in pats)),
                     "other (elementwise, reductions, copies, gathers)")
         ms, n = out.get(name, (0.0, 0))
         out[name] = (ms + t / 1e3, n + e.count)
     return sorted(out.items(), key=lambda kv: -kv[1][0])
 
 
-def run(name, fn, warm=True, groups=False):
+def run(name, fn, warm=True, groups=False, group_spec=GROUPS):
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -93,7 +113,7 @@ def run(name, fn, warm=True, groups=False):
     if groups:
         print("  by group:")
         res["groups"] = []
-        for g, (ms, n) in group_table(prof):
+        for g, (ms, n) in group_table(prof, group_spec):
             print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{n:<5d} {g}")
             res["groups"].append(dict(group=g, ms=ms, count=n))
     return res
@@ -146,11 +166,41 @@ def online(dev, smi):
         json.dump({"device": smi, "runs": out}, f, indent=1)
 
 
+def train(dev, smi):
+    """One steady online training step (see the module docstring)."""
+    from cotracker_tpu_torch.models.build import build_training_model
+    from cotracker_tpu_torch.training.data_loader import collate_batch
+    from cotracker_tpu_torch.training.train_step import TrainConfig, make_optimizer, train_step
+
+    clip = chip_smoke.MovingClip(24, 384, 512, 768)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in collate_batch([clip.sample]).items()}
+    model = build_training_model(offline=False, window_len=16, device="cuda")
+    optimizer, scheduler = make_optimizer(model, num_steps=100)
+    generator = torch.Generator().manual_seed(0)
+    cfg = TrainConfig(iters=4, offline_model=False, sliding_window_len=16)
+
+    def step():
+        train_step(model, optimizer, scheduler, batch, generator, cfg)
+
+    step()
+    step()
+    torch.cuda.reset_peak_memory_stats()
+    out = [run("online training step 3: 384x512, 24 frames, 768 tracks, iters=4, K4r + remat",
+               step, warm=False, groups=True, group_spec=TRAIN_GROUPS)]
+    out[0]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory {out[0]['peak_memory_gib']:.2f} GiB")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/torch_breakdown_train.json", "w") as f:
+        json.dump({"device": smi, "runs": out}, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--online", action="store_true",
                     help="profile one steady streaming window in each kernel configuration")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one steady online training step at the reference shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -163,6 +213,8 @@ def main():
     _build.build_all()
     if args.online:
         return online(dev, smi)
+    if args.train:
+        return train(dev, smi)
     g = torch.Generator().manual_seed(0)
     C, HID, H, D = chip_smoke.C, chip_smoke.HID, chip_smoke.HEADS, chip_smoke.DH
     lin = lambda o, i: chip_smoke.lin(g, o, i, dev)

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
-at small shapes (K5-K7 also at the full streaming width), float32 and
-bfloat16 (marker `cuda`; skips without a GPU).
+"""The CUDA kernels K1-K7, K4r and K4f against their plain PyTorch versions
+on the card, at small shapes (K5-K7 also at the full streaming width),
+float32 and bfloat16, and the training autograd wrapper's gradients against
+plain autograd (marker `cuda`; skips without a GPU).
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py -q
 
@@ -11,13 +12,17 @@ arithmetic is identical on both sides, so its codes and scales must match
 exactly. The attention cores K5-K7 have no int8 step: float32 within 1e-5
 of the output scale (summation order, expf against torch.exp), bfloat16
 within the rounding of the output and of the probabilities (two bf16 ulps,
-2^-7 relative to the largest output).
+2^-7 relative to the largest output). K4r's integer products are exact
+and its arithmetic the plain version's: codes and scales match exactly.
+K4f sums float32 products in another order: 1e-5 of the largest output in
+float32, one bf16 ulp (2^-8) of it in bfloat16.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cotracker_tpu_torch.ops.corr import fused_corr_embs
 from cotracker_tpu_torch.ops.kernels import attention_cuda, corr_cuda, mlp_int8_cuda
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +107,82 @@ def test_corr_volume(dev, T):
     rvol, rscale = corr_cuda.corr_volume_plain(fmq, supq.reshape(NP, 49, 128), starts, wxy)
     assert torch.equal(scale, rscale)
     assert torch.equal(vol, rvol)
+
+
+def _raw_operands(g, dev, B, T, Hh, W, NP):
+    fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(NP, 49, 128, generator=g), dim=-1)
+    coords = (torch.rand(B, T, NP // B, 2, generator=g) * torch.tensor([W + 6.0, Hh + 6.0]) - 3)
+    starts, _ = corr_cuda.level_operands(coords.to(dev), B, T, Hh, W, 3)
+    return fm.to(dev), sup.to(dev), starts
+
+
+@pytest.mark.parametrize("T", [5, 16])
+def test_corr_volume_raw(dev, T):
+    g = torch.Generator().manual_seed(30 + T)
+    fm, sup, starts = _raw_operands(g, dev, 2, T, 24, 32, 40)
+    fmq = corr_cuda.build_int8_level(fm, 3)
+    supq = torch.round(sup * 127.0).to(torch.int8)
+    n = corr_cuda.corr_volume_raw_int8.launches
+    vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
+    torch.cuda.synchronize()
+    assert corr_cuda.corr_volume_raw_int8.launches == n + 1
+    rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+    assert torch.equal(scale, rscale)
+    assert torch.equal(vol, rvol)
+    assert vol.abs().amax(dim=(1, 2, 3)).eq(127).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [5, 16])
+def test_corr_volume_float(dev, dtype, T):
+    g = torch.Generator().manual_seed(40 + T)
+    fm, sup, starts = _raw_operands(g, dev, 2, T, 24, 32, 40)
+    level = corr_cuda.build_float_level(fm, 3, dtype)
+    n = corr_cuda.corr_volume_float.launches
+    vol = corr_cuda.corr_volume_float(level, sup.to(dtype), starts)
+    torch.cuda.synchronize()
+    assert corr_cuda.corr_volume_float.launches == n + 1 and vol.dtype == dtype
+    ref = corr_cuda.corr_volume_float_plain(level, sup.to(dtype), starts)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-8
+    assert (vol.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("quant_int8", [False, True])
+def test_trainable_corr_on_card(dev, quant_int8):
+    """The autograd wrapper on the card: forward within the int8 step (K4r)
+    or float32 noise (K4f) of the plain featurizer, gradients equal to
+    plain autograd up to the order of the backward's atomic scatter-adds
+    (1e-5 of each gradient's largest)."""
+    g = torch.Generator().manual_seed(7)
+    B, T, N, Hh, W = 1, 6, 37, 24, 32
+    fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(B, N, 49, 128, generator=g), dim=-1)
+    coords = torch.rand(B, T, N, 2, generator=g) * torch.tensor([W + 4.0, Hh + 4.0]) - 2
+    w = [torch.randn(2401, 64, generator=g) * 0.02, torch.randn(64, generator=g) * 0.1,
+         torch.randn(64, 32, generator=g) * 0.1, torch.randn(32, generator=g) * 0.1]
+    inputs = [t.to(dev) for t in (fm, sup, coords, *w)]
+    level = (corr_cuda.build_int8_level(inputs[0], 3) if quant_int8
+             else corr_cuda.build_float_level(inputs[0], 3, torch.float32))
+    a = [t.clone().requires_grad_() for t in inputs]
+    b = [t.clone().requires_grad_() for t in inputs]
+    out = corr_cuda.fused_corr_embs_trainable(level, *a, chunk=16, quant_int8=quant_int8)
+    ref = fused_corr_embs(*b, chunk=16, track_major=True)
+    tol = 1e-2 if quant_int8 else 1e-5
+    assert (out - ref).abs().max() <= tol * ref.abs().max()
+    ct = torch.randn(out.shape, generator=g).to(dev)
+    for x, y in zip(torch.autograd.grad(out, a, ct), torch.autograd.grad(ref, b, ct)):
+        assert (x - y).abs().max() <= 1e-5 * y.abs().max()
+
+
+def test_raw_volumes_raise_instead_of_falling_back(dev):
+    fmq = torch.zeros(2, 24, 24, 128, dtype=torch.int8, device=dev)
+    starts = torch.zeros(3, 2, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        corr_cuda.corr_volume_raw_int8(fmq, torch.zeros(3, 49, 128, dtype=torch.int8), starts)
+    with pytest.raises(TypeError, match="one dtype"):
+        corr_cuda.corr_volume_float(fmq.float(), torch.zeros(3, 49, 128, device=dev).half(),
+                                    starts)
 
 
 def _core_close(out, ref, dtype):

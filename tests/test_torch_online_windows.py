@@ -71,9 +71,25 @@ def test_streaming_equals_forward_windows(model, T):
 
 
 def test_forward_windows_training_outputs_not_ported(model):
-    video, queries = random_inputs(np.random.default_rng(0), 1, 8, *RES, 2)
-    with pytest.raises(NotImplementedError):
-        model.forward_windows(torch.from_numpy(video), torch.from_numpy(queries), is_train=True)
+    """is_train returns the training outputs (this test pinned their absence
+    before they were ported, and keeps its name): per window the iteration
+    stacks of coords (pixels), vis and conf (probabilities), all S frames
+    of a window past the end kept; the last window's last iteration is what
+    the forward returns on its frames; the "query started" valid mask.
+    T=10 with windows of 8 at step 4: two windows, the second past T."""
+    video, queries = random_inputs(np.random.default_rng(0), 1, 10, *RES, 3)
+    queries[0, :, 0] = [0, 3, 6]
+    with torch.no_grad():
+        coords, vis, conf, (cw, vw, fw, valid) = model.forward_windows(
+            torch.from_numpy(video), torch.from_numpy(queries), iters=2, is_train=True)
+    assert len(cw) == len(vw) == len(fw) == 2
+    assert cw[1].shape == (2, 1, S, 3, 2) and vw[1].shape == fw[1].shape == (2, 1, S, 3)
+    torch.testing.assert_close(coords[:, 4:], cw[1][-1][:, :6], rtol=0, atol=0)
+    # the sigmoid of a stack and of one slice may round apart by an ulp
+    torch.testing.assert_close(vis[:, 4:], vw[1][-1][:, :6], rtol=1e-6, atol=0)
+    torch.testing.assert_close(conf[:, :4], fw[0][-1][:, :4], rtol=1e-6, atol=0)
+    expected = (queries[0, :, 0][None, None, :] <= np.arange(10)[None, :, None])
+    np.testing.assert_array_equal(valid.numpy(), expected.astype(np.float32))
 
 
 def test_returned_tensors_are_not_rewritten(model):

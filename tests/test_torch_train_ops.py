@@ -1,0 +1,249 @@
+"""The port's training stack on its own (PyTorch only, CPU, float32): query
+sampling, the autograd wrapper of the correlation kernels against autograd
+through the plain featurizer, the training model's switches (remat, K4r /
+K4f) against the plain model, gradients across the online windows, the data
+loader and the trainer's checkpoints and hooks. The comparisons with the
+JAX package are in test_torch_train.py.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cotracker_tpu_torch.models.build import build_training_model
+from cotracker_tpu_torch.ops.corr import fused_corr_embs
+from cotracker_tpu_torch.ops.kernels import corr_cuda
+from cotracker_tpu_torch.training import train_step as TS
+from cotracker_tpu_torch.training.data_loader import (
+    PrefetchLoader, RepeatedDataset, Sample, collate_batch,
+)
+from cotracker_tpu_torch.training.trainer import TrainerArgs, find_auto_resume, train
+
+torch.set_num_threads(2)
+
+
+def test_queries_land_on_visible_frames():
+    """As tests/test_training.py for the JAX package: every query sits on a
+    visible frame of its track at that frame's position, and the last 3/4
+    of the tracks use their first visible frame; the draw follows the
+    generator."""
+    rng = np.random.default_rng(3)
+    B, T, N = 2, 10, 16
+    vis = (rng.random((B, T, N)) > 0.5).astype(np.float32)
+    vis[:, 3] = 1.0
+    trajs = rng.standard_normal((B, T, N, 2)).astype(np.float32)
+    q = TS.sample_queries_from_gt(torch.from_numpy(trajs), torch.from_numpy(vis),
+                                  torch.Generator().manual_seed(0)).numpy()
+    t = q[..., 0].astype(int)
+    for b in range(B):
+        for n in range(N):
+            assert vis[b, t[b, n], n] == 1.0
+            np.testing.assert_array_equal(q[b, n, 1:], trajs[b, t[b, n], n])
+    first = np.argmax(vis > 0, axis=1)
+    assert (t[:, N // 4:] == first[:, N // 4:]).all()
+    again = TS.sample_queries_from_gt(torch.from_numpy(trajs), torch.from_numpy(vis),
+                                      torch.Generator().manual_seed(0)).numpy()
+    np.testing.assert_array_equal(q, again)
+
+
+@pytest.mark.parametrize("quant_int8", [False, True])
+def test_trainable_corr_grads_equal_plain_autograd(quant_int8):
+    """The autograd Function's gradients for every differentiable input
+    (maps, support, coords, both MLP layers) equal autograd through the
+    plain fused_corr_embs at the same inputs exactly: its backward is that
+    computation. The forward agrees with the plain featurizer to float32
+    noise (K4f) or the int8 step (K4r: 1% of the output scale)."""
+    g = torch.Generator().manual_seed(5)
+    B, T, N, H, W = 1, 3, 7, 12, 16
+    fm = torch.nn.functional.normalize(torch.randn(B, T, H, W, 128, generator=g), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(B, N, 49, 128, generator=g), dim=-1)
+    coords = torch.rand(B, T, N, 2, generator=g) * torch.tensor([W + 4.0, H + 4.0]) - 2
+    w = [torch.randn(2401, 32, generator=g) * 0.02, torch.randn(32, generator=g) * 0.1,
+         torch.randn(32, 16, generator=g) * 0.1, torch.randn(16, generator=g) * 0.1]
+    level = (corr_cuda.build_int8_level(fm, 3) if quant_int8
+             else corr_cuda.build_float_level(fm, 3, torch.float32))
+    a = [t.clone().requires_grad_() for t in (fm, sup, coords, *w)]
+    b = [t.clone().requires_grad_() for t in (fm, sup, coords, *w)]
+    out = corr_cuda.fused_corr_embs_trainable(level, *a, chunk=4, quant_int8=quant_int8)
+    ref = fused_corr_embs(*b, chunk=4, track_major=True)
+    tol = 1e-2 if quant_int8 else 1e-5
+    assert (out - ref).abs().max() <= tol * ref.abs().max()
+    ct = torch.randn(out.shape, generator=g)
+    for x, y in zip(torch.autograd.grad(out, a, ct), torch.autograd.grad(ref, b, ct)):
+        assert torch.equal(x, y)
+
+
+def _batch(T=8, H=32, W=32, N=6, seed=0):
+    rng = np.random.default_rng(seed)
+    video = torch.from_numpy((rng.random((1, T, H, W, 3)) * 255).astype(np.float32))
+    start = rng.random((N, 2)) * np.array([W - 1, H - 1])
+    trajs = start + np.arange(T)[:, None, None] * rng.uniform(-1.5, 1.5, (N, 2))
+    trajs = torch.from_numpy(trajs[None].astype(np.float32))
+    vis = ((trajs >= 0) & (trajs <= torch.tensor([W - 1.0, H - 1.0]))).all(-1).float()
+    vis[0, 0] = 1.0
+    queries = TS.sample_queries_from_gt(trajs, vis, torch.Generator().manual_seed(1))
+    return video, trajs, vis, torch.ones_like(vis), queries
+
+
+def _grads(model, batch, cfg):
+    loss, _ = TS.tracker_loss_fn(model, *batch, cfg)
+    loss.backward()
+    return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("offline", [True, False])
+def test_training_switches_keep_loss_and_grads(offline):
+    """On one batch (64x96, T=8, 32 tracks, iters=2; online: window 6, two
+    windows, the second past the end): remat alone changes nothing (the same
+    arithmetic, recomputed); K4f with remat agrees with the plain model to
+    float32 noise (loss rtol 1e-5, gradients 1e-3 of each tensor's largest);
+    K4r quantizes the forward and not the backward (a straight-through
+    estimator), and is held to the bounds of tests/test_training.py (loss
+    rtol 1e-3, gradients rtol 2e-2 and atol max(2e-3 x each tensor's
+    largest, 1e-7)), as chip_smoke holds the card. The 1e-7 floor is for the
+    gradients that are zero up to float32 noise (the encoder's conv biases
+    ahead of instance norm)."""
+    batch = _batch(H=64, W=96, N=32)
+    win = 8 if offline else 6
+    cfg = TS.TrainConfig(iters=2, offline_model=offline, sliding_window_len=win)
+    kw = dict(offline=offline, window_len=win, model_resolution=(64, 96), device="cpu", seed=0)
+    loss0, g0 = _grads(build_training_model(corr_kernels=False, **kw), batch, cfg)
+    for switches, rtol, gtol, gatol in (
+        (dict(corr_kernels=False, remat_iterations=True), 1e-6, 0.0, 1e-6),
+        (dict(corr_kernels=True, corr_quant_int8=False), 1e-5, 0.0, 1e-3),
+        (dict(corr_kernels=True, corr_quant_int8=True), 1e-3, 2e-2, 2e-3),
+    ):
+        loss, g = _grads(build_training_model(**switches, **kw), batch, cfg)
+        np.testing.assert_allclose(loss, loss0, rtol=rtol, err_msg=str(switches))
+        for k, ref in g0.items():
+            ref, out = ref.numpy(), g[k].numpy()
+            atol = max(gatol * np.abs(ref).max(), 1e-7)
+            np.testing.assert_allclose(out, ref, rtol=gtol, atol=atol, err_msg=f"{switches} {k}")
+
+
+def test_online_gradient_crosses_windows():
+    """T=12 in two windows of 8 at step 4: a loss on the second window's
+    visibility reaches frames 0-3, which only the first window sees,
+    through the warm-started vis logits when the tracks are queried at
+    frame 4 (inside the first window's overlap), and not at all when they
+    are queried at frame 9 (no warm start)."""
+    video, trajs, vis, valids, queries = _batch(T=12)
+    model = build_training_model(window_len=8, model_resolution=(32, 32), corr_kernels=False,
+                                 device="cpu")
+
+    def early_frames_grad(query_frame):
+        q = queries.clone()
+        q[..., 0] = query_frame
+        v = video.clone().requires_grad_()
+        *_, (coords_w, vis_w, _, _) = model.forward_windows(v, q, iters=1, is_train=True)
+        assert len(vis_w) == 2 and vis_w[1].shape == (1, 1, 8, 6)
+        (grad,) = torch.autograd.grad(vis_w[1].sum(), v)
+        return grad[:, :4].abs().sum().item()
+
+    assert early_frames_grad(4.0) > 0
+    assert early_frames_grad(9.0) == 0
+
+
+class _Clips:
+    """Clips of 5 or 7 frames; the frame values carry the worker's draw."""
+
+    def __len__(self):
+        return 4
+
+    def get(self, ix, rng):
+        T = 5 if ix % 2 else 7
+        v = np.full((T, 3, 4, 4), rng.random(), np.float32)
+        ones = np.ones((T, 3), np.float32)
+        return Sample(v, np.zeros((T, 3, 2), np.float32), ones, ones), ix != 3
+
+
+def test_collate_pads_ragged_time():
+    """Clips of 5 and 7 frames stack to 7: video and tracks repeat the last
+    frame, visibility and valids are 0 on the padding."""
+    rng = np.random.default_rng(0)
+    batch = collate_batch([_Clips().get(1, rng)[0], _Clips().get(0, rng)[0]])
+    assert batch["video"].shape == (2, 7, 4, 4, 3)
+    assert (batch["valids"][0, 5:] == 0).all() and (batch["valids"][0, :5] == 1).all()
+    assert (batch["vis_g"][0, 5:] == 0).all() and (batch["valids"][1] == 1).all()
+    np.testing.assert_array_equal(batch["video"][0, 6], batch["video"][0, 4])
+
+
+def test_loader_workers_draw_from_their_own_generators():
+    """Each worker owns a generator seeded (seed, worker): with one worker
+    the stream of draws is reproducible, and failed samples are skipped;
+    RepeatedDataset serves index i from i % len. A worker's exception comes
+    out of next()."""
+    def draws(seed):
+        loader = PrefetchLoader(RepeatedDataset(_Clips(), 2), 1, seed=seed, num_workers=1,
+                                prefetch=2)
+        try:
+            return [float(next(loader)["video"][0, 0, 0, 0, 0]) for _ in range(6)]
+        finally:
+            loader.close()
+
+    first = draws(3)
+    assert first == draws(3) and first != draws(4)
+    w = np.random.default_rng([3, 1])
+    assert first[0] == np.float32(w.random())
+
+    class Broken(_Clips):
+        def get(self, ix, rng):
+            raise ValueError("unreadable clip")
+
+    loader = PrefetchLoader(Broken(), 1, seed=0, num_workers=2)
+    with pytest.raises(ValueError, match="unreadable clip"):
+        next(loader)
+    loader.close()
+    assert not any(t.is_alive() for t in loader._threads)
+
+
+class _Moving:
+    """One 8-frame 32x32 clip of noise with 6 tracks."""
+
+    def __len__(self):
+        return 1
+
+    def get(self, ix, rng):
+        video, trajs, vis, valids, _ = _batch()
+        return Sample(video[0].permute(0, 3, 1, 2).numpy(), trajs[0].numpy(), vis[0].numpy(),
+                      valids[0].numpy()), True
+
+
+def test_trainer_checkpoints_resume_and_hooks(tmp_path):
+    """train() on the CPU (offline model, window 8, iters=1): a checkpoint
+    every 2 steps and a final one, auto-resume from the latest step
+    checkpoint at its step (a removed step-4 checkpoint makes the second
+    call resume at 2 and redo steps 2-3 with the same losses), the hooks on
+    their cadences, and NotImplementedError for what is not ported."""
+    args = TrainerArgs(exp_dir=str(tmp_path), num_steps=4, train_iters=1, save_every_n_steps=2,
+                       eval_every_n_steps=2, save_vis_every_n_steps=3, num_loader_workers=1,
+                       dataset_repeats=1, crop_size=(32, 32), model_window_len=8,
+                       use_corr_kernels=True, device="cpu")
+    calls = []
+    train(args, dataset=_Moving(), eval_hook=lambda m, s: calls.append(("eval", s)) or {"s": s},
+          vis_hook=lambda m, b, s: calls.append(("vis", s)))
+    assert calls == [("eval", 2), ("vis", 3), ("eval", 4)]
+    ckpt = tmp_path / "checkpoints"
+    assert sorted(os.listdir(ckpt)) == ["model_000000002.pth", "model_000000004.pth",
+                                        "model_final.pth"]
+    assert find_auto_resume(str(ckpt)).endswith("model_000000004.pth")
+    log = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")]
+    assert [r["step"] for r in log] == [0, 1, 2, 3]
+    assert all(np.isfinite(r["total_loss"]) for r in log)
+
+    os.remove(ckpt / "model_000000004.pth")
+    train(args, dataset=_Moving(), eval_hook=lambda m, s: {}, vis_hook=lambda m, b, s: None)
+    log2 = [json.loads(line) for line in open(tmp_path / "train_log.jsonl")][4:]
+    assert [r["step"] for r in log2] == [2, 3]
+    for a, b in zip(log[2:], log2):
+        np.testing.assert_allclose(b["total_loss"], a["total_loss"], rtol=1e-5)
+
+    with pytest.raises(NotImplementedError, match="Kubric"):
+        train(args)
+    with pytest.raises(NotImplementedError, match="eval"):
+        train(args, dataset=_Moving(), vis_hook=lambda m, b, s: None)
+    with pytest.raises(NotImplementedError, match="visualisation"):
+        train(args, dataset=_Moving(), eval_hook=lambda m, s: {})
