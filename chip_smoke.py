@@ -19,6 +19,9 @@ Phases, each raising on failure:
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames): K4r's codes and
      scales bit-identical to its plain version, K4f within a float32 bound;
+     then K8 (LN + W8A8 q|kv) and K9 (W8A8 out + MLP), the two halves of the
+     time block's split, in bf16 at the long path's point tokens (2,048
+     tracks x 250 frames) and virtual tokens (64 x 250);
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
      (384x512, 4 levels, 3+3 blocks, iters=6) on a synthetic
      (1, 60, 3, 384, 512) video with a 100x100 grid of queries (10,000
@@ -53,7 +56,21 @@ Phases, each raising on failure:
      iters=2 through the K4r, the K4f and the plain training models of the
      same weights; the loss within rtol 1e-3 and every gradient within rtol
      2e-2, atol max(2e-3 x its largest, 1e-7) of the plain model's (the
-     bounds of tests/test_training.py for the JAX package's kernel model).
+     bounds of tests/test_training.py for the JAX package's kernel model);
+  9. the long offline path: CoTrackerPredictor(fast=True) at full width on a
+     (1, 250, 3, 384, 512) video with a 50x50 grid (2,500 points, padded to
+     2,560), counters zeroed before and read after one forward: videos over
+     128 frames take the time block's split, K8 36, K5 36, K9 36, K1 0, K2 18,
+     K3 18, K4 48; shapes, finiteness, snap-back, seconds per forward,
+     points*frames/s and peak memory;
+ 10. evaluation: a synthetic TAP-Vid DAVIS pickle (a texture moving at
+     constant velocity, from a seed) with sequence A (250 frames, 231 tracks:
+     with the 5x5 grid 256 tracks, the track gate on, both token kinds
+     split) and B (80 frames, 40 tracks: 128 padded tracks, the track gate
+     off, K5 between plain projections, plain space blocks), through
+     evaluate.run_eval(fast=True) in joint mode, launch counts asserted per
+     sequence, metric keys finite, expconfig.json and result_eval_.json
+     written; then the single-point protocol on three of B's queries.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -390,6 +407,79 @@ def train_kernel_phase(dev):
     return [out[k] for k in sorted(out)]
 
 
+LONG_T, LONG_TRACKS = 250, 2048  # the long path's point tokens (2,048 tracks x 250 frames)
+
+
+def bf16_ulp_frac(out, ref):
+    """Fraction of elements further than one bf16 ulp of the reference
+    element (2^(floor(log2|ref|) - 7)) from it."""
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return ((out.float() - r).abs() > ulp).float().mean().item()
+
+
+def split_kernel_phase(dev):
+    """K8 and K9 against their plain versions in bf16 at the long path's
+    point tokens (the contract's keys) and virtual tokens (`*_virtual`).
+    K8 within one bf16 ulp: the two sides differ only where the LayerNorm's
+    last float32 ulp (reduction order, rsqrt against 1/sqrt) moves an int8
+    code at a rounding tie, so its median error is within half a bf16 ulp of
+    the mean output, its largest within one ulp of the largest output
+    (2^-7 of it), and at most 1% of the elements further than one ulp of
+    their reference; K9 within K1's bounds (median 1% of the mean, max 5% of
+    the largest: its GELU codes' row scale moves with a last-ulp tanh)."""
+    g = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    w = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
+                                       lin(g, HID, C, dev), lin(g, C, HID, dev))
+    wbytes = nbytes(*[t for q in w for t in q])
+    out = {}
+    for M, sfx in ((LONG_TRACKS, ""), (V, "_virtual")):
+        rows = M * LONG_T
+        x = torch.randn(M, LONG_T, C, generator=g).to(dev, bf)
+        a = (0.5 * torch.randn(M, LONG_T, C, generator=g)).to(dev, bf)
+
+        q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)
+        rq, rkv = mlp_int8_cuda.ln_qkv_plain(x, w.qkv)
+        o, r = torch.cat([q, kv], -1), torch.cat([rq, rkv], -1)
+        err = check_close(f"K8 ln + q|kv {M}x{LONG_T}", o, r, 2.0**-9, 2.0**-7)
+        frac = bf16_ulp_frac(o, r)
+        log(f"    elements further than one bf16 ulp: {frac:.2e} (bound 1e-2)")
+        if frac > 1e-2:
+            raise AssertionError("K8: kernel disagrees with its plain version")
+        del q, kv, rq, rkv, o, r
+        e = out.setdefault("K8_ln_qkv", dict(
+            name="K8_ln_qkv", route="cuda", source=SRC_BLOCKS,
+            replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:269", launches=0,
+            max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        bnd = bound(nbytes(x) * 4 + wbytes, [(rows * 2 * C * 3 * C, INT8_OPS)])
+        e.update({"ms" + sfx: time_ms(lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)),
+                  "plain_ms" + sfx: time_ms(lambda: mlp_int8_cuda.ln_qkv_plain(x, w.qkv), reps=2),
+                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
+
+        y = mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w)
+        ry = mlp_int8_cuda.attnout_mlp_plain(a, x, w)
+        err = check_close(f"K9 out + MLP {M}x{LONG_T}", y, ry, 0.01, 0.05)
+        del y, ry
+        e = out.setdefault("K9_attnout_mlp", dict(
+            name="K9_attnout_mlp", route="cuda", source=SRC_BLOCKS,
+            replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:335", launches=0,
+            max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        bnd = bound(nbytes(x) * 3 + wbytes, [(rows * 2 * (C * C + 2 * C * HID), INT8_OPS)])
+        e.update({"ms" + sfx: time_ms(lambda: mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w)),
+                  "plain_ms" + sfx: time_ms(lambda: mlp_int8_cuda.attnout_mlp_plain(a, x, w),
+                                            reps=2),
+                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
+        for k in out.values():
+            log(f"  {k['name']} {M}x{LONG_T}: {k['ms' + sfx]:.3f} ms (plain "
+                f"{k['plain_ms' + sfx]:.3f} ms, bound {k['bound_ms' + sfx]:.3f} ms by "
+                f"{k['bound_by' + sfx]})")
+        del x, a
+    return [out[k] for k in sorted(out)]
+
+
 def synthetic_video(T, H, W, dev):
     """A smooth random texture drifting a few pixels per frame, in [0, 255]."""
     g = torch.Generator().manual_seed(1)
@@ -472,6 +562,8 @@ WRAPPERS = {
     "K7_virtual_from_points": attention_cuda.fused_virtual_from_points,
     "K4r_corr_volume_raw": corr_cuda.corr_volume_raw_int8,
     "K4f_corr_volume_float": corr_cuda.corr_volume_float,
+    "K8_ln_qkv": mlp_int8_cuda.fused_ln_qkv_int8,
+    "K9_attnout_mlp": mlp_int8_cuda.fused_attnout_res_mlp_int8,
 }
 
 
@@ -793,6 +885,148 @@ def gradient_phase(dev):
             raise AssertionError(f"{name}: training gradients disagree with the plain model")
 
 
+def long_path(dev):
+    """Phase 9: the offline predictor on a 250-frame video (see the module
+    docstring). Returns the launch counts of one forward and its metrics."""
+    from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    pred = CoTrackerPredictor(fast=True, device="cuda")
+    video = synthetic_video(LONG_T, 384, 512, dev)
+    grid = 50
+    n, n_pad = grid * grid, -(-grid * grid // 512) * 512
+    expected = {**dict.fromkeys(WRAPPERS, 0), "K8_ln_qkv": 36, "K5_time_attention": 36,
+                "K9_attnout_mlp": 36, "K2_space_block": 18, "K3_virtual_from_points_proj": 18,
+                "K4_corr_volume": 4 * 6 * -(-n_pad // pred.model.corr_chunk)}
+    t0 = time.perf_counter()
+    pred(video, grid_size=grid)  # warm-up
+    torch.cuda.synchronize()
+    log(f"  warm-up forward {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = pred(video, grid_size=grid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  forward {dt:.3f} s for {n} points x {LONG_T} frames: {n * LONG_T / dt:.0f} "
+        f"points*frames/s; peak memory {peak:.1f} GiB")
+    log(f"  launches per forward {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError("the long path did not launch every kernel as expected")
+    if tuple(tracks.shape) != (1, LONG_T, n, 2) or tuple(vis.shape) != (1, LONG_T, n):
+        raise AssertionError(f"shapes {tuple(tracks.shape)}, {tuple(vis.shape)}")
+    if not torch.isfinite(tracks).all():
+        raise AssertionError("non-finite tracks")
+    q = get_points_on_a_grid(grid, (384, 512)).to(dev)[0]
+    if not (torch.equal(tracks[0, 0], q) and bool(vis[0, 0].all())):
+        raise AssertionError("snap-back: frame-0 tracks differ from the grid queries")
+    log("  shapes, finiteness and snap-back ok")
+    return launches, dict(seconds=dt, points_frames_per_s=n * LONG_T / dt, peak_gib=peak)
+
+
+# the evaluation phase's sequences: (name, frames, tracks, launches per
+# forward). A: 231 queries + the 5x5 grid = 256 tracks (the track gate on;
+# at 250 frames both token kinds take the split). B: 40 + 25 = 65 tracks,
+# padded to 128 (the gate off: K5 between plain projections in the time
+# blocks, the space blocks plain); the single-point protocol's 1 + 64 + 25
+# = 90 tracks pad to 128 too.
+EVAL_SEQS = (
+    ("A", LONG_T, 231, dict(K8_ln_qkv=36, K5_time_attention=36, K9_attnout_mlp=36,
+                            K2_space_block=18, K3_virtual_from_points_proj=18, K4_corr_volume=24)),
+    ("B", 80, 40, dict(K5_time_attention=36, K4_corr_volume=24)),
+)
+
+
+def write_tapvid_pickle(path):
+    """A TAP-Vid DAVIS-format pickle of EVAL_SEQS at the 256x256 raster:
+    MovingClip's texture and tracks, every track visible at frame 0."""
+    import pickle
+
+    data = {}
+    for i, (name, T, N, _) in enumerate(EVAL_SEQS):
+        clip = MovingClip(T, 256, 256, N, seed=10 + i).sample
+        data[name] = {
+            "video": np.ascontiguousarray(clip.video.transpose(0, 2, 3, 1)).round().astype(np.uint8),
+            "points": (clip.trajectory.transpose(1, 0, 2) / 255.0).astype(np.float32),
+            "occluded": ~clip.visibility.T.astype(bool),
+        }
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
+def evaluation_phase(dev):
+    """Phase 10 (see the module docstring). Returns the launch counts of
+    sequence A's forward and the seconds per sequence."""
+    from cotracker_tpu_torch.datasets.tap_vid import TapVidDataset
+    from cotracker_tpu_torch.evaluation import evaluation_predictor as ep
+    from cotracker_tpu_torch.evaluation.evaluate import DefaultConfig, run_eval
+    from cotracker_tpu_torch.models.build import build_cotracker
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    zeros = dict.fromkeys(WRAPPERS, 0)
+    per_call = []
+    call = ep.EvaluationPredictor.__call__
+
+    def counted(self, video, queries):  # counts and seconds of each sequence
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, video, queries)
+        torch.cuda.synchronize()
+        per_call.append((read_counts(), time.perf_counter() - t0, video.shape[1]))
+        return out
+
+    try:
+        pkl = os.path.join(root, "tapvid_davis.pkl")
+        write_tapvid_pickle(pkl)
+        cfg = DefaultConfig(exp_dir=os.path.join(root, "exp"), dataset_root=pkl,
+                            dataset_name="tapvid_davis_first", fast=True, device="cuda")
+        ep.EvaluationPredictor.__call__ = counted
+        try:
+            metrics = run_eval(cfg)
+        finally:
+            ep.EvaluationPredictor.__call__ = call
+        secs = {}
+        for (name, T, N, want), (counts, sec, frames) in zip(EVAL_SEQS, per_call):
+            expected = {**zeros, **want}
+            log(f"  sequence {name}: {frames} frames, {N} queries + 25 grid points: {sec:.2f} s; "
+                f"launches {counts}")
+            if frames != T or counts != expected:
+                raise AssertionError(f"evaluation sequence {name}: expected {expected}")
+            secs[name] = sec
+        keys = ("average_jaccard", "average_pts_within_thresh", "occlusion_accuracy")
+        avg = metrics["avg"]
+        log(f"  TAP-Vid metrics (random weights: the values mean nothing) {avg}")
+        if len(per_call) != 2 or not all(k in avg and math.isfinite(avg[k]) for k in keys):
+            raise AssertionError("evaluation: missing or non-finite metrics")
+        for f in ("expconfig.json", "result_eval_.json", "result_tapvid_davis_first.json"):
+            if not os.path.exists(os.path.join(cfg.exp_dir, f)):
+                raise AssertionError(f"evaluation: {f} not written")
+
+        # the single-point protocol on three of B's queries: one forward each
+        sample = TapVidDataset(pkl, "davis")[1]
+        qp = sample.query_points[:3]
+        queries = np.stack([qp[:, 0], qp[:, 2], qp[:, 1]], axis=1)[None]
+        single = ep.EvaluationPredictor(build_cotracker(fast=True, device="cuda"),
+                                        single_point=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        tracks, vis = single(sample.video[None], queries)
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        expected = {**zeros, "K5_time_attention": 3 * 36, "K4_corr_volume": 3 * 24}
+        log(f"  single-point protocol, 3 queries of B: {sec:.2f} s; launches {counts}")
+        if counts != expected or tracks.shape != (1, 80, 3, 2) or not np.isfinite(tracks).all():
+            raise AssertionError(f"single-point evaluation: expected {expected}")
+        secs["B_single_point_3"] = sec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return per_call[0][0], secs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -820,6 +1054,10 @@ def main():
     log("training kernels vs plain versions (f32, level 0, training shape and inference chunk):")
     train_kernels = train_kernel_phase(dev)
     torch.cuda.empty_cache()
+    log(f"split time-block kernels K8, K9 vs plain versions (bf16, {LONG_TRACKS} and {V} tracks x "
+        f"{LONG_T} frames):")
+    kernels += split_kernel_phase(dev)
+    torch.cuda.empty_cache()
 
     log("offline main path: CoTrackerPredictor(fast=True), 384x512, iters=6:")
     launches, pfs = main_path(dev)
@@ -830,10 +1068,20 @@ def main():
     torch.cuda.empty_cache()
     log("gradients on the card, K4r and K4f training models against the plain model:")
     gradient_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"long offline path: CoTrackerPredictor(fast=True), 384x512, {LONG_T} frames, iters=6:")
+    long_counts, long_metrics = long_path(dev)
+    torch.cuda.empty_cache()
+    log("evaluation: evaluate.run_eval(fast=True) on a synthetic TAP-Vid DAVIS pickle:")
+    eval_counts, eval_secs = evaluation_phase(dev)
     for k in kernels:
-        # K1-K4 from the offline forward, K5-K7 from a window of streaming (b)
-        k["launches"] = launches[k["name"]] or counts_b[k["name"]]
-        k["launches_per_window"] = {"a": counts_a[k["name"]], "b": counts_b[k["name"]]}
+        # K1-K4 from the offline forward, K5-K7 from a window of streaming
+        # (b), K8 and K9 from the long forward
+        name = k["name"]
+        k["launches"] = launches[name] or counts_b[name] or long_counts[name]
+        k["launches_per_window"] = {"a": counts_a[name], "b": counts_b[name]}
+        k["launches_long_forward"] = long_counts[name]
+        k["launches_eval_sequence_a"] = eval_counts[name]
     for k in train_kernels:
         # per training step: K4r in the online K4r run, K4f in the K4f run
         k["launches"] = step_r[k["name"]] or step_f[k["name"]]
@@ -847,6 +1095,9 @@ def main():
     log(f"training: {train_metrics['ms_per_step']:.1f} ms per online step "
         f"({TRAIN_RES[0]}x{TRAIN_RES[1]}, 24 frames, {TRAIN_TRACKS} tracks, iters={TRAIN_ITERS}), "
         f"peak memory {train_metrics['peak_gib']:.2f} GiB")
+    log(f"long offline forward ({LONG_T} frames, 2,500 points): {long_metrics['seconds']:.3f} s, "
+        f"{long_metrics['points_frames_per_s']:.0f} points*frames/s, peak memory "
+        f"{long_metrics['peak_gib']:.1f} GiB; evaluation seconds {eval_secs} ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """cotracker_tpu_torch — the PyTorch/CUDA port of cotracker_tpu for NVIDIA Hopper.
 
 The package mirrors the JAX package's module names (`ops/`, `models/`,
-`predictor.py`) and its public layouts: channel-last feature maps
-(B, T, H, W, C), track-major tokens (B, N, T, C), videos (B, T, 3, H, W) at
-the predictor. Plain tensor code is PyTorch; the kernels of the offline and
-streaming paths (K1-K7) are hand-written CUDA for sm_90a (`csrc/`), built at
-first use and bound through ctypes (`ops/kernels/_build.py`).
+`predictor.py`, `training/`, `datasets/`, `evaluation/`) and its public
+layouts: channel-last feature maps (B, T, H, W, C), track-major tokens
+(B, N, T, C), videos (B, T, 3, H, W) at the predictor. Plain tensor code is
+PyTorch; the kernels (K1-K9, K4r, K4f) are hand-written CUDA for sm_90a
+(`csrc/`), built at first use and bound through ctypes
+(`ops/kernels/_build.py`).
 
     from cotracker_tpu_torch import CoTrackerPredictor, CoTrackerOnlinePredictor
 

@@ -10,12 +10,19 @@ compute dtype.
 Two independent kernel switches, with the JAX package's meaning
 (`quant_int8` and `use_pallas_attn` there) and precedence. With `quant_int8`,
 AttnBlock and CrossAttnBlock run their bodies through the W8A8 kernels of
-ops/kernels (K1 time block, K2 points<-virtual block, K3 virtual<-points
-projection+attention). With `attn_kernels`, Attention runs its products
-through the attention-core kernels (K5 time, K6 points<-virtual, K7
-virtual<-points) between plain projections; a block with both switches set
-runs the W8A8 kernel wherever that applies. Unlike the JAX package there are
-no tiling gates: the kernels take any track count and frame count.
+ops/kernels (K1 time block, or its split K8 -> K5 -> K9; K2 points<-virtual
+block, K3 virtual<-points projection+attention). With `attn_kernels`,
+Attention runs its products through the attention-core kernels (K5 time, K6
+points<-virtual, K7 virtual<-points) between plain projections; a block with
+both switches set runs the W8A8 kernel wherever that applies.
+
+The kernels take any track and frame count, but the JAX package's shape
+gates decide which function a block computes, and the port keeps them
+(ops/kernels/gates.py): the space blocks run their kernels only where
+`space_tile_ok(N)` holds, a time block runs W8A8 only with the
+updateformer's `quant_ok` and a multiple of 8 rows (the attention core too),
+and a W8A8 time block is K1 where `pick_time_tile` finds a track tile and the
+split K8 -> K5 -> K9 where it does not.
 """
 
 from typing import Optional
@@ -25,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cotracker_tpu_torch.ops.bilinear import interp_matrix_1d
-from cotracker_tpu_torch.ops.kernels import attention_cuda, mlp_int8_cuda
+from cotracker_tpu_torch.ops.kernels import attention_cuda, gates, mlp_int8_cuda
 
 F32 = torch.float32
 NEG = -torch.finfo(torch.float32).max  # the plain paths' additive mask bias
@@ -176,7 +183,7 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None, attn_bias=None):
         h, d = self.num_heads, self.dim_head
-        if self.attn_kernels and context is None and attn_bias is None:
+        if self.attn_kernels and context is None and attn_bias is None and x.shape[0] % 8 == 0:
             q = dense(self.to_q, x, self.dtype)
             kv = dense(self.to_kv, x, self.dtype)  # K|V unsplit: the kernel slices heads
             out = attention_cuda.fused_time_attention(q, kv, h, d)
@@ -198,7 +205,7 @@ class Attention(nn.Module):
         h, d = self.num_heads, self.dim_head
         B, T, V, _ = virtual.shape
         N = points.shape[1]
-        if self.attn_kernels:
+        if self.attn_kernels and gates.space_tile_ok(N):
             q = dense(self.to_q, virtual, self.dtype)  # (B, T, V, C)
             kv = dense(self.to_kv, points, self.dtype)  # (B, N, T, 2C)
             bias = None
@@ -227,7 +234,7 @@ class Attention(nn.Module):
         h, d = self.num_heads, self.dim_head
         B, N, T, _ = points.shape
         V = virtual.shape[2]
-        if self.attn_kernels and query_mask is None:
+        if self.attn_kernels and query_mask is None and gates.space_tile_ok(N):
             q = dense(self.to_q, points, self.dtype)  # (B, N, T, C)
             kv = dense(self.to_kv, virtual, self.dtype)  # (B, T, V, 2C)
             out = torch.stack([
@@ -247,9 +254,11 @@ class Attention(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm self-attention + MLP block. With `quant_int8` (and no mask)
-    the body is the K1 whole-block W8A8 kernel; otherwise, with
-    `attn_kernels` (and no mask), its attention core is the K5 kernel."""
+    """Pre-norm self-attention + MLP block. With `quant_int8`, `quant_ok`, no
+    mask and a multiple of 8 rows, the body is W8A8: the K1 whole-block
+    kernel where the JAX tile gate finds a track tile, else K8 -> K5 -> K9.
+    Otherwise, with `attn_kernels` (and no mask), its attention core is the
+    K5 kernel between plain projections."""
 
     def __init__(self, hidden_size=384, num_heads=8, mlp_ratio=4.0, dtype=F32,
                  attn_kernels: bool = False, quant_int8: bool = False):
@@ -274,10 +283,19 @@ class AttnBlock(nn.Module):
             fc2=mlp_int8_cuda.quantize_linear(self.mlp.fc2.weight, self.mlp.fc2.bias),
         )
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None, pack=None):
-        if self.quant_int8 and mask is None:
+    def forward(self, x, mask: Optional[torch.Tensor] = None, pack=None, quant_ok: bool = True,
+                max_tokens: int = gates.FLAT_TOKENS):
+        """x (M, T, C). quant_ok: the updateformer's track gate; max_tokens:
+        the token cap of the JAX whole-block kernel's tile for these tokens."""
+        M, T = x.shape[:2]
+        if self.quant_int8 and quant_ok and mask is None and M % 8 == 0:
             pack = self.quantize() if pack is None else pack
-            return mlp_int8_cuda.fused_time_block_int8(x, pack, self.num_heads, self.dim_head)
+            h, d = self.num_heads, self.dim_head
+            if gates.pick_time_tile(M, T, max_tokens) is not None:
+                return mlp_int8_cuda.fused_time_block_int8(x, pack, h, d)
+            q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, pack.qkv)
+            a = attention_cuda.fused_time_attention(q, kv, h, d)
+            return mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, pack)
         attn_bias = None
         if mask is not None:
             pm = mask[:, None, :] & mask[:, :, None]
@@ -290,7 +308,8 @@ class CrossAttnBlock(nn.Module):
     """Pre-norm cross-attention + MLP block; `key_mask` masks context keys.
     With `quant_int8` the points-side work of the two factorized space
     attentions runs through the K2/K3 kernels; otherwise, with
-    `attn_kernels`, their attention cores are the K6/K7 kernels."""
+    `attn_kernels`, their attention cores are the K6/K7 kernels. Either only
+    where `space_tile_ok(N)` holds: elsewhere both run plain, as in JAX."""
 
     def __init__(self, hidden_size=384, context_dim=384, num_heads=8, mlp_ratio=4.0,
                  dtype=F32, attn_kernels: bool = False, quant_int8: bool = False):
@@ -331,7 +350,7 @@ class CrossAttnBlock(nn.Module):
 
     def virtual_from_points(self, virtual, points, key_mask=None, pack=None):
         """virtual (B, T, V, C) queries; points (B, N, T, C) keys/values."""
-        if self.quant_int8:
+        if self.quant_int8 and gates.space_tile_ok(points.shape[1]):
             pack = self.quantize_v2p() if pack is None else pack
             return self._quant_virtual_from_points(virtual, points, key_mask, pack)
         ctx = self.norm_context(points)
@@ -360,7 +379,7 @@ class CrossAttnBlock(nn.Module):
 
     def points_from_virtual(self, points, virtual, query_mask=None, pack=None):
         """points (B, N, T, C) queries; virtual (B, T, V, C) keys/values."""
-        if self.quant_int8 and query_mask is None:
+        if self.quant_int8 and query_mask is None and gates.space_tile_ok(points.shape[1]):
             pack = self.quantize_p2v() if pack is None else pack
             kv = dense(self.cross_attn.to_kv, self.norm_context(virtual), self.dtype)
             return torch.stack([

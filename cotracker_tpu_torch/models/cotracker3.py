@@ -17,10 +17,12 @@ concatenated into the 1110-d input and projected), and `fold_input_proj`,
 which folds the input projection into each level's correlation MLP second
 layer. With `kernels` (the fast path, which requires fold_input_proj) the
 correlation runs through the K4 int8 kernel and the update transformer's
-point-side blocks through the W8A8 kernels K1-K3; `attn_quant_int8=False`
-beside it keeps K4 and swaps K1-K3 for the attention-core kernels K5-K7
-between plain projections (the JAX package's `use_pallas_attn` without
-`attn_quant_int8`).
+point-side blocks through the W8A8 kernels K1-K3 (K8 -> K5 -> K9 for the
+time blocks of videos over 128 frames; with fewer than 256 tracks the JAX
+gates leave K5 between plain projections and plain space blocks, see
+models/blocks.py); `attn_quant_int8=False` beside it keeps K4 and swaps
+K1-K3 for the attention-core kernels K5-K7 between plain projections (the
+JAX package's `use_pallas_attn` without `attn_quant_int8`).
 
 Training (`is_train=True` of `forward` and `forward_windows`) runs the
 unfolded form with plain updateformer blocks. `corr_kernels` (the JAX

@@ -6,6 +6,12 @@ virtual <- points, virtual <- virtual, points <- virtual. Point and virtual
 tokens stay separate tensors; the shared time block runs on both. Module
 names follow the reference state_dict (parameter `virtual_tracks` is the
 reference's `virual_tracks`, renamed by models/checkpoint.py).
+
+The JAX package's gates hold here too (ops/kernels/gates.py): where the
+space blocks cannot tile N tracks, the W8A8 time blocks are off as well
+(`quant_ok`), and a W8A8 time block's tile cap is 1,024 tokens for the point
+tokens (the JAX 4D entry, taken whenever the W8A8 space blocks run) and
+1,536 for the virtual tokens.
 """
 
 from typing import Optional
@@ -14,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from cotracker_tpu_torch.models.blocks import AttnBlock, CrossAttnBlock, dense
+from cotracker_tpu_torch.ops.kernels import gates
 
 F32 = torch.float32
 
@@ -37,7 +44,7 @@ class EfficientUpdateFormer(nn.Module):
         super().__init__()
         self.time_depth, self.space_depth = time_depth, space_depth
         self.hidden_size, self.dtype = hidden_size, dtype
-        self.add_space_attn = add_space_attn
+        self.add_space_attn, self.quant_int8 = add_space_attn, quant_int8
         self.input_transform = nn.Linear(input_dim, hidden_size)
         self.virtual_tracks = nn.Parameter(torch.randn(1, num_virtual_tracks, 1, hidden_size))
         blk = dict(num_heads=num_heads, mlp_ratio=mlp_ratio, dtype=dtype)
@@ -84,11 +91,15 @@ class EfficientUpdateFormer(nn.Module):
         tokens = x if x_is_tokens else dense(self.input_transform, x, self.dtype)
         V = self.virtual_tracks.shape[1]
         virtual = self.virtual_tracks.to(tokens.dtype).expand(B, V, T, C)
+        quant_ok = gates.space_tile_ok(N) if self.quant_int8 and self.add_space_attn else True
+        point_cap = gates.POINT_TOKENS if self.add_space_attn else gates.FLAT_TOKENS
         j = 0
         for i in range(self.time_depth):
             tb, tp = self.time_blocks[i], packs["time"][i]
-            tokens = tb(tokens.reshape(B * N, T, C), pack=tp).reshape(B, N, T, C)
-            virtual = tb(virtual.reshape(B * V, T, C), pack=tp).reshape(B, V, T, C)
+            tokens = tb(tokens.reshape(B * N, T, C), pack=tp, quant_ok=quant_ok,
+                        max_tokens=point_cap).reshape(B, N, T, C)
+            virtual = tb(virtual.reshape(B * V, T, C), pack=tp,
+                         quant_ok=quant_ok).reshape(B, V, T, C)
             if self.add_space_attn and i % (self.time_depth // self.space_depth) == 0:
                 vt = virtual.transpose(1, 2)  # (B, T, V, C)
                 vt = self.space_virtual2point_blocks[j].virtual_from_points(

@@ -27,9 +27,10 @@ configuration that runs the attention-core kernels without W8A8. Common
 contract: heads of 48 read as lane slices of the unsplit K|V projection,
 float32 logits and softmax, probabilities rounded to the value dtype before
 P.V, float32 accumulation, one rounding to the query dtype. The kernels are
-csrc/attention_cores.cu (see there for what bounds them); unlike the Pallas
-wrappers they take any number of rows, tracks and keys, up to 512 frames
-(K5) or virtual tokens (K6).
+csrc/attention_cores.cu (see there for what bounds them); they take any
+number of rows, tracks and keys, up to 512 frames (K5) or virtual tokens
+(K6), and the JAX package's shape gates decide where the model runs them
+(models/blocks.py).
 
 Each wrapper takes its plain PyTorch version for CPU tensors, and for CUDA
 tensors launches its kernel or raises; `launches` counts the kernel runs.

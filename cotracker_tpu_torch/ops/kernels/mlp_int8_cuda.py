@@ -1,11 +1,16 @@
-"""W8A8 whole-block kernels K1 (time block) and K2 (points<-virtual block).
+"""W8A8 block kernels: K1 (whole time block), K2 (whole points<-virtual
+block), and K8 / K9, the two W8A8 halves of the time block's three-kernel
+split around the K5 attention core.
 
 K1 replaces cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel
 (wrapper fused_time_block_int8), K2 its ::_space_block_kernel (wrapper
 fused_space_block_int8). On the H100 each is a chain of hand-written
 launches of csrc/int8_blocks.cu (LN + row quant, tensor-core s8 GEMMs with
-fused dequant/bias/GELU/residual epilogues, the attention core); see that
-file for what bounds them and what the design does about it.
+fused dequant/bias/GELU/residual epilogues, the attention core). K8 replaces
+::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel (wrapper
+fused_attnout_res_mlp_int8), one launch each: a row tile's activations, its
+f32 residual and its GELU codes stay in shared memory. See csrc/int8_blocks.cu
+for what bounds them and what the design does about it.
 
 Contract (quantization scheme of the JAX package):
   * weights: per-output-channel symmetric int8, scale max(absmax, 1e-20)/127,
@@ -16,9 +21,12 @@ Contract (quantization scheme of the JAX package):
 
 Each wrapper takes its plain PyTorch version for CPU tensors, and for CUDA
 tensors launches the kernel chain or raises; `launches` counts the kernel
-runs. Unlike the Pallas wrappers there is no tiling gate: any number of
-tracks is taken, and up to 512 frames (K1) or virtual tokens (K2), whose
-keys the attention core holds in shared memory.
+runs. The wrappers take any number of rows and tracks, and up to 512
+frames (K1) or virtual tokens (K2), whose keys the attention core holds in
+shared memory. Which of K1 or K8 -> K5 -> K9 a time block runs is the
+JAX package's decision (ops/kernels/gates.py, models/blocks.py): the two
+differ in bfloat16, where the split rounds the attention output to the token
+dtype before K9 quantizes it and K1 quantizes it in float32.
 """
 
 import ctypes
@@ -107,6 +115,32 @@ def _mlp_tail_plain(a32, x32, w, eps):
     return r + torch._int_mm(uq, w.fc2.w.t()).to(F32) * (sr1 * w.fc2.s) + w.fc2.b
 
 
+def ln_qkv_plain(x, wqkv: QLinear, eps=1e-6):
+    """Plain K8: x (..., C) -> (q (..., C), kv (..., 2C)) in x.dtype, from
+    the stacked [to_q; to_kv] weights (3C, C)."""
+    C = x.shape[-1]
+    hq, sr = quant_rows(ln_rows(x.to(F32).reshape(-1, C), eps))
+    qkv = qlinear_plain(hq, sr, wqkv).to(x.dtype)
+    lead = x.shape[:-1]
+    return qkv[:, :C].reshape(*lead, C), qkv[:, C:].reshape(*lead, -1)
+
+
+def attnout_mlp_plain(a, x, w: TimeBlockWeights, eps=1e-6):
+    """Plain K9: a (..., C) the attention-core output, x (..., C) the
+    residual stream -> (..., C) in x.dtype:
+
+        r = x + to_out(a); return r + fc2(gelu(fc1(ln(r)))), all W8A8
+
+    with the JAX body's additions: (x + product) + bias, r + (product + bias)."""
+    C = x.shape[-1]
+    x32 = x.to(F32).reshape(-1, C)
+    aq, sa = quant_rows(a.to(F32).reshape(-1, C))
+    r = x32 + torch._int_mm(aq, w.out.w.t()).to(F32) * (sa * w.out.s) + w.out.b
+    hq, sh = quant_rows(ln_rows(r, eps))
+    uq, su = quant_rows(gelu_tanh(qlinear_plain(hq, sh, w.fc1)))
+    return (r + qlinear_plain(uq, su, w.fc2)).to(x.dtype).reshape(x.shape)
+
+
 def time_block_plain(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6):
     """Plain K1: x (M, T, C) -> (M, T, C) in x.dtype."""
     M, T, C = x.shape
@@ -152,6 +186,9 @@ def _lib():
                                        _F, _P)
         _fns["v2p_flash"] = _build.bind(lib, "ct_v2p_flash", _P, _P, _P, _I, _P, _I, _I, _I, _I,
                                         _I, _F, _P)
+        _fns["k8"] = _build.bind(lib, "ct_k8_ln_qkv", _P, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P)
+        _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _F, _P, _P)
     return _fns
 
 
@@ -265,3 +302,68 @@ def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps
 
 
 fused_space_block_int8.launches = 0
+
+
+SPLIT_C, SPLIT_H = 384, 1536  # the widths K8 and K9 are built for
+
+
+def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6):
+    """K8: the pre-norm attention entry, one LayerNorm and one row
+    quantization feeding both projections:
+
+        h = quant(ln(x)); q, kv = to_q(h), to_kv(h)
+
+    x (..., C) float32 or bfloat16; wqkv the stacked [to_q; to_kv] (3C, C)
+    (TimeBlockWeights.qkv). Returns (q (..., C), kv (..., 2C)) in x.dtype."""
+    if x.device.type == "cpu":
+        return ln_qkv_plain(x, wqkv, eps)
+    C = x.shape[-1]
+    _check_cuda(x, wqkv.w, keys=0)
+    if C != SPLIT_C or tuple(wqkv.w.shape) != (3 * C, C):
+        raise ValueError(f"K8 takes C={SPLIT_C} and (3C, C) weights, got x {tuple(x.shape)}, "
+                         f"w {tuple(wqkv.w.shape)}")
+    x2d = x.contiguous().reshape(-1, C)
+    rows = x2d.shape[0]
+    q = torch.empty((rows, C), dtype=x.dtype, device=x.device)
+    kv = torch.empty((rows, 2 * C), dtype=x.dtype, device=x.device)
+    _build.check(_lib()["k8"](
+        _build.ptr(x2d), _is_bf16(x2d), rows, C, _build.ptr(wqkv.w), _build.ptr(wqkv.s),
+        _build.ptr(wqkv.b), eps, _build.ptr(q), _build.ptr(kv), _build.stream_ptr(x)),
+        "ct_k8_ln_qkv")
+    fused_ln_qkv_int8.launches += 1
+    lead = x.shape[:-1]
+    return q.reshape(*lead, C), kv.reshape(*lead, 2 * C)
+
+
+fused_ln_qkv_int8.launches = 0
+
+
+def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6):
+    """K9: the post-attention half of a pre-norm block:
+
+        r = x + to_out(a); return r + fc2(gelu(fc1(ln(r)))), all W8A8
+
+    a (..., C) the attention-core output and x (..., C) the residual stream,
+    both in the token dtype (float32 or bfloat16); w the block's pack (its
+    out, fc1, fc2). Returns (..., C) in x.dtype."""
+    if x.device.type == "cpu":
+        return attnout_mlp_plain(a, x, w, eps)
+    C = x.shape[-1]
+    _check_cuda(a, x, w.out.w, keys=0)
+    if a.shape != x.shape or a.dtype != x.dtype:
+        raise ValueError(f"a {tuple(a.shape)} {a.dtype} and x {tuple(x.shape)} {x.dtype} "
+                         "must match")
+    if C != SPLIT_C or tuple(w.fc1.w.shape) != (SPLIT_H, C):
+        raise ValueError(f"K9 takes C={SPLIT_C}, hidden {SPLIT_H}, got x {tuple(x.shape)}, "
+                         f"fc1 {tuple(w.fc1.w.shape)}")
+    a2d, x2d = a.contiguous().reshape(-1, C), x.contiguous().reshape(-1, C)
+    out = torch.empty_like(x2d)
+    ptrs = [_build.ptr(t) for lin in (w.out, w.fc1, w.fc2) for t in lin]
+    _build.check(_lib()["k9"](
+        _build.ptr(a2d), _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], C, SPLIT_H, *ptrs, eps,
+        _build.ptr(out), _build.stream_ptr(x)), "ct_k9_attnout_mlp")
+    fused_attnout_res_mlp_int8.launches += 1
+    return out.reshape(x.shape)
+
+
+fused_attnout_res_mlp_int8.launches = 0

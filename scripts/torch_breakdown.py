@@ -1,15 +1,19 @@
 """Device-time breakdown of the PyTorch/CUDA port on the GPU.
 
-    python3 scripts/torch_breakdown.py [--frames 60]
+    python3 scripts/torch_breakdown.py [--frames 60] [--grid 100]
+    python3 scripts/torch_breakdown.py --frames 250 --grid 50
     python3 scripts/torch_breakdown.py --online
     python3 scripts/torch_breakdown.py --train
 
 Profiles (torch.profiler, CUDA activity) one call of each kernel wrapper
-K1-K4 at the bench shape (10,240 tracks x 60 frames, bf16; K4 at level 0,
-one 2,048-point chunk) and one forward of CoTrackerPredictor(fast=True) on
-a synthetic 384x512 video with a 100x100 query grid, and prints the device
-time by kernel name, the forward's wall time and its device-busy share.
-Writes the same as JSON to chiprun_out/torch_breakdown.json.
+K1-K5, K8 and K9 at the forward's token shape (the grid's points padded to
+512, x --frames; by default the bench shape, 10,240 tracks x 60 frames,
+bf16; K4 at level 0, one 2,048-point chunk) and one forward of
+CoTrackerPredictor(fast=True) on a synthetic 384x512 video with a
+--grid x --grid query grid, and prints the device time by kernel name and by
+group, the forward's wall time and its device-busy share. Videos over 128
+frames run the time blocks through the split K8 -> K5 -> K9. Writes the same
+as JSON to torch_breakdown.json in the output directory chip_smoke.py uses.
 
 With --online it profiles instead one steady-state streaming window (16
 frames at step 8, 10,000 grid points, 384x512, iters=6; the fourth window of
@@ -57,6 +61,8 @@ def device_table(prof, top=12):
 
 
 GROUPS = (  # first match wins, on the device kernel's name
+    ("K8 ln_qkv_kernel", ("ln_qkv_kernel",)),
+    ("K9 attnout_mlp_kernel", ("attnout_mlp_kernel",)),
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
     ("K1-K3 LN + row quant (ln_quant_kernel)", ("ln_quant_kernel",)),
     ("K4 corr_volume_kernel", ("corr_volume_kernel",)),
@@ -197,6 +203,7 @@ def train(dev, smi):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--grid", type=int, default=100, help="the forward's query grid size")
     ap.add_argument("--online", action="store_true",
                     help="profile one steady streaming window in each kernel configuration")
     ap.add_argument("--train", action="store_true",
@@ -218,20 +225,26 @@ def main():
     g = torch.Generator().manual_seed(0)
     C, HID, H, D = chip_smoke.C, chip_smoke.HID, chip_smoke.HEADS, chip_smoke.DH
     lin = lambda o, i: chip_smoke.lin(g, o, i, dev)
-    x = torch.randn(chip_smoke.N_TRACKS, args.frames, C, generator=g).to(dev, torch.bfloat16)
+    tracks = -(-args.grid**2 // 512) * 512  # the predictor's fast-path bucket
+    x = torch.randn(tracks, args.frames, C, generator=g).to(dev, torch.bfloat16)
     tw = mlp_int8_cuda.TimeBlockWeights(lin(3 * C, C), lin(C, C), lin(HID, C), lin(C, HID))
     sw = mlp_int8_cuda.SpaceBlockWeights(lin(C, C), lin(C, C), lin(HID, C), lin(C, HID))
     kv = torch.randn(args.frames, 64, 2 * C, generator=g).to(dev, torch.bfloat16)
     q = torch.randn(args.frames, 64, C, generator=g).to(dev, torch.bfloat16)
     ones, zeros = torch.ones(C, device=dev), torch.zeros(C, device=dev)
-    kbias = torch.zeros(chip_smoke.N_TRACKS, device=dev)
+    kbias = torch.zeros(tracks, device=dev)
+    q8, kv8 = mlp_int8_cuda.fused_ln_qkv_int8(x, tw.qkv)
+    a5 = attention_cuda.fused_time_attention(q8, kv8, H, D)
     out = [
         run("K1 time block", lambda: mlp_int8_cuda.fused_time_block_int8(x, tw, H, D)),
+        run("K8 LN + q|kv", lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, tw.qkv)),
+        run("K5 time attention core", lambda: attention_cuda.fused_time_attention(q8, kv8, H, D)),
+        run("K9 out + MLP", lambda: mlp_int8_cuda.fused_attnout_res_mlp_int8(a5, x, tw)),
         run("K2 space block", lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, sw, H, D)),
         run("K3 virtual<-points", lambda: attention_cuda.fused_virtual_from_points_proj(
             q, x, lin(2 * C, C), ones, zeros, H, D, kbias)),
     ]
-    del x
+    del x, q8, kv8, a5
     Hh, W = chip_smoke.LVL0
     fm = torch.nn.functional.normalize(torch.randn(1, args.frames, Hh, W, 128, device=dev), dim=-1)
     fmq = corr_cuda.build_int8_level(fm, 3)
@@ -242,10 +255,12 @@ def main():
     out.append(run("K4 corr volume", lambda: corr_cuda.corr_volume_int8(fmq, supq, starts, wxy)))
     pred = CoTrackerPredictor(fast=True, device="cuda")
     video = chip_smoke.synthetic_video(args.frames, 384, 512, dev)
-    out.append(run("predictor forward (fast, N=10000)", lambda: pred(video, grid_size=100)))
+    out.append(run(f"predictor forward (fast, N={args.grid**2}, T={args.frames})",
+                   lambda: pred(video, grid_size=args.grid), groups=True))
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/torch_breakdown.json", "w") as f:
-        json.dump({"device": smi, "frames": args.frames, "runs": out}, f, indent=1)
+        json.dump({"device": smi, "frames": args.frames, "grid": args.grid, "runs": out}, f,
+                  indent=1)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7, K4r and K4f against their plain PyTorch versions
+"""The CUDA kernels K1-K9, K4r and K4f against their plain PyTorch versions
 on the card, at small shapes (K5-K7 also at the full streaming width),
 float32 and bfloat16, and the training autograd wrapper's gradients against
 plain autograd (marker `cuda`; skips without a GPU).
@@ -63,6 +63,58 @@ def test_time_block(dev, dtype, M, T):
     torch.cuda.synchronize()
     assert mlp_int8_cuda.fused_time_block_int8.launches == n + 1
     _close(out, mlp_int8_cuda.time_block_plain(x, w, H, D), dtype)
+
+
+def _time_pack(g, dev):
+    return mlp_int8_cuda.TimeBlockWeights(_lin(g, 3 * C, C, dev), _lin(g, C, C, dev),
+                                          _lin(g, HID, C, dev), _lin(g, C, HID, dev))
+
+
+# K8 and K9: a ragged row count (not a multiple of their 128- and 64-row
+# tiles) and the virtual tokens of a 250-frame video
+SPLIT_SHAPES = [(37, 6), (64, 250)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,T", SPLIT_SHAPES)
+def test_ln_qkv(dev, dtype, M, T):
+    g = torch.Generator().manual_seed(M + T)
+    w = _time_pack(g, dev)
+    x = torch.randn(M, T, C, generator=g).to(dev, dtype)
+    n = mlp_int8_cuda.fused_ln_qkv_int8.launches
+    q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_qkv_int8.launches == n + 1
+    rq, rkv = mlp_int8_cuda.ln_qkv_plain(x, w.qkv)
+    for o, r in ((q, rq), (kv, rkv)):
+        assert o.dtype == dtype and o.shape == r.shape
+        _close(o, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,T", SPLIT_SHAPES)
+def test_attnout_mlp(dev, dtype, M, T):
+    g = torch.Generator().manual_seed(M * T)
+    w = _time_pack(g, dev)
+    a, x = (torch.randn(M, T, C, generator=g).to(dev, dtype) for _ in range(2))
+    n = mlp_int8_cuda.fused_attnout_res_mlp_int8.launches
+    out = mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_attnout_res_mlp_int8.launches == n + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, mlp_int8_cuda.attnout_mlp_plain(a, x, w), dtype)
+
+
+def test_split_kernels_raise_instead_of_falling_back(dev):
+    g = torch.Generator().manual_seed(0)
+    w = _time_pack(g, dev)
+    x = torch.randn(4, 5, C, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_int8_cuda.fused_attnout_res_mlp_int8(torch.randn(4, 5, C), x, w)
+    with pytest.raises(ValueError, match="must match"):
+        mlp_int8_cuda.fused_attnout_res_mlp_int8(x.bfloat16(), x, w)
+    with pytest.raises(ValueError, match="K8 takes"):
+        mlp_int8_cuda.fused_ln_qkv_int8(torch.randn(4, 5, 2 * C, device=dev), w.qkv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
