@@ -7,7 +7,7 @@ without them (or when the port's package is missing next to this file).
 Phases, each raising on failure:
   1. header: versions, and the card's name and power limit from nvidia-smi;
   2. build: the hand-written kernels (csrc/*.cu), all nvcc runs in parallel;
-  3. each kernel K1-K7 against its plain PyTorch version on the same inputs
+  3. each kernel K1-K9 against its plain PyTorch version on the same inputs
      on the card, in bf16 at the shapes of both main paths (10,240 tracks,
      384 channels, 60 frames offline and 16 frames streaming; K4 at level 0,
      96x128, a 2,048-point chunk; K7 with the padded tracks' keys masked and
@@ -70,7 +70,28 @@ Phases, each raising on failure:
      off, K5 between plain projections, plain space blocks), through
      evaluate.run_eval(fast=True) in joint mode, launch counts asserted per
      sequence, metric keys finite, expconfig.json and result_eval_.json
-     written; then the single-point protocol on three of B's queries.
+     written; then the single-point protocol on three of B's queries;
+ 11. the kernels of the four variant switches (ops/kernels/variants.py)
+     against their plain versions in bf16: K4m (correlation + combine +
+     per-point quantization + MLP1) at level 0, 2,048 points x 16 and x 60
+     frames (rows bit-identical), with the K4 + int8-MLP1 chain timed
+     beside it; K11 (the all-frames points<-virtual block) at 10,240 and
+     70,656 tracks x 16 frames, the K2 chain timed beside it; K10 in each
+     flag combination and K12 with the LN on and off at 604,800 rows; then
+     every W8A8 body (K1, K2, K8-K12) in each variant mode (bf16 LayerNorm,
+     GELU-quant fold) at 2,048 tracks x 16 frames;
+ 12. quasi-dense streaming: CoTrackerOnlinePredictor(fast=True) with a
+     265x265 grid (70,225 points, 70,656 padded), 384x512, windows of 16
+     at step 8, iters=6, a 48-frame video (5 windows), (a) the variants off
+     (K4 840, K2 18, K1 36, K3 18 in the fourth window) and (c) all four on
+     (K4m 840, K11 18, K1 36, K3 18, K4 and K2 0); seconds per steady
+     window, points*frames/s of new frames, peak memory; (c) within 1 px
+     (median) of (a);
+ 13. the offline bench workload with all four variants on: K4m 120, K2 18
+     (no K11 at 60 frames), K1 36, K3 18, K4 0; seconds and points*frames/s;
+ 14. the micro-benchmark entry point, scripts/torch_ubench.py int8pallas
+     corr, in this process: K10 and K12 9 launches each (a warm-up and 8
+     timed), K4 and K4m 18.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -93,6 +114,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import mlp_int8_cuda  # noqa: E402
+from cotracker_tpu_torch.ops.kernels.variants import ENV, KernelVariants  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BPS = 3.35e12
@@ -564,6 +586,10 @@ WRAPPERS = {
     "K4f_corr_volume_float": corr_cuda.corr_volume_float,
     "K8_ln_qkv": mlp_int8_cuda.fused_ln_qkv_int8,
     "K9_attnout_mlp": mlp_int8_cuda.fused_attnout_res_mlp_int8,
+    "K4m_corr_mlp1": corr_cuda.corr_mlp1_int8,
+    "K10_ln_dense": mlp_int8_cuda.fused_ln_dense_int8,
+    "K11_space_block_allt": mlp_int8_cuda.fused_space_block_allt_int8,
+    "K12_ln_mlp": mlp_int8_cuda.fused_ln_mlp_int8,
 }
 
 
@@ -1027,11 +1053,350 @@ def evaluation_phase(dev):
     return per_call[0][0], secs
 
 
+# ---------------------------------------------------------------- the variants
+# (phases 11-15): the four kernels of the round-5 variant switches, the
+# quasi-dense streaming cell in both settings, the offline bench workload
+# with the variants on, and the micro-benchmark entry point
+
+SRC_FUSED = "cotracker_tpu_torch/csrc/int8_fused.cu"
+ALL_ON = KernelVariants(corr_fuse_mlp1=True, space_allt=True, bf16_ln=True, gelu_quant_fold=True)
+QD_GRID, QD_FRAMES = 265, 48  # 70,225 points (70,656 padded), 5 windows of 16 at step 8
+UB_ROWS, UB_REPS = 604_800, 8  # scripts/torch_ubench.py int8pallas rows; launches = 1 + reps
+MODE_SHAPE = (2048, T_STREAM)  # each W8A8 body in both modes
+K8_TOL = (2.0**-9, 2.0**-7)  # K8's band (split_kernel_phase), for K10
+K9_TOL = (0.01, 0.05)  # K1/K2/K9's band, for K11 and K12
+
+
+def variant_entry(name, source, replaces, shape, err, ms, plain_ms, bnd, **extra):
+    e = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+             library_ms=None, shape=shape, **extra)
+    log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]})")
+    return e
+
+
+def fold_pack(g, dev):
+    """A time-block pack whose fc1 leaves every pre-GELU value negative
+    (about N(-3, 0.3)): there the GELU-quant fold's scale differs from the
+    absmax one on every row."""
+    w = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
+                                       lin(g, HID, C, dev), lin(g, C, HID, dev))
+    w1 = 0.3 * torch.randn(HID, C, generator=g) / math.sqrt(C)
+    fc1 = mlp_int8_cuda.quantize_linear(w1.to(dev), (-3.0 + 0.05 * torch.randn(HID, generator=g)).to(dev))
+    return w._replace(fc1=fc1)
+
+
+def space_pack(tw):
+    return mlp_int8_cuda.SpaceBlockWeights(
+        mlp_int8_cuda.QLinear(tw.qkv.w[:C].contiguous(), tw.qkv.s[:C].contiguous(),
+                              tw.qkv.b[:C].contiguous()), tw.out, tw.fc1, tw.fc2)
+
+
+def mode_phase(dev):
+    """Every W8A8 body against its plain version in each variant mode, bf16
+    at 2,048 tracks x 16 frames (one row per track and frame for K8-K10,
+    K12); the GELU-quant fold with fold_pack's weights."""
+    g = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    M, T = MODE_SHAPE
+    x = torch.randn(M, T, C, generator=g).to(dev, bf)
+    a = (0.5 * torch.randn(M, T, C, generator=g)).to(dev, bf)
+    kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
+    errs = {}
+    for mode in ("bf16_ln", "gelu_fold"):
+        tw = fold_pack(g, dev) if mode == "gelu_fold" else mlp_int8_cuda.TimeBlockWeights(
+            lin(g, 3 * C, C, dev), lin(g, C, C, dev), lin(g, HID, C, dev), lin(g, C, HID, dev))
+        sw = space_pack(tw)
+        kw = {mode: True}
+        lnkw = {"bf16_ln": True} if mode == "bf16_ln" else {}
+        m = mlp_int8_cuda
+        bodies = {
+            "K1": (lambda: m.fused_time_block_int8(x, tw, HEADS, DH, **kw),
+                   lambda: m.time_block_plain(x, tw, HEADS, DH, **kw), K9_TOL),
+            "K2": (lambda: m.fused_space_block_int8(x, kv, sw, HEADS, DH, **kw),
+                   lambda: m.space_block_plain(x, kv, sw, HEADS, DH, **kw), K9_TOL),
+            "K8": (lambda: torch.cat(m.fused_ln_qkv_int8(x, tw.qkv, **lnkw), -1),
+                   lambda: torch.cat(m.ln_qkv_plain(x, tw.qkv, **lnkw), -1), K8_TOL),
+            "K9": (lambda: m.fused_attnout_res_mlp_int8(a, x, tw, **kw),
+                   lambda: m.attnout_mlp_plain(a, x, tw, **kw), K9_TOL),
+            "K10": (lambda: m.fused_ln_dense_int8(x, tw.qkv, ln=True, **lnkw),
+                    lambda: m.ln_dense_plain(x, tw.qkv, ln=True, **lnkw), K8_TOL),
+            "K11": (lambda: m.fused_space_block_allt_int8(x, kv, sw, HEADS, DH, **kw),
+                    lambda: m.space_block_plain(x, kv, sw, HEADS, DH, **kw), K9_TOL),
+            "K12": (lambda: m.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, **kw),
+                    lambda: m.ln_mlp_plain(x, tw.fc1, tw.fc2, **kw), K9_TOL),
+        }
+        for name, (kern, plain, tol) in bodies.items():
+            err = check_close(f"{name} {mode} {M}x{T}", kern(), plain(), *tol)
+            errs[f"{name}_{mode}"] = err
+    torch.cuda.synchronize()
+    return errs
+
+
+def variant_kernel_phase(dev):
+    """K4m, K11, K10 and K12 against their plain versions on the card (see
+    the module docstring), with the K4 and K2 chains timed beside K4m and
+    K11 at the same shapes."""
+    g = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    out = []
+
+    # K4m: level 0, one 2,048-point chunk, the streaming and offline windows
+    Hh, W = LVL0
+    w1 = (0.02 * torch.randn(2401, 384, generator=g)).to(dev)
+    b1 = (0.1 * torch.randn(384, generator=g)).to(dev)
+    w1c, w1s = corr_cuda.quantize_w1_mlp1(w1)
+    w1q, w1amax = corr_cuda.quantize_w1(w1, bf)
+    e = None
+    for T in (T_STREAM, T_FRAMES):
+        fm = torch.nn.functional.normalize(
+            torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1).to(bf)
+        fmq = corr_cuda.build_int8_level(fm, 3)
+        sup = torch.nn.functional.normalize(
+            torch.randn(1, 49, CHUNK, 128, generator=g).to(dev), dim=-1).to(bf)
+        supq, sscale = corr_cuda.quantize_support(sup, bf)
+        coords = (torch.rand(1, T, CHUNK, 2, generator=g) * torch.tensor([W, Hh])).to(dev).to(bf)
+        starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        args = (fmq, supq.reshape(CHUNK, 49, 128), starts, wxy, w1c, w1s, b1,
+                sscale.reshape(CHUNK), bf)
+        h = corr_cuda.corr_mlp1_int8(*args)
+        ref = corr_cuda.corr_mlp1_plain(*args)
+        rows = (h != ref).any(-1).float().mean().item()
+        err = (h.float() - ref.float()).abs().max().item()
+        log(f"  K4m corr + MLP1 {CHUNK} points x {T} frames: rows differing {rows:.2e} (bound "
+            f"1e-4), max_abs_err {err:.3e}")
+        if rows > 1e-4 or not math.isfinite(err):
+            raise AssertionError("K4m: kernel disagrees with its plain version")
+        Tp = starts.shape[1]
+        bnd = bound(nbytes(*args[:-1], h), [(CHUNK * Tp * (64 * 49 * 128 + 2401 * 384) * 2, INT8_OPS),
+                                           (CHUNK * Tp * 2401 * 6, F32_OPS)])
+        chain = lambda mlp1: corr_cuda.corr_hidden(  # noqa: E731
+            fmq, supq, sscale, coords, w1q, w1amax, b1, Hh, W, 3, bf,
+            (w1c, w1s) if mlp1 else None)
+        vals = dict(ms=time_ms(lambda: corr_cuda.corr_mlp1_int8(*args)),
+                    plain_ms=time_ms(lambda: corr_cuda.corr_mlp1_plain(*args), reps=2),
+                    k4_chain_ms=time_ms(lambda: chain(False)),
+                    k4m_chain_ms=time_ms(lambda: chain(True)))
+        log(f"  K4m T={T}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f}, bound {bnd[0]:.3f} "
+            f"by {bnd[1]}); per level-chunk with GELU: K4 + int8 MLP1 {vals['k4_chain_ms']:.3f} ms, "
+            f"K4m {vals['k4m_chain_ms']:.3f} ms")
+        if e is None:
+            e = variant_entry("K4m_corr_mlp1", SRC_CORR,
+                              "cotracker_tpu/ops/kernels/corr_pallas.py:244",
+                              f"level 0 (96x128), {CHUNK} points x {T_STREAM} frames, bf16", err,
+                              vals["ms"], vals["plain_ms"], bnd,
+                              k4_chain_ms=vals["k4_chain_ms"], k4m_chain_ms=vals["k4m_chain_ms"])
+        else:
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.update({f"{k}_t{T}": v for k, v in vals.items()},
+                     bound_ms_t60=bnd[0], bound_by_t60=bnd[1])
+        del fm, fmq, sup, supq, h, ref
+    out.append(e)
+    torch.cuda.empty_cache()
+
+    # K11: 10,240 and 70,656 tracks x 16 frames, the K2 chain beside it
+    tw = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
+                                        lin(g, HID, C, dev), lin(g, C, HID, dev))
+    sw = space_pack(tw)
+    e = None
+    for N in (N_TRACKS, -(-QD_GRID**2 // 512) * 512):
+        T = T_STREAM
+        x = torch.randn(N, T, C, generator=g).to(dev, bf)
+        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
+        o = mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)
+        ref = mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH)
+        err = check_close(f"K11 all-frames block {N}x{T}", o, ref, *K9_TOL)
+        del o, ref
+        rows = N * T
+        bnd = bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in sw for t in q]),
+                    [(rows * 2 * C * (2 * C + 2 * HID), INT8_OPS),
+                     (rows * HEADS * 4 * V * DH, BF16_OPS)])
+        vals = dict(ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)),
+                    plain_ms=time_ms(lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH),
+                                     reps=2),
+                    k2_chain_ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(
+                        x, kv, sw, HEADS, DH)))
+        log(f"  K11 {N}x{T}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f}, bound "
+            f"{bnd[0]:.3f} by {bnd[1]}); the K2 chain {vals['k2_chain_ms']:.3f} ms")
+        if e is None:
+            e = variant_entry("K11_space_block_allt", SRC_FUSED,
+                              "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:471",
+                              f"{N} tracks x {T} frames, bf16", err, vals["ms"], vals["plain_ms"],
+                              bnd, k2_chain_ms=vals["k2_chain_ms"])
+        else:
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e.update({f"{k}_n{N}": v for k, v in vals.items()},
+                     **{f"bound_ms_n{N}": bnd[0], f"bound_by_n{N}": bnd[1]})
+        del x, kv
+        torch.cuda.empty_cache()
+    out.append(e)
+
+    # K10 in each flag combination, K12 with the LN on and off: 604,800 bf16 rows
+    x = torch.randn(UB_ROWS, C, generator=g).to(dev, bf)
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.05 * torch.randn(C, generator=g)).to(dev)
+    e = None
+    for ln in (True, False):
+        for affine in (False, True):
+            for residual in (False, True):
+                lin_ = tw.out if residual else tw.qkv
+                kw = dict(ln=ln, residual=residual, gamma=gamma if affine else None,
+                          beta=beta if affine else None)
+                o = mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw)
+                ref = mlp_int8_cuda.ln_dense_plain(x, lin_, **kw)
+                tag = f"ln={int(ln)} affine={int(affine)} residual={int(residual)}"
+                err = check_close(f"K10 {tag}", o, ref, *K8_TOL)
+                frac = bf16_ulp_frac(o, ref)
+                if frac > 1e-2:
+                    raise AssertionError(f"K10 {tag}: {frac:.2e} of the elements beyond one ulp")
+                del o, ref
+                if e is None:  # the micro-benchmark's to_qkv with the LN
+                    N = lin_.w.shape[0]
+                    bnd = bound(nbytes(x) + UB_ROWS * N * 2 + nbytes(*lin_),
+                                [(UB_ROWS * 2 * C * N, INT8_OPS)])
+                    e = variant_entry(
+                        "K10_ln_dense", SRC_FUSED, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:203",
+                        f"{UB_ROWS} rows x 384 -> {N}, bf16, ln=1", err,
+                        time_ms(lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw)),
+                        time_ms(lambda: mlp_int8_cuda.ln_dense_plain(x, lin_, **kw), reps=2), bnd,
+                        ms_by_flags={})
+                e["max_abs_err"] = max(e["max_abs_err"], err)
+                e["ms_by_flags"][tag] = time_ms(
+                    lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw))
+    log(f"  K10 ms by flags {e['ms_by_flags']}")
+    out.append(e)
+    e = None
+    for ln in (True, False):
+        o = mlp_int8_cuda.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, ln=ln)
+        ref = mlp_int8_cuda.ln_mlp_plain(x, tw.fc1, tw.fc2, ln=ln)
+        err = check_close(f"K12 ln={int(ln)}", o, ref, *K9_TOL)
+        del o, ref
+        kern_ms = time_ms(lambda: mlp_int8_cuda.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, ln=ln))
+        if e is None:
+            bnd = bound(2 * nbytes(x) + nbytes(*tw.fc1, *tw.fc2), [(UB_ROWS * 4 * C * HID, INT8_OPS)])
+            e = variant_entry(
+                "K12_ln_mlp", SRC_FUSED, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:134",
+                f"{UB_ROWS} rows x 384, bf16, ln=1", err, kern_ms,
+                time_ms(lambda: mlp_int8_cuda.ln_mlp_plain(x, tw.fc1, tw.fc2), reps=2), bnd)
+        else:
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            e["ms_ln0"] = kern_ms
+    out.append(e)
+    del x
+    torch.cuda.empty_cache()
+    log("  every W8A8 body in each variant mode:")
+    mode_errs = mode_phase(dev)
+    for e in out:
+        if e["name"] in ("K10_ln_dense", "K11_space_block_allt", "K12_ln_mlp"):
+            k = e["name"].split("_")[0]
+            e["modes_max_abs_err"] = {m: mode_errs[f"{k}_{m}"] for m in ("bf16_ln", "gelu_fold")}
+    return out
+
+
+def quasi_dense_phase(dev):
+    """Phase 12: CoTrackerOnlinePredictor(fast=True) at 70,225 grid points,
+    384x512, windows of 16 at step 8, iters=6, over a 48-frame video (5
+    windows), (a) variants off and (c) all four on; the launches of the
+    fourth window asserted, (c) within 1 px median of (a)."""
+    from cotracker_tpu_torch import CoTrackerOnlinePredictor
+
+    grid, frames, S = QD_GRID, QD_FRAMES, T_STREAM
+    n, step = grid * grid, S // 2
+    n_windows = len(range(0, frames - step, step))
+    video = synthetic_video(frames, 384, 512, dev)
+    zeros = dict.fromkeys(WRAPPERS, 0)
+    runs = {}
+    for name, variants in (("a", KernelVariants()), ("c", ALL_ON)):
+        pred = CoTrackerOnlinePredictor(fast=True, device="cuda", capacity=frames,
+                                        variants=variants)
+        n_pad = -(-n // 512) * 512
+        k4 = 4 * 6 * -(-n_pad // pred.model.corr_chunk)
+        expected = {**zeros, "K1_time_block": 36, "K3_virtual_from_points_proj": 18}
+        if name == "a":
+            expected.update(K4_corr_volume=k4, K2_space_block=18)
+        else:
+            expected.update(K4m_corr_mlp1=k4, K11_space_block_allt=18)
+        log(f"quasi-dense streaming ({name}): {n} points ({n_pad} padded), variants {variants}:")
+        pred(video[:, :1], is_first_step=True, grid_size=grid)
+        (tracks, vis), counts, steady = drive_stream(
+            lambda ind: pred(video[:, ind : ind + S]), n_windows, n, step)
+        check_stream(f"quasi-dense ({name})", tracks, vis, frames, n, counts, expected)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = dict(tracks=tracks, counts=counts, seconds_per_window=steady,
+                          points_frames_per_s=n * step / steady, peak_gib=peak)
+        del pred
+        torch.cuda.empty_cache()
+    med, p90, mx = px_stats(runs["c"]["tracks"], runs["a"]["tracks"])
+    p99 = (runs["c"]["tracks"].float() - runs["a"]["tracks"].float()).norm(dim=-1).flatten()
+    p99 = p99.sort().values[int(0.99 * (p99.numel() - 1))].item()
+    log(f"  (c) against (a): |tracks difference| median {med:.3f} px (bound 1), p90 {p90:.3f}, "
+        f"p99 {p99:.3f}, max {mx:.3f} px")
+    if not med <= 1.0:
+        raise AssertionError("quasi-dense (c) is more than 1 px (median) from (a)")
+    for r in runs.values():
+        del r["tracks"]
+    return runs, dict(median_px=med, p90_px=p90, p99_px=p99, max_px=mx)
+
+
+def offline_variants_phase(dev, pfs_a):
+    """Phase 13: the offline bench workload with all four variants on
+    (10,000 points, 60 frames, iters=6): K4m 120, K2 18 (no K11 at T=60),
+    K1 36, K3 18, K4 0."""
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    pred = CoTrackerPredictor(fast=True, device="cuda", variants=ALL_ON)
+    video = synthetic_video(T_FRAMES, 384, 512, dev)
+    grid = 100
+    n_pad = -(-grid * grid // 512) * 512
+    expected = {**dict.fromkeys(WRAPPERS, 0), "K1_time_block": 36, "K2_space_block": 18,
+                "K3_virtual_from_points_proj": 18,
+                "K4m_corr_mlp1": 4 * 6 * -(-n_pad // pred.model.corr_chunk)}
+    pred(video, grid_size=grid)  # warm-up
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = pred(video, grid_size=grid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    n = grid * grid
+    log(f"  forward {dt:.3f} s: {n * T_FRAMES / dt:.0f} points*frames/s (variants off, phase 4: "
+        f"{pfs_a:.0f}); launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"offline (c): expected {expected}")
+    if tuple(tracks.shape) != (1, T_FRAMES, n, 2) or not torch.isfinite(tracks).all():
+        raise AssertionError("offline (c): shapes or non-finite tracks")
+    return counts, dict(seconds=dt, points_frames_per_s=n * T_FRAMES / dt)
+
+
+def ubench_phase():
+    """Phase 14: scripts/torch_ubench.py int8pallas corr in this process;
+    its launches of K10, K12, K4 and K4m asserted."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_ubench.py")
+    spec = importlib.util.spec_from_file_location("torch_ubench", path)
+    ub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ub)
+    zero_counts()
+    res = ub.run(["int8pallas", "corr"], "cuda", reps=UB_REPS)
+    counts = read_counts()
+    per = 1 + UB_REPS  # one warm-up and UB_REPS timed launches per measurement
+    expected = {**dict.fromkeys(WRAPPERS, 0), "K10_ln_dense": per, "K12_ln_mlp": per,
+                "K4_corr_volume": 2 * per, "K4m_corr_mlp1": 2 * per}
+    log(f"  launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"micro-benchmark: expected {expected}")
+    return counts, res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(2)
     dev = torch.device("cuda")
+    for name in ENV.values():  # the variants are set per phase, never by the environment
+        os.environ.pop(name, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1074,6 +1439,19 @@ def main():
     torch.cuda.empty_cache()
     log("evaluation: evaluate.run_eval(fast=True) on a synthetic TAP-Vid DAVIS pickle:")
     eval_counts, eval_secs = evaluation_phase(dev)
+    torch.cuda.empty_cache()
+    log("variant kernels K4m, K11, K10, K12 vs plain versions (bf16), and every W8A8 body "
+        "in each variant mode:")
+    variant_kernels = variant_kernel_phase(dev)
+    torch.cuda.empty_cache()
+    qd_runs, qd_diff = quasi_dense_phase(dev)
+    torch.cuda.empty_cache()
+    log("offline bench workload with all four variants on: CoTrackerPredictor(fast=True), "
+        "10,000 points x 60 frames, iters=6:")
+    off_c_counts, off_c = offline_variants_phase(dev, pfs)
+    torch.cuda.empty_cache()
+    log(f"micro-benchmark: scripts/torch_ubench.py int8pallas corr (reps={UB_REPS}):")
+    ub_counts, ub_res = ubench_phase()
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -1087,6 +1465,15 @@ def main():
         k["launches"] = step_r[k["name"]] or step_f[k["name"]]
         k["launches_per_step"] = {"k4r_run": step_r[k["name"]], "k4f_run": step_f[k["name"]]}
     kernels += train_kernels
+    for k in variant_kernels:
+        # K4m and K11 from a quasi-dense window with the variants on, K10 and
+        # K12 from the micro-benchmark; every kernel's count in each run
+        name = k["name"]
+        k["launches"] = qd_runs["c"]["counts"][name] or ub_counts[name]
+        k["launches_quasi_dense_window"] = {r: qd_runs[r]["counts"][name] for r in qd_runs}
+        k["launches_offline_variants_forward"] = off_c_counts[name]
+        k["launches_ubench"] = ub_counts[name]
+    kernels += variant_kernels
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on a main path")
@@ -1098,6 +1485,13 @@ def main():
     log(f"long offline forward ({LONG_T} frames, 2,500 points): {long_metrics['seconds']:.3f} s, "
         f"{long_metrics['points_frames_per_s']:.0f} points*frames/s, peak memory "
         f"{long_metrics['peak_gib']:.1f} GiB; evaluation seconds {eval_secs} ({smi})")
+    for r, v in qd_runs.items():
+        log(f"quasi-dense streaming ({r}), {QD_GRID**2} points: {v['seconds_per_window']:.4f} s "
+            f"per steady window, {v['points_frames_per_s']:.0f} points*frames/s of new frames, "
+            f"peak memory {v['peak_gib']:.1f} GiB")
+    log(f"quasi-dense (c) vs (a): {qd_diff}; offline with the variants: {off_c['seconds']:.3f} s, "
+        f"{off_c['points_frames_per_s']:.0f} points*frames/s (off: {pfs:.0f}); "
+        f"micro-benchmark {json.dumps(ub_res)} ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

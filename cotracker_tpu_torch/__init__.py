@@ -4,7 +4,7 @@ The package mirrors the JAX package's module names (`ops/`, `models/`,
 `predictor.py`, `training/`, `datasets/`, `evaluation/`) and its public
 layouts: channel-last feature maps (B, T, H, W, C), track-major tokens
 (B, N, T, C), videos (B, T, 3, H, W) at the predictor. Plain tensor code is
-PyTorch; the kernels (K1-K9, K4r, K4f) are hand-written CUDA for sm_90a
+PyTorch; the kernels (K1-K12, K4r, K4f, K4m) are hand-written CUDA for sm_90a
 (`csrc/`), built at first use and bound through ctypes
 (`ops/kernels/_build.py`).
 

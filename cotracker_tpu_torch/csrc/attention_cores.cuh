@@ -99,6 +99,48 @@ time_attention_kernel(const T* __restrict__ q, int ldq, const T* __restrict__ k,
   }
 }
 
+// Stages one head's V keys and values of one frame, kvt = the frame's
+// (V, 2C) keys|values offset to the head, as float: K rows padded to 49.
+template <typename T>
+__device__ __forceinline__ void stage_head_kv(const T* __restrict__ kvt, int V, int C, float* ks,
+                                              float* vs) {
+  constexpr int D = kDimHead, LK = D + 1;
+  for (int i = threadIdx.x; i < V * D; i += blockDim.x) {
+    const int j = i / D, d = i - j * D;
+    ks[j * LK + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + d]);
+    vs[j * D + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + C + d]);
+  }
+}
+
+// One warp: softmax(q . K^T * scale) . V of one query row of one head over
+// V staged keys (p: the warp's V-float score row). Lane l returns output
+// dims l (a0) and 32 + l (a1, lanes < 16).
+template <typename T>
+__device__ __forceinline__ void attend_staged(const float (&qv)[kDimHead], const float* ks,
+                                              const float* vs, float* p, int V, float scale,
+                                              float& a0, float& a1) {
+  constexpr int D = kDimHead, LK = D + 1;
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+  for (int j = lane; j < V; j += 32) {
+    const float* kr = ks + j * LK;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) s += qv[d] * kr[d];
+    s = __fmul_rn(s, scale);
+    p[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  warp_softmax<T>(p, V, mx);
+  a0 = 0.f;
+  a1 = 0.f;
+  for (int j = 0; j < V; ++j) {
+    const float pj = p[j];
+    a0 += pj * vs[j * D + lane];
+    if (lane < D - 32) a1 += pj * vs[j * D + lane + 32];
+  }
+}
+
 // Points<-virtual core. q (N*Tn, C) rows (track-major); kv (Tn, V, 2C);
 // out (N*Tn, C). Block (frame, head, 64 tracks): the frame's V keys and
 // values of the head are staged in shared memory once and reused by the 64
@@ -114,12 +156,7 @@ p2v_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int t = blockIdx.x, h = blockIdx.y, n0 = blockIdx.z * NB;
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int C = gridDim.y * D;
-  const T* kvt = kv + static_cast<size_t>(t) * V * 2 * C + h * D;
-  for (int i = threadIdx.x; i < V * D; i += blockDim.x) {
-    const int j = i / D, d = i - j * D;
-    ks[j * LK + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + d]);
-    vs[j * D + d] = to_f(kvt[static_cast<size_t>(j) * 2 * C + C + d]);
-  }
+  stage_head_kv(kv + static_cast<size_t>(t) * V * 2 * C + h * D, V, C, ks, vs);
   __syncthreads();
   float* p = vs + V * D + warp * V;
   const int n_end = min(n0 + NB, N);
@@ -129,23 +166,8 @@ p2v_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     float qv[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) qv[d] = to_f(qr[d]);
-    float mx = -INFINITY;
-    for (int j = lane; j < V; j += 32) {
-      const float* kr = ks + j * LK;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s += qv[d] * kr[d];
-      s = __fmul_rn(s, scale);
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    warp_softmax<T>(p, V, mx);
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < V; ++j) {
-      const float pj = p[j];
-      a0 += pj * vs[j * D + lane];
-      if (lane < D - 32) a1 += pj * vs[j * D + lane + 32];
-    }
+    float a0, a1;
+    attend_staged<T>(qv, ks, vs, p, V, scale, a0, a1);
     OutT* orow = out + row * C + h * D;
     orow[lane] = from_f<OutT>(a0);
     if (lane < D - 32) orow[lane + 32] = from_f<OutT>(a1);

@@ -43,6 +43,11 @@
 // computes fc1 twice (the GELU codes' row scale needs the row's absmax
 // before the first code is written): 1.45x its operations.
 //
+// The shared device routines (LN + row quant, GELU, the tile GEMM and the
+// MLP-tail stages) live in int8_tile.cuh, with the two variant flags of the
+// JAX package (bf16 LayerNorm, GELU-quant fold) as template parameters:
+// ct_ln_quant takes them as a mode, K8 and K9 as arguments.
+//
 // Numerics follow the JAX contract exactly: two-pass f32 LayerNorm
 // statistics, scale = max(absmax, 1e-20) / 127 and codes rint(v * (1/scale))
 // (half to even), weights quantized per output channel on the host, f32
@@ -53,57 +58,13 @@
 // keeps each JAX body's order of additions (K1's last residual is
 // (r + y) + b, K9's r + (y + b)).
 
-#include "attention_cores.cuh"
+#include "int8_tile.cuh"
 
 namespace ct {
 
 // ---------------------------------------------------------------- LN + quant
-// One warp quantizes one row xr of C = 32 * VPL values (device or shared
-// memory): optional LayerNorm, then per-row absmax int8 codes into qr
-// (device or shared memory). Returns the row scale. do_ln = 0 quantizes the
-// row as is.
-template <typename InT, int VPL>
-__device__ __forceinline__ float ln_quant_row(const InT* xr, int lane,
-                                              const float* __restrict__ gamma,
-                                              const float* __restrict__ beta, float eps,
-                                              int do_ln, int8_t* qr) {
-  constexpr int C = 32 * VPL;
-  float v[VPL];
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) v[i] = to_f(xr[lane + 32 * i]);
-  if (do_ln) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) s += v[i];
-    const float mean = warp_sum(s) / C;
-    float s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      v[i] = __fsub_rn(v[i], mean);
-      s2 += v[i] * v[i];
-    }
-    const float inv = 1.0f / sqrtf(__fadd_rn(warp_sum(s2) / C, eps));
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      v[i] = __fmul_rn(v[i], inv);
-      if (gamma != nullptr) {
-        const int c = lane + 32 * i;
-        v[i] = __fadd_rn(__fmul_rn(v[i], gamma[c]), beta[c]);
-      }
-    }
-  }
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) amax = fmaxf(amax, fabsf(v[i]));
-  const float s = __fmul_rn(fmaxf(warp_max(amax), 1e-20f), 1.0f / 127.0f);
-  const float inv = 1.0f / s;
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) qr[lane + 32 * i] = quant8(v[i], inv);
-  return s;
-}
-
 // One warp per row of the (rows, C) input.
-template <typename InT, int VPL>
+template <typename InT, int VPL, bool kBf16Ln, bool kGeluFold>
 __global__ void ln_quant_kernel(const InT* __restrict__ x, int rows,
                                 const float* __restrict__ gamma,
                                 const float* __restrict__ beta, float eps, int do_ln,
@@ -112,19 +73,14 @@ __global__ void ln_quant_kernel(const InT* __restrict__ x, int rows,
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const float s = ln_quant_row<InT, VPL>(x + static_cast<size_t>(row) * C, lane, gamma, beta,
-                                         eps, do_ln, q + static_cast<size_t>(row) * C);
+  const float s = ln_quant_row<InT, VPL, kBf16Ln, kGeluFold>(
+      x + static_cast<size_t>(row) * C, lane, gamma, beta, eps, do_ln,
+      q + static_cast<size_t>(row) * C);
   if (lane == 0) scale[row] = s;
 }
 
 // ---------------------------------------------------------------- s8 GEMM
 enum { MODE_AFFINE = 0, MODE_GELU = 1, MODE_RESID = 2 };
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float x3 = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, x), x), x);
-  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, x3));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(inner)));
-}
 
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T): A and W int8, K-contiguous.
 // 128 x 128 block tile, 8 warps of 64 x 32, K step 64 through shared memory
@@ -226,93 +182,48 @@ cudaError_t launch_gemm(const int8_t* A, const float* sa, const int8_t* W, const
   return cudaGetLastError();
 }
 
-template <typename InT>
+template <typename InT, bool kBf16Ln, bool kGeluFold>
 cudaError_t launch_ln_quant(const void* x, int rows, int C, const float* gamma,
                             const float* beta, float eps, int do_ln, int8_t* q, float* scale,
                             cudaStream_t stream) {
   const int grid = (rows + 7) / 8;
   const InT* xp = static_cast<const InT*>(x);
   if (C == 384)
-    ln_quant_kernel<InT, 12><<<grid, 256, 0, stream>>>(xp, rows, gamma, beta, eps, do_ln, q, scale);
+    ln_quant_kernel<InT, 12, kBf16Ln, kGeluFold><<<grid, 256, 0, stream>>>(
+        xp, rows, gamma, beta, eps, do_ln, q, scale);
   else if (C == 1536)
-    ln_quant_kernel<InT, 48><<<grid, 256, 0, stream>>>(xp, rows, gamma, beta, eps, do_ln, q, scale);
+    ln_quant_kernel<InT, 48, kBf16Ln, kGeluFold><<<grid, 256, 0, stream>>>(
+        xp, rows, gamma, beta, eps, do_ln, q, scale);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
+// mode bit 0: bf16 LayerNorm; bit 1: GELU-quant fold (see int8_tile.cuh)
+template <typename InT>
+cudaError_t launch_ln_quant_mode(const void* x, int rows, int C, const float* gamma,
+                                 const float* beta, float eps, int do_ln, int mode, int8_t* q,
+                                 float* scale, cudaStream_t s) {
+  switch (mode) {
+    case 0: return launch_ln_quant<InT, false, false>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s);
+    case 1: return launch_ln_quant<InT, true, false>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s);
+    case 2: return launch_ln_quant<InT, false, true>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s);
+    case 3: return launch_ln_quant<InT, true, true>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- K8, K9
 // Both hold a row tile's int8 activations in shared memory and run their
-// products through one block-level tile routine: the 8 warps as 2 (rows) x 4
-// (columns) over a (32 * MT) x 128 output tile, warp tiles (16 * MT) x 32 of
-// mma.sync m16n8k32, the weight slice staged through shared memory BK bytes
-// of K at a time.
-constexpr int KC = 384;         // token width
-constexpr int KH = 1536;        // MLP hidden width
-constexpr int LDA_C = KC + 16;  // padded row stride of C-wide codes: conflict-free fragments
-constexpr int LDA_H = KH + 16;  // the same for the hidden codes
-
-// acc = A[tile rows, 0:K) . W[n0:n0+128, 0:K)^T; A in shared memory (row
-// stride lda bytes), W K-contiguous in device memory, Bs 128 x (BK + 16).
-template <int MT, int BK>
-__device__ __forceinline__ void tile_gemm_s8(const int8_t* A, int lda,
-                                             const int8_t* __restrict__ W, int K, int n0,
-                                             int8_t* Bs, int (&acc)[MT][4][4]) {
-  constexpr int LDB = BK + 16;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < 128 * (BK / 16); i += 256) {
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      *reinterpret_cast<int4*>(Bs + r * LDB + c) =
-          *reinterpret_cast<const int4*>(W + static_cast<size_t>(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[MT][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int8_t* p = A + (wm * 16 * MT + mt * 16 + g) * lda + k0 + kk + t4 * 4;
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * lda);
-        af[mt][2] = ld32(p + 16);
-        af[mt][3] = ld32(p + 8 * lda + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* p = Bs + (wn * 32 + nt * 8 + g) * LDB + kk + t4 * 4;
-        bfr[nt][0] = ld32(p);
-        bfr[nt][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8_16832(acc[mt][nt], af[mt], bfr[nt]);
-    }
-    __syncthreads();
-  }
-}
-
-// Dequantized product of one accumulator: acc * (row scale * column scale).
-__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
-  return __fmul_rn(static_cast<float>(acc), __fmul_rn(s_row, s_col));
-}
+// products through the block-level tile_gemm_s8 (int8_tile.cuh).
 
 // K8: x (rows, 384) -> q (rows, 384), kv (rows, 768) in x's dtype.
-//   h = LN(x) (eps, two-pass f32); hq, sr = row quant(h)
+//   h = LN(x) (eps, two-pass f32 or the bf16 variant); hq, sr = row quant(h)
 //   [q | kv] = hq . w^T * (sr * sw) + bias, w = [to_q; to_kv] (1152, 384)
 constexpr int K8_MT = 4, K8_BM = 32 * K8_MT, K8_BK = 64;
 constexpr int K8_SMEM = K8_BM * LDA_C + 128 * (K8_BK + 16) + K8_BM * 4;
 
-template <typename T>
+template <typename T, bool kBf16Ln>
 __global__ void __launch_bounds__(256)
 ln_qkv_kernel(const T* __restrict__ x, int rows, const int8_t* __restrict__ w,
               const float* __restrict__ sw, const float* __restrict__ bias, float eps,
@@ -321,19 +232,9 @@ ln_qkv_kernel(const T* __restrict__ x, int rows, const int8_t* __restrict__ w,
   int8_t* A = reinterpret_cast<int8_t*>(smem);
   int8_t* Bs = A + K8_BM * LDA_C;
   float* sr = reinterpret_cast<float*>(Bs + 128 * (K8_BK + 16));
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3, wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.x * K8_BM;
-  for (int r = warp; r < K8_BM; r += 8) {
-    if (m0 + r < rows) {
-      const float s = ln_quant_row<T, KC / 32>(x + static_cast<size_t>(m0 + r) * KC, lane,
-                                               nullptr, nullptr, eps, 1, A + r * LDA_C);
-      if (lane == 0) sr[r] = s;
-    } else {
-      for (int i = lane; i < KC; i += 32) A[r * LDA_C + i] = 0;
-      if (lane == 0) sr[r] = 0.f;
-    }
-  }
+  stage_quant_rows<K8_BM, T, kBf16Ln>(x, Rows{static_cast<size_t>(m0), 1, min(K8_BM, rows - m0)},
+                                      eps, 1, nullptr, nullptr, A, sr);
   __syncthreads();
   for (int n0 = 0; n0 < 3 * KC; n0 += 128) {
     int acc[K8_MT][4][4];
@@ -341,23 +242,16 @@ ln_qkv_kernel(const T* __restrict__ x, int rows, const int8_t* __restrict__ w,
     T* dst = n0 < KC ? q : kv;  // 128-column tiles never straddle q | kv
     const int ld = n0 < KC ? KC : 2 * KC, c0 = n0 < KC ? 0 : KC;
 #pragma unroll
-    for (int mt = 0; mt < K8_MT; ++mt) {
+    for (int mt = 0; mt < K8_MT; ++mt)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 16 * K8_MT + mt * 16 + g + half * 8;
-        if (m0 + r >= rows) continue;
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = n0 + wn * 32 + nt * 8 + t4 * 2 + j;
-            const float v = __fadd_rn(dequant(acc[mt][nt][half * 2 + j], sr[r], sw[col]),
-                                      bias[col]);
-            dst[static_cast<size_t>(m0 + r) * ld + col - c0] = from_f<T>(v);
-          }
+        for (int k = 0; k < 4; ++k) {
+          const int r = acc_row<K8_MT>(mt, k), col = acc_col(n0, nt, k);
+          if (m0 + r >= rows) continue;
+          const float v = __fadd_rn(dequant(acc[mt][nt][k], sr[r], sw[col]), bias[col]);
+          dst[static_cast<size_t>(m0 + r) * ld + col - c0] = from_f<T>(v);
         }
-      }
-    }
   }
 }
 
@@ -366,12 +260,12 @@ ln_qkv_kernel(const T* __restrict__ x, int rows, const int8_t* __restrict__ w,
 //   hq, sh = row quant(LN(r)); u = hq . w1^T * (sh * s1) + b1; g = gelu(u)
 //   gq, su = row quant(g); out = r + (gq . w2^T * (su * s2) + b2)
 // r stays in shared memory as f32 and the GELU codes as int8; fc1 runs twice,
-// once for the rows' absmax of g and once for the codes.
+// once for the rows' absmax of g and once for the codes. 64-row tiles:
+// 230,656 of the 232,448 bytes of shared memory a block may use.
 constexpr int K9_MT = 2, K9_BM = 32 * K9_MT, K9_BK = 32;
-constexpr int K9_SMEM = K9_BM * KC * 4 + K9_BM * LDA_H + K9_BM * LDA_C + 128 * (K9_BK + 16) +
-                        5 * K9_BM * 4;
+constexpr int K9_SMEM = TileSmem<K9_BM, K9_BK>::kBytes;
 
-template <typename T>
+template <typename T, bool kBf16Ln, bool kGeluFold>
 __global__ void __launch_bounds__(256, 1)
 attnout_mlp_kernel(const T* __restrict__ a, const T* __restrict__ x, int rows,
                    const int8_t* __restrict__ wo, const float* __restrict__ so,
@@ -380,153 +274,57 @@ attnout_mlp_kernel(const T* __restrict__ a, const T* __restrict__ x, int rows,
                    const int8_t* __restrict__ w2, const float* __restrict__ s2,
                    const float* __restrict__ b2, float eps, T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* R = reinterpret_cast<float*>(smem);                   // (BM, C) f32 residual
-  int8_t* U = reinterpret_cast<int8_t*>(R + K9_BM * KC);       // (BM, H) GELU codes
-  int8_t* A = U + K9_BM * LDA_H;                               // (BM, C) codes of a, then LN(r)
-  int8_t* Bs = A + K9_BM * LDA_C;
-  float* sa = reinterpret_cast<float*>(Bs + 128 * (K9_BK + 16));
-  float* sh = sa + K9_BM;
-  float* su = sh + K9_BM;
-  float* iu = su + K9_BM;
-  unsigned* amax = reinterpret_cast<unsigned*>(iu + K9_BM);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const TileSmem<K9_BM, K9_BK> s(smem);
   const int m0 = blockIdx.x * K9_BM;
-
-  for (int r = warp; r < K9_BM; r += 8) {
-    if (m0 + r < rows) {
-      const float s = ln_quant_row<T, KC / 32>(a + static_cast<size_t>(m0 + r) * KC, lane,
-                                               nullptr, nullptr, 0.f, 0, A + r * LDA_C);
-      if (lane == 0) sa[r] = s;
-    } else {
-      for (int i = lane; i < KC; i += 32) A[r * LDA_C + i] = 0;
-      if (lane == 0) sa[r] = 0.f;
-    }
-  }
-  if (tid < K9_BM) amax[tid] = 0u;
+  const Rows tile{static_cast<size_t>(m0), 1, min(K9_BM, rows - m0)};
+  stage_quant_rows<K9_BM, T, false>(a, tile, 0.f, 0, nullptr, nullptr, s.A, s.sa);
   __syncthreads();
-
-  // r = x + to_out(a)
-  for (int n0 = 0; n0 < KC; n0 += 128) {
-    int acc[K9_MT][4][4];
-    tile_gemm_s8<K9_MT, K9_BK>(A, LDA_C, wo, KC, n0, Bs, acc);
-#pragma unroll
-    for (int mt = 0; mt < K9_MT; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 16 * K9_MT + mt * 16 + g + half * 8;
-        const bool in = m0 + r < rows;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = n0 + wn * 32 + nt * 8 + t4 * 2 + j;
-            const float xv = in ? to_f(x[static_cast<size_t>(m0 + r) * KC + col]) : 0.f;
-            R[r * KC + col] = __fadd_rn(
-                __fadd_rn(xv, dequant(acc[mt][nt][half * 2 + j], sa[r], so[col])), bo[col]);
-          }
-        }
-      }
-    }
-  }
+  stage_out_residual<K9_MT, K9_BK, T>(s.A, wo, so, bo, s.sa, x, tile, s.R, s.Bs);
   __syncthreads();
-
-  // LN(r) codes over a's
-  for (int r = warp; r < K9_BM; r += 8) {
-    const float s = ln_quant_row<float, KC / 32>(R + r * KC, lane, nullptr, nullptr, eps, 1,
-                                                 A + r * LDA_C);
-    if (lane == 0) sh[r] = s;
-  }
-  __syncthreads();
-
-  // fc1 + GELU, twice: the rows' absmax, then the codes
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int n0 = 0; n0 < KH; n0 += 128) {
-      int acc[K9_MT][4][4];
-      tile_gemm_s8<K9_MT, K9_BK>(A, LDA_C, w1, KC, n0, Bs, acc);
-#pragma unroll
-      for (int mt = 0; mt < K9_MT; ++mt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = wm * 16 * K9_MT + mt * 16 + g + half * 8;
-          float m = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int col = n0 + wn * 32 + nt * 8 + t4 * 2 + j;
-              const float gv = gelu_tanh(
-                  __fadd_rn(dequant(acc[mt][nt][half * 2 + j], sh[r], s1[col]), b1[col]));
-              if (pass == 0)
-                m = fmaxf(m, fabsf(gv));
-              else
-                U[r * LDA_H + col] = quant8(gv, iu[r]);
-            }
-          }
-          if (pass == 0) {
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-            if (t4 == 0) atomicMax(amax + r, __float_as_uint(m));  // m >= 0: ordered as bits
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (pass == 0 && tid < K9_BM) {
-      su[tid] = __fmul_rn(fmaxf(__uint_as_float(amax[tid]), 1e-20f), 1.0f / 127.0f);
-      iu[tid] = 1.0f / su[tid];
-    }
-    __syncthreads();
-  }
-
-  // out = r + fc2(codes)
-  for (int n0 = 0; n0 < KC; n0 += 128) {
-    int acc[K9_MT][4][4];
-    tile_gemm_s8<K9_MT, K9_BK>(U, LDA_H, w2, KH, n0, Bs, acc);
-#pragma unroll
-    for (int mt = 0; mt < K9_MT; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 16 * K9_MT + mt * 16 + g + half * 8;
-        if (m0 + r >= rows) continue;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int col = n0 + wn * 32 + nt * 8 + t4 * 2 + j;
-            const float y = __fadd_rn(dequant(acc[mt][nt][half * 2 + j], su[r], s2[col]), b2[col]);
-            out[static_cast<size_t>(m0 + r) * KC + col] = from_f<T>(__fadd_rn(R[r * KC + col], y));
-          }
-        }
-      }
-    }
-  }
+  stage_mlp_tail<K9_MT, K9_BK, T, kBf16Ln, kGeluFold>(s, w1, s1, b1, w2, s2, b2, eps, tile, out);
 }
 
-template <typename T>
+template <typename T, bool kBf16Ln>
 cudaError_t launch_ln_qkv(const void* x, int rows, const int8_t* w, const float* sw,
                           const float* bias, float eps, void* q, void* kv, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(ln_qkv_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, K8_SMEM);
+  auto kern = ln_qkv_kernel<T, kBf16Ln>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K8_SMEM);
   if (e != cudaSuccess) return e;
-  ln_qkv_kernel<T><<<(rows + K8_BM - 1) / K8_BM, 256, K8_SMEM, stream>>>(
+  kern<<<(rows + K8_BM - 1) / K8_BM, 256, K8_SMEM, stream>>>(
       static_cast<const T*>(x), rows, w, sw, bias, eps, static_cast<T*>(q), static_cast<T*>(kv));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBf16Ln, bool kGeluFold>
 cudaError_t launch_attnout_mlp(const void* a, const void* x, int rows, const int8_t* wo,
                                const float* so, const float* bo, const int8_t* w1,
                                const float* s1, const float* b1, const int8_t* w2,
                                const float* s2, const float* b2, float eps, void* out,
                                cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(attnout_mlp_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, K9_SMEM);
+  auto kern = attnout_mlp_kernel<T, kBf16Ln, kGeluFold>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, K9_SMEM);
   if (e != cudaSuccess) return e;
-  attnout_mlp_kernel<T><<<(rows + K9_BM - 1) / K9_BM, 256, K9_SMEM, stream>>>(
+  kern<<<(rows + K9_BM - 1) / K9_BM, 256, K9_SMEM, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(x), rows, wo, so, bo, w1, s1, b1, w2, s2,
       b2, eps, static_cast<T*>(out));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_attnout_mlp_mode(int bf16_ln, int gelu_fold, const void* a, const void* x,
+                                    int rows, const int8_t* wo, const float* so, const float* bo,
+                                    const int8_t* w1, const float* s1, const float* b1,
+                                    const int8_t* w2, const float* s2, const float* b2,
+                                    float eps, void* out, cudaStream_t s) {
+  if (bf16_ln)
+    return gelu_fold ? launch_attnout_mlp<T, true, true>(a, x, rows, wo, so, bo, w1, s1, b1, w2,
+                                                         s2, b2, eps, out, s)
+                     : launch_attnout_mlp<T, true, false>(a, x, rows, wo, so, bo, w1, s1, b1,
+                                                          w2, s2, b2, eps, out, s);
+  return gelu_fold ? launch_attnout_mlp<T, false, true>(a, x, rows, wo, so, bo, w1, s1, b1, w2,
+                                                        s2, b2, eps, out, s)
+                   : launch_attnout_mlp<T, false, false>(a, x, rows, wo, so, bo, w1, s1, b1, w2,
+                                                         s2, b2, eps, out, s);
 }
 
 }  // namespace ct
@@ -537,13 +335,16 @@ using namespace ct;
 // PyTorch's current stream, passed as an opaque pointer.
 extern "C" {
 
+// mode: bit 0 the bf16 LayerNorm, bit 1 the GELU-quant fold (int8_tile.cuh).
 int ct_ln_quant(const void* x, int in_bf16, int rows, int C, const float* gamma,
-                const float* beta, float eps, int do_ln, int8_t* q, float* scale,
+                const float* beta, float eps, int do_ln, int mode, int8_t* q, float* scale,
                 void* stream) {
   if (rows < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return in_bf16 ? launch_ln_quant<__nv_bfloat16>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s)
-                 : launch_ln_quant<float>(x, rows, C, gamma, beta, eps, do_ln, q, scale, s);
+  return in_bf16 ? launch_ln_quant_mode<__nv_bfloat16>(x, rows, C, gamma, beta, eps, do_ln, mode,
+                                                       q, scale, s)
+                 : launch_ln_quant_mode<float>(x, rows, C, gamma, beta, eps, do_ln, mode, q,
+                                               scale, s);
 }
 
 int ct_gemm_s8(const int8_t* A, const float* sa, const int8_t* W, const float* sw,
@@ -599,23 +400,28 @@ int ct_v2p_flash(const void* q, const void* kv, const float* bias, int bf16, voi
 }
 
 int ct_k8_ln_qkv(const void* x, int bf16, int rows, int C, const int8_t* w, const float* sw,
-                 const float* bias, float eps, void* q, void* kv, void* stream) {
+                 const float* bias, float eps, int bf16_ln, void* q, void* kv, void* stream) {
   if (rows < 1 || C != KC) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_ln_qkv<__nv_bfloat16>(x, rows, w, sw, bias, eps, q, kv, s)
-              : launch_ln_qkv<float>(x, rows, w, sw, bias, eps, q, kv, s);
+  using bf = __nv_bfloat16;
+  if (bf16_ln)
+    return bf16 ? launch_ln_qkv<bf, true>(x, rows, w, sw, bias, eps, q, kv, s)
+                : launch_ln_qkv<float, true>(x, rows, w, sw, bias, eps, q, kv, s);
+  return bf16 ? launch_ln_qkv<bf, false>(x, rows, w, sw, bias, eps, q, kv, s)
+              : launch_ln_qkv<float, false>(x, rows, w, sw, bias, eps, q, kv, s);
 }
 
 int ct_k9_attnout_mlp(const void* a, const void* x, int bf16, int rows, int C, int H,
                       const int8_t* wo, const float* so, const float* bo, const int8_t* w1,
                       const float* s1, const float* b1, const int8_t* w2, const float* s2,
-                      const float* b2, float eps, void* out, void* stream) {
+                      const float* b2, float eps, int bf16_ln, int gelu_fold, void* out,
+                      void* stream) {
   if (rows < 1 || C != KC || H != KH) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_attnout_mlp<__nv_bfloat16>(a, x, rows, wo, so, bo, w1, s1, b1, w2, s2, b2,
-                                                  eps, out, s)
-              : launch_attnout_mlp<float>(a, x, rows, wo, so, bo, w1, s1, b1, w2, s2, b2, eps,
-                                          out, s);
+  return bf16 ? launch_attnout_mlp_mode<__nv_bfloat16>(bf16_ln, gelu_fold, a, x, rows, wo, so, bo,
+                                                       w1, s1, b1, w2, s2, b2, eps, out, s)
+              : launch_attnout_mlp_mode<float>(bf16_ln, gelu_fold, a, x, rows, wo, so, bo, w1, s1,
+                                               b1, w2, s2, b2, eps, out, s);
 }
 
 }  // extern "C"

@@ -23,6 +23,11 @@ gates decide which function a block computes, and the port keeps them
 updateformer's `quant_ok` and a multiple of 8 rows (the attention core too),
 and a W8A8 time block is K1 where `pick_time_tile` finds a track tile and the
 split K8 -> K5 -> K9 where it does not.
+
+The kernel-variant switches (ops/kernels/variants.py) reach the W8A8
+blocks as `variants`: `bf16_ln` and `gelu_quant_fold` change the function
+of every W8A8 body, and `space_allt` runs the points<-virtual block as K11
+where `gates.space_allt_tile` holds (K2's function, one launch).
 """
 
 from typing import Optional
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from cotracker_tpu_torch.ops.bilinear import interp_matrix_1d
 from cotracker_tpu_torch.ops.kernels import attention_cuda, gates, mlp_int8_cuda
+from cotracker_tpu_torch.ops.kernels.variants import OFF, KernelVariants
 
 F32 = torch.float32
 NEG = -torch.finfo(torch.float32).max  # the plain paths' additive mask bias
@@ -261,10 +267,12 @@ class AttnBlock(nn.Module):
     K5 kernel between plain projections."""
 
     def __init__(self, hidden_size=384, num_heads=8, mlp_ratio=4.0, dtype=F32,
-                 attn_kernels: bool = False, quant_int8: bool = False):
+                 attn_kernels: bool = False, quant_int8: bool = False,
+                 variants: KernelVariants = OFF):
         super().__init__()
         self.num_heads, self.dtype, self.quant_int8 = num_heads, dtype, quant_int8
         self.dim_head = hidden_size // num_heads
+        self.variants = variants
         self.attn = Attention(hidden_size, num_heads, self.dim_head, qkv_bias=True, dtype=dtype,
                               attn_kernels=attn_kernels)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
@@ -291,11 +299,14 @@ class AttnBlock(nn.Module):
         if self.quant_int8 and quant_ok and mask is None and M % 8 == 0:
             pack = self.quantize() if pack is None else pack
             h, d = self.num_heads, self.dim_head
+            ln, fold = self.variants.bf16_ln, self.variants.gelu_quant_fold
             if gates.pick_time_tile(M, T, max_tokens) is not None:
-                return mlp_int8_cuda.fused_time_block_int8(x, pack, h, d)
-            q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, pack.qkv)
+                return mlp_int8_cuda.fused_time_block_int8(x, pack, h, d, bf16_ln=ln,
+                                                           gelu_fold=fold)
+            q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, pack.qkv, bf16_ln=ln)
             a = attention_cuda.fused_time_attention(q, kv, h, d)
-            return mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, pack)
+            return mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, pack, bf16_ln=ln,
+                                                            gelu_fold=fold)
         attn_bias = None
         if mask is not None:
             pm = mask[:, None, :] & mask[:, :, None]
@@ -309,12 +320,16 @@ class CrossAttnBlock(nn.Module):
     With `quant_int8` the points-side work of the two factorized space
     attentions runs through the K2/K3 kernels; otherwise, with
     `attn_kernels`, their attention cores are the K6/K7 kernels. Either only
-    where `space_tile_ok(N)` holds: elsewhere both run plain, as in JAX."""
+    where `space_tile_ok(N)` holds: elsewhere both run plain, as in JAX.
+    With the `space_allt` variant the points<-virtual block is K11 where
+    `space_allt_tile` holds."""
 
     def __init__(self, hidden_size=384, context_dim=384, num_heads=8, mlp_ratio=4.0,
-                 dtype=F32, attn_kernels: bool = False, quant_int8: bool = False):
+                 dtype=F32, attn_kernels: bool = False, quant_int8: bool = False,
+                 variants: KernelVariants = OFF):
         super().__init__()
         self.num_heads, self.dtype, self.quant_int8 = num_heads, dtype, quant_int8
+        self.variants = variants
         self.dim_head = hidden_size // num_heads
         self.norm_context = AffineLayerNorm(context_dim, eps=1e-5)
         self.cross_attn = Attention(hidden_size, num_heads, self.dim_head, qkv_bias=True,
@@ -382,10 +397,15 @@ class CrossAttnBlock(nn.Module):
         if self.quant_int8 and query_mask is None and gates.space_tile_ok(points.shape[1]):
             pack = self.quantize_p2v() if pack is None else pack
             kv = dense(self.cross_attn.to_kv, self.norm_context(virtual), self.dtype)
+            v = self.variants
+            N, T = points.shape[1:3]
+            allt = v.space_allt and gates.space_allt_tile(
+                N, T, points.dtype == torch.bfloat16) is not None
+            block = (mlp_int8_cuda.fused_space_block_allt_int8 if allt
+                     else mlp_int8_cuda.fused_space_block_int8)
             return torch.stack([
-                mlp_int8_cuda.fused_space_block_int8(
-                    points[b], kv[b], pack, self.num_heads, self.dim_head
-                )
+                block(points[b], kv[b], pack, self.num_heads, self.dim_head,
+                      bf16_ln=v.bf16_ln, gelu_fold=v.gelu_quant_fold)
                 for b in range(points.shape[0])
             ])
         ctx = self.norm_context(virtual)

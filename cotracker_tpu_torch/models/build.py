@@ -7,6 +7,7 @@ import torch
 
 from cotracker_tpu_torch import resolve_device
 from cotracker_tpu_torch.models.cotracker3 import CoTrackerThree
+from cotracker_tpu_torch.ops.kernels.variants import KernelVariants
 
 
 def build_cotracker(
@@ -18,10 +19,15 @@ def build_cotracker(
     fast: bool = False,
     device="cuda",
     seed: int = 0,
+    variants: Optional[KernelVariants] = None,
 ) -> CoTrackerThree:
     """Build a CoTrackerThree on `device` (CUDA by default; raises without
     one unless device="cpu"), from a reference `.pth` checkpoint or randomly
     initialised from `seed` (the global RNG is left untouched).
+
+    variants: the kernel-variant switches; None reads the JAX package's
+    environment variables now (`KernelVariants.from_env()`), a
+    KernelVariants overrides them.
 
     fast=True is the inference fast path: bf16 compute with float32
     coords/vis/conf carries, N chunks of 2048 in the correlation, the K4
@@ -37,7 +43,9 @@ def build_cotracker(
     )
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = CoTrackerThree(window_len=window_len, model_resolution=model_resolution, **kw)
+        model = CoTrackerThree(
+            window_len=window_len, model_resolution=model_resolution,
+            variants=KernelVariants.from_env() if variants is None else variants, **kw)
     if checkpoint is not None:
         from cotracker_tpu_torch.models.checkpoint import load_checkpoint
 

@@ -24,6 +24,13 @@ models/blocks.py); `attn_quant_int8=False` beside it keeps K4 and swaps
 K1-K3 for the attention-core kernels K5-K7 between plain projections (the
 JAX package's `use_pallas_attn` without `attn_quant_int8`).
 
+The kernel-variant switches of the JAX package (`variants`, a
+`KernelVariants`: `corr_fuse_mlp1`, `space_allt`, `bf16_ln`,
+`gelu_quant_fold`; ops/kernels/variants.py) are fixed when the model is
+built. With `kernels`, `corr_fuse_mlp1` runs every level's correlation and
+MLP1 through K4m instead of K4 and the int8 MLP1 product; the other three
+reach the update transformer's W8A8 blocks. Off by default, as in JAX.
+
 Training (`is_train=True` of `forward` and `forward_windows`) runs the
 unfolded form with plain updateformer blocks. `corr_kernels` (the JAX
 package's `use_pallas_corr` with `corr_pallas_grad`) puts each level's
@@ -48,6 +55,7 @@ from cotracker_tpu_torch.ops.bilinear import (
 from cotracker_tpu_torch.ops.corr import fused_corr_embs, pad_fmaps, window_starts_and_weights
 from cotracker_tpu_torch.ops.embeddings import get_1d_sincos_pos_embed, posenc
 from cotracker_tpu_torch.ops.kernels import corr_cuda
+from cotracker_tpu_torch.ops.kernels.variants import OFF, KernelVariants
 
 F32 = torch.float32
 # get_track_feat gathers at most this many points' windows at once
@@ -182,6 +190,7 @@ class CoTrackerThree(nn.Module):
         corr_kernels: bool = False,
         corr_quant_int8: bool = False,
         remat_iterations: bool = False,
+        variants: KernelVariants = OFF,
     ):
         """kernels: the K4 correlation kernel, and the default of the two
         updateformer switches. attn_kernels: the attention-core kernels
@@ -196,7 +205,10 @@ class CoTrackerThree(nn.Module):
         gradient); corr_quant_int8, K4r (int8 windows and support, JAX
         `corr_quant_int8`) instead of K4f; remat_iterations, each iteration
         checkpointed and recomputed in the backward pass (JAX `nn.remat` of
-        the iteration core)."""
+        the iteration core).
+
+        variants: the JAX package's kernel-variant switches (see the module
+        docstring); the training path's wrapper does not take them."""
         super().__init__()
         if kernels and not fold_input_proj:
             raise ValueError("kernels=True runs the folded correlation path; set fold_input_proj")
@@ -212,6 +224,7 @@ class CoTrackerThree(nn.Module):
         self.corr_chunk, self.fold_input_proj, self.kernels = corr_chunk, fold_input_proj, kernels
         self.corr_kernels, self.corr_quant_int8 = corr_kernels, corr_quant_int8
         self.remat_iterations = remat_iterations
+        self.variants = variants
         P = 2 * corr_radius + 1
         self.fnet = BasicEncoder(output_dim=latent_dim, stride=stride)
         self.corr_mlp = Mlp(P**4, 384, 256)
@@ -219,7 +232,7 @@ class CoTrackerThree(nn.Module):
             space_depth=3, time_depth=3, input_dim=input_dim, hidden_size=384, num_heads=8,
             output_dim=4, mlp_ratio=4.0, num_virtual_tracks=num_virtual_tracks,
             add_space_attn=add_space_attn, dtype=dtype, attn_kernels=attn_kernels,
-            quant_int8=attn_quant_int8,
+            quant_int8=attn_quant_int8, variants=variants,
         )
         grid = np.linspace(0, window_len - 1, window_len)
         self.register_buffer(
@@ -301,6 +314,7 @@ class CoTrackerThree(nn.Module):
             w1, _, _, _ = self._corr_weights()
             corr_in = {
                 "w1": corr_cuda.quantize_w1(w1, self.dtype),
+                "w1m": corr_cuda.quantize_w1_mlp1(w1) if self.variants.corr_fuse_mlp1 else None,
                 "levels": [
                     (corr_cuda.build_int8_level(f, self.corr_radius),
                      *corr_cuda.quantize_support(s, self.dtype), f.shape[2:4])
@@ -383,7 +397,7 @@ class CoTrackerThree(nn.Module):
                     [w2.to(F32) @ m for m in slices], b2.to(F32) @ sum(slices),
                     radius=self.corr_radius, chunk=self.corr_chunk, compute_dtype=cd,
                     extra_ops=(vis.transpose(1, 2), conf.transpose(1, 2), rel),
-                    extra_fn=small_terms,
+                    extra_fn=small_terms, w1m=corr_in["w1m"],
                 )
             else:
                 x = None

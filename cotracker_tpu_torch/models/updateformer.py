@@ -11,7 +11,9 @@ The JAX package's gates hold here too (ops/kernels/gates.py): where the
 space blocks cannot tile N tracks, the W8A8 time blocks are off as well
 (`quant_ok`), and a W8A8 time block's tile cap is 1,024 tokens for the point
 tokens (the JAX 4D entry, taken whenever the W8A8 space blocks run) and
-1,536 for the virtual tokens.
+1,536 for the virtual tokens. The kernel-variant switches (`variants`,
+ops/kernels/variants.py) reach the W8A8 time blocks and the two cross
+blocks.
 """
 
 from typing import Optional
@@ -21,6 +23,7 @@ import torch.nn as nn
 
 from cotracker_tpu_torch.models.blocks import AttnBlock, CrossAttnBlock, dense
 from cotracker_tpu_torch.ops.kernels import gates
+from cotracker_tpu_torch.ops.kernels.variants import OFF, KernelVariants
 
 F32 = torch.float32
 
@@ -40,6 +43,7 @@ class EfficientUpdateFormer(nn.Module):
         dtype=F32,
         attn_kernels: bool = False,
         quant_int8: bool = False,
+        variants: KernelVariants = OFF,
     ):
         super().__init__()
         self.time_depth, self.space_depth = time_depth, space_depth
@@ -51,7 +55,7 @@ class EfficientUpdateFormer(nn.Module):
         # the two kernel switches (attention cores K5-K7, W8A8 blocks K1-K3)
         # reach the time blocks and the two cross blocks; the virtual
         # self-attention blocks get neither, as in the JAX package
-        kern = dict(attn_kernels=attn_kernels, quant_int8=quant_int8, **blk)
+        kern = dict(attn_kernels=attn_kernels, quant_int8=quant_int8, variants=variants, **blk)
         self.time_blocks = nn.ModuleList(
             AttnBlock(hidden_size, **kern) for _ in range(time_depth)
         )

@@ -1,4 +1,4 @@
-"""K4, K4r, K4f: the correlation-volume kernels, and the plain PyTorch
+"""K4, K4r, K4f, K4m: the correlation kernels, and the plain PyTorch
 around them (port of cotracker_tpu/ops/kernels/corr_pallas.py).
 
 K4 is the inference fast path (quant_int8 + fuse_combine:
@@ -12,6 +12,18 @@ zero-padded, per-output-channel int8 W1 (`torch._int_mm`: exact integer
 results, as XLA's s8 dot in the JAX package), dequantizes, adds the bias and
 applies the exact-erf GELU. The folded second layer and the small token
 terms are accumulated per chunk, so per-level embeddings never exist at full N.
+
+K4m is the `corr_fuse_mlp1` variant (corr_pallas.py `fuse_mlp1`,
+COTRACKER_CORR_FUSE_MLP1): `corr_mlp1_int8` runs the combine, a per-point
+quantization whose scale comes from the RAW volume, and the s8 MLP1 + b1
+inside the kernel and emits pre-GELU hidden rows in the compute dtype; only
+the exact-erf GELU and what follows stay outside. Its W1 is quantized from
+the float32 weights (`quantize_w1_mlp1`), K4's from the compute dtype, and
+its bias is added in float32 before the rounding, K4's after it: in bf16
+the two are different functions, as in the JAX package. Both the fold path
+(`fused_corr_tokens(..., w1m=...)`) and the per-level path
+(`fused_corr_embs_kernel(..., fuse_mlp1=True)`) take it; it requires the
+int8 correlation.
 
 K4r and K4f emit the RAW window volume (no combine): K4r as int8 codes with
 a per-point scale over the raw volume (quant_int8), K4f in the compute
@@ -86,6 +98,21 @@ def quantize_w1(w1, compute_dtype):
     return w1q.reshape(WIN * WIN * S, Dh).t().contiguous(), amax
 
 
+def quantize_w1_mlp1(w1):
+    """K4m's W1 (corr_pallas.py:518-524): per-output-channel int8 codes of
+    the float32 W1 over the 7 x 7 x 49 real taps in (y, x, s) order, stored
+    (Dh, 2432) with zero columns past 2,401, and the f32 channel scales
+    amax / 127 (Dh,)."""
+    w1q, amax = quantize_w1(w1, F32)
+    Dh = w1q.shape[0]
+    P = 7
+    w1c = w1q.reshape(Dh, WIN, WIN, S)[:, :P, :P].reshape(Dh, P * P * S)
+    return F.pad(w1c, (0, KM - P * P * S)).contiguous(), amax * (1.0 / 127.0)
+
+
+KM = 2432  # K4m's padded MLP1 depth: 2,401 taps in whole 64-byte slices
+
+
 # ------------------------------------------------------------ the kernel
 
 
@@ -125,6 +152,30 @@ def _quantize_volume(c, NP, Tp):
     scale = c.abs().amax(dim=(1, 2)).clamp_min(1e-20) * (1.0 / 127.0)
     q = torch.round(c * (1.0 / scale)[:, None, None]).to(torch.int8)
     return q.reshape(NP, Tp, WIN * WIN, S), scale
+
+
+def corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """Plain K4m. Operands as corr_volume_plain; w1c, w1s from
+    quantize_w1_mlp1; b1 (Dh,); sup_scale (NP,) the support codes' scale.
+    Returns the pre-GELU hidden rows (NP, Tp, Dh) in out_dtype:
+
+        s = max(absmax(raw g over all taps and frames), 1e-20) / 127
+        c = lerp_y(lerp_x(g)) over the 7 x 7 real taps; codes rint(c * (1/s))
+        out = (codes . W1c * w1s) * (s * sup_scale) + b1"""
+    NP, Tp, _ = starts.shape
+    P = 7
+    g = _window_products(fmq, supq, starts)  # (NP, R, 49), exact integers
+    s = g.abs().amax(dim=(1, 2)).clamp_min(1e-20) * (1.0 / 127.0)
+    g = g.reshape(NP, Tp, WIN, WIN, S)  # (y, x, s)
+    wx = wxy[..., 0][:, :, None, None, None]
+    wy = wxy[..., 1][:, :, None, None, None]
+    gx0 = g[:, :, :P, :P] + wx * (g[:, :, :P, 1:] - g[:, :, :P, :P])
+    gx8 = g[:, :, 1:, :P] + wx * (g[:, :, 1:, 1:] - g[:, :, 1:, :P])
+    c = gx0 + wy * (gx8 - gx0)
+    codes = torch.round(c * (1.0 / s)[:, None, None, None, None]).to(torch.int8)
+    codes = F.pad(codes.reshape(NP * Tp, P * P * S), (0, KM - P * P * S))
+    h32 = torch._int_mm(codes, w1c.t()).to(F32).reshape(NP, Tp, -1)
+    return ((h32 * w1s) * (s * sup_scale)[:, None, None] + b1.to(F32)).to(out_dtype)
 
 
 def corr_volume_raw_plain(fmq, supq, starts):
@@ -197,6 +248,38 @@ def corr_volume_int8(fmq, supq, starts, wxy):
 corr_volume_int8.launches = 0
 
 
+def corr_mlp1_int8(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """K4m: per point, the combined volume's per-point codes through MLP1
+    + b1, as pre-GELU hidden rows (NP, Tp, Dh) in out_dtype; see
+    corr_mlp1_plain."""
+    if fmq.device.type == "cpu":
+        return corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)
+    _check_operands(fmq, supq, starts, (torch.int8,), "K4m")
+    NP, Tp, _ = starts.shape
+    Dh = w1c.shape[0]
+    for t in (wxy, w1c, w1s, b1, sup_scale):
+        if t.device.type != "cuda":
+            raise ValueError("kernel inputs must all be CUDA tensors")
+    if tuple(w1c.shape) != (Dh, KM) or w1c.dtype != torch.int8 or Dh != 384 \
+            or out_dtype not in (F32, torch.bfloat16) or sup_scale.numel() != NP:
+        raise ValueError(f"K4m takes W1 codes (384, {KM}) int8, {NP} support scales and a "
+                         f"float32 or bfloat16 output; got W1 {tuple(w1c.shape)} {w1c.dtype}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bound("ct_corr_mlp1", P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P)
+    _, Hp, Wp, _ = fmq.shape
+    out = torch.empty((NP, Tp, Dh), dtype=out_dtype, device=fmq.device)
+    f32 = lambda t: t.to(F32).contiguous()  # noqa: E731
+    args = (fmq.contiguous(), supq.contiguous(), starts.to(torch.int32).contiguous(), f32(wxy),
+            w1c.contiguous(), f32(w1s), f32(b1), f32(sup_scale.reshape(NP)), out)
+    _build.check(fn(*map(_build.ptr, args), int(out_dtype == torch.bfloat16), NP, Tp, Hp, Wp, Dh,
+                    _build.stream_ptr(fmq)), "ct_corr_mlp1")
+    corr_mlp1_int8.launches += 1
+    return out
+
+
+corr_mlp1_int8.launches = 0
+
+
 def corr_volume_raw_int8(fmq, supq, starts):
     """K4r: per point, the raw int8 correlation volume over all frames and
     its scale; see corr_volume_raw_plain."""
@@ -253,10 +336,22 @@ def level_operands(coords, B: int, T: int, H: int, W: int, radius: int):
     return starts.reshape(B * n, Tp, 3), wxy.reshape(B * n, Tp, 2)
 
 
-def corr_hidden(fmq, supq, sup_scale, coords, w1q, w1amax, b1, H, W, radius, compute_dtype):
-    """One level, one chunk: GELU(MLP1(combined volume)) as (B, n, T, Dh)."""
+def _mlp1_hidden(level, supq, sup_scale, starts, wxy, w1m, b1, B, n, T, compute_dtype):
+    """K4m's rows of one chunk, GELU applied: (B, n, T, Dh)."""
+    h = corr_mlp1_int8(level, supq.reshape(B * n, S, -1), starts, wxy, *w1m, b1,
+                       sup_scale.reshape(B * n), compute_dtype)
+    return F.gelu(h.reshape(B, n, starts.shape[1], -1)[:, :, :T], approximate="none")
+
+
+def corr_hidden(fmq, supq, sup_scale, coords, w1q, w1amax, b1, H, W, radius, compute_dtype,
+                w1m=None):
+    """One level, one chunk: GELU(MLP1(combined volume)) as (B, n, T, Dh),
+    through K4 and the int8 MLP1 product, or through K4m when its W1 pack
+    w1m (quantize_w1_mlp1) is given."""
     B, T, n, _ = coords.shape
     starts, wxy = level_operands(coords, B, T, H, W, radius)
+    if w1m is not None:
+        return _mlp1_hidden(fmq, supq, sup_scale, starts, wxy, w1m, b1, B, n, T, compute_dtype)
     vol, gscale = corr_volume_int8(fmq, supq.reshape(B * n, S, -1), starts, wxy)
     Tp = starts.shape[1]
     Dh = w1q.shape[0]
@@ -280,6 +375,7 @@ def fused_corr_tokens(
     compute_dtype=torch.bfloat16,
     extra_ops=(),
     extra_fn=None,
+    w1m=None,
 ):
     """All pyramid levels -> updateformer token contributions, one chunk loop.
 
@@ -288,8 +384,9 @@ def fused_corr_tokens(
     coords (B, T, N, 2) in level-0 pixels, compute dtype. w2f_list[i] =
     w2 @ Win[level-i rows]; b2f_sum their summed bias. extra_ops are (B, N,
     ...) tensors chunked alongside; extra_fn(*chunk) -> (B, n, T, Dtok) f32
-    adds the non-correlation token terms. Returns (B, N, T, Dtok) in the
-    compute dtype."""
+    adds the non-correlation token terms. With w1m (quantize_w1_mlp1(w1)),
+    every level runs K4m instead of K4 and the MLP1 product (the
+    corr_fuse_mlp1 variant). Returns (B, N, T, Dtok) in the compute dtype."""
     B, T, N, _ = coords.shape
     cd = compute_dtype
     chunk = N if chunk is None else chunk
@@ -299,7 +396,7 @@ def fused_corr_tokens(
         acc = None
         for i, (fmq, supq, sup_scale, (H, W)) in enumerate(levels):
             h = corr_hidden(fmq, supq[:, sl], sup_scale[:, sl], coords[:, :, sl] / 2.0**i,
-                            w1q, w1amax, b1, H, W, radius, cd)
+                            w1q, w1amax, b1, H, W, radius, cd, w1m)
             contrib = h.to(F32) @ w2f_list[i].to(cd).to(F32)
             acc = contrib if acc is None else acc + contrib
         if extra_fn is not None:
@@ -314,11 +411,13 @@ def fused_corr_tokens(
 # ------------------------------------------------------------ per level, trainable
 
 
-def corr_hidden_raw(level, sup_c, coords, w1, b1, H, W, radius, compute_dtype, quant_int8):
+def corr_hidden_raw(level, sup_c, coords, w1, b1, H, W, radius, compute_dtype, quant_int8,
+                    w1m=None):
     """One level, one chunk, through K4r (quant_int8) or K4f and the XLA
-    epilogue of corr_pallas.py:757-783: GELU(MLP1(combined volume)) as
-    (B, n, T, Dh). level: build_int8_level / build_float_level output;
-    sup_c (B, n, 49, C); coords (B, T, n, 2) in this level's pixels."""
+    epilogue of corr_pallas.py:757-783, or through K4m when its W1 pack w1m
+    is given: GELU(MLP1(combined volume)) as (B, n, T, Dh). level:
+    build_int8_level / build_float_level output; sup_c (B, n, 49, C);
+    coords (B, T, n, 2) in this level's pixels."""
     B, T, n, _ = coords.shape
     cd = compute_dtype
     P = 2 * radius + 1
@@ -328,6 +427,9 @@ def corr_hidden_raw(level, sup_c, coords, w1, b1, H, W, radius, compute_dtype, q
         # per-point support quantization, per chunk, from the compute dtype
         amax = sup_c.to(cd).abs().amax(dim=(2, 3)).to(F32).clamp_min(1e-20)  # (B, n)
         supq = torch.round(sup_c.to(cd).to(F32) * (127.0 / amax[..., None, None])).to(torch.int8)
+        if w1m is not None:
+            return _mlp1_hidden(level, supq, amax * (1.0 / 127.0 / 128.0), starts, wxy, w1m, b1,
+                                B, n, T, cd)
         vol, kscale = corr_volume_raw_int8(level, supq.reshape(B * n, S, -1), starts)
         gscale = kscale.reshape(B, n) * (amax * (1.0 / 127.0 / 128.0))
     else:
@@ -353,22 +455,27 @@ def corr_hidden_raw(level, sup_c, coords, w1, b1, H, W, radius, compute_dtype, q
 
 def fused_corr_embs_kernel(level, fmaps_hw, support, coords, w1, b1, w2, b2, radius: int = 3,
                            chunk: Optional[int] = None, compute_dtype=F32,
-                           quant_int8: bool = True):
+                           quant_int8: bool = True, fuse_mlp1: bool = False):
     """Port of fused_corr_embs_pallas (track-major, unfolded): the same
     contract as ops.corr.fused_corr_embs(track_major=True), the window
-    products on K4r (quant_int8) or K4f. level: this level's codes or float
+    products on K4r (quant_int8) or K4f, or with fuse_mlp1 (the
+    corr_fuse_mlp1 variant, int8 only, as in the JAX package) the whole
+    epilogue up to MLP1 + b1 on K4m. level: this level's codes or float
     map (build_int8_level / build_float_level); fmaps_hw: its unpadded
     (H, W); support (B, N, 49, C); coords (B, T, N, 2) in level pixels.
     Returns (B, N, T, Do) in the compute dtype."""
     N = coords.shape[2]
     cd = compute_dtype
     H, W = fmaps_hw
+    if fuse_mlp1 and not quant_int8:
+        raise ValueError("fuse_mlp1 rides the int8 window/support path: set quant_int8")
+    w1m = quantize_w1_mlp1(w1) if fuse_mlp1 else None
     chunk = N if chunk is None else chunk
     outs = []
     for s0 in range(0, N, chunk):
         sl = slice(s0, min(s0 + chunk, N))
         h = corr_hidden_raw(level, support[:, sl], coords[:, :, sl], w1, b1, H, W, radius, cd,
-                            quant_int8)
+                            quant_int8, w1m)
         outs.append(h @ w2.to(cd) + b2.to(cd))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 

@@ -16,8 +16,14 @@ decision they make. In the JAX package:
     output to the token dtype before quantizing it, the whole block does
     not: in bfloat16 the two are different functions.
 
+A third gate picks K11, the all-frames points<-virtual block, under the
+`space_allt` variant switch (`space_allt_tile`). K11 and the K2 chain
+compute the same function; the gate only decides which kernel runs, and the
+launch counts pin it.
+
 Copies of cotracker_tpu/ops/kernels/attention_pallas.py::pick_block_n and
-mlp_int8_pallas.py::_pick_time_tile.
+mlp_int8_pallas.py::_pick_time_tile, _reshape_repack_ok and the all-frames
+conditions of fused_space_block_int8.
 """
 
 from typing import Optional
@@ -54,3 +60,27 @@ def pick_time_tile(M: int, T: int, max_tokens: int = FLAT_TOKENS) -> Optional[in
     if tb * T > max_tokens or M % tb:
         return None
     return tb
+
+
+def reshape_repack_ok(T: int, bf16: bool) -> bool:
+    """T is a whole number of sublane tiles of the token dtype: 16 frames
+    for bf16 tokens, 8 for float32."""
+    return T % (16 if bf16 else 8) == 0
+
+
+def space_allt_tile(N: int, T: int, bf16: bool) -> Optional[int]:
+    """The track tile of the JAX all-frames points<-virtual block on N
+    tracks of T frames, or None where the block keeps its per-frame route:
+    N must take the space kernels at all, T must be a whole number of
+    sublane tiles, a time-block track tile of at most 1,024 tokens must
+    divide N, and the tile's tokens must split into at most 8 row chunks of
+    at most 640."""
+    if not space_tile_ok(N) or not reshape_repack_ok(T, bf16):
+        return None
+    tile = pick_time_tile(N, T, POINT_TOKENS)
+    if tile is None:
+        return None
+    tokens = tile * T
+    if not any(tokens % c == 0 and tokens // c <= 640 for c in range(1, 9)):
+        return None
+    return tile

@@ -1,6 +1,8 @@
 """W8A8 block kernels: K1 (whole time block), K2 (whole points<-virtual
-block), and K8 / K9, the two W8A8 halves of the time block's three-kernel
-split around the K5 attention core.
+block), K8 / K9, the two W8A8 halves of the time block's three-kernel
+split around the K5 attention core, K11 (the points<-virtual block tiled
+as tracks x all frames), and K10 (LN + dense) and K12 (LN + MLP), the two
+bodies only the micro-benchmark reaches.
 
 K1 replaces cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel
 (wrapper fused_time_block_int8), K2 its ::_space_block_kernel (wrapper
@@ -10,7 +12,17 @@ fused dequant/bias/GELU/residual epilogues, the attention core). K8 replaces
 ::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel (wrapper
 fused_attnout_res_mlp_int8), one launch each: a row tile's activations, its
 f32 residual and its GELU codes stay in shared memory. See csrc/int8_blocks.cu
-for what bounds them and what the design does about it.
+for what bounds them and what the design does about it. K10 replaces
+::_dense_kernel (fused_ln_dense_int8), K11 ::_space_block_allt_kernel (the
+`space_allt` route of fused_space_block_int8; here its own wrapper,
+fused_space_block_allt_int8) and K12 ::_mlp_kernel (fused_ln_mlp_int8), one
+launch each of csrc/int8_fused.cu.
+
+The two variant switches that change the function of every body here
+(ops/kernels/variants.py) are the wrappers' `bf16_ln` (COTRACKER_BF16_LN:
+`ln_rows(..., bf16=True)`) and `gelu_fold` (COTRACKER_GELU_QUANT_FOLD:
+`quant_gelu(..., fold=True)`) arguments, in the plain versions and the
+kernels alike.
 
 Contract (quantization scheme of the JAX package):
   * weights: per-output-channel symmetric int8, scale max(absmax, 1e-20)/127,
@@ -74,8 +86,24 @@ def quantize_linear(weight, bias) -> QLinear:
 # ------------------------------------------------------------ plain versions
 
 
-def ln_rows(x32, eps):
-    """Two-pass float32 LayerNorm statistics over the last axis (no affine)."""
+def ln_rows(x32, eps, bf16=False):
+    """Two-pass float32 LayerNorm statistics over the last axis (no affine).
+
+    bf16 (the bf16_ln variant, mlp_int8_pallas.py::_ln under
+    COTRACKER_BF16_LN): the statistics in bf16, in the order XLA:CPU
+    evaluates the JAX body (read from its compiled HLO): x rounded to bf16;
+    mean = bf16(sum(x) * (1/C)) with an f32 sum; c = bf16(x - mean);
+    var = bf16(sum(c * c) * (1/C)) with f32 products and sum;
+    inv = bf16(rsqrt(var + eps)); the result c * inv in float32, not
+    rounded to bf16 again."""
+    if bf16:
+        bf = torch.bfloat16
+        inv_c = 1.0 / x32.shape[-1]
+        xb = x32.to(bf).to(F32)
+        mean = (xb.sum(dim=-1, keepdim=True) * inv_c).to(bf).to(F32)
+        c = (xb - mean).to(bf).to(F32)
+        var = ((c * c).sum(dim=-1, keepdim=True) * inv_c).to(bf).to(F32)
+        return c * torch.rsqrt(var + eps).to(bf).to(F32)
     mean = x32.mean(dim=-1, keepdim=True)
     c = x32 - mean
     var = (c * c).mean(dim=-1, keepdim=True)
@@ -92,6 +120,20 @@ def gelu_tanh(x):
     return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
 
 
+def quant_gelu(a32, fold=False):
+    """Per-row int8 codes of gelu_tanh(a32) and their scales (rows, 1).
+
+    fold (the gelu_quant_fold variant, mlp_int8_pallas.py::_quant_gelu_rows
+    under COTRACKER_GELU_QUANT_FOLD): the scale comes from the PRE-GELU row
+    max, max(gelu(max(rowmax(a), 0)), 0.1700001) / 127, which bounds
+    |gelu(a)| without a pass over it."""
+    if not fold:
+        return quant_rows(gelu_tanh(a32))
+    rm = a32.amax(dim=-1, keepdim=True).clamp_min(0.0)
+    s = gelu_tanh(rm).clamp_min(0.1700001) * (1.0 / 127.0)
+    return torch.round(gelu_tanh(a32) * (1.0 / s)).to(torch.int8), s
+
+
 def qlinear_plain(a8, sa, lin: QLinear):
     """Dequantized s8 x s8 -> s32 product: acc * (row scale * column scale) + b."""
     acc = torch._int_mm(a8, lin.w.t())
@@ -106,26 +148,26 @@ def _attend(q, k, v, scale, out_dtype):
     return torch.einsum("...ij,...jd->...id", p.to(F32), v.to(F32))
 
 
-def _mlp_tail_plain(a32, x32, w, eps):
+def _mlp_tail_plain(a32, x32, w, eps, bf16_ln=False, gelu_fold=False):
     """r = x + to_out(a); return r + fc2(gelu(fc1(ln(r)))), all W8A8."""
     aq, sa = quant_rows(a32)
     r = x32 + torch._int_mm(aq, w.out.w.t()).to(F32) * (sa * w.out.s) + w.out.b
-    hq, sr0 = quant_rows(ln_rows(r, eps))
-    uq, sr1 = quant_rows(gelu_tanh(qlinear_plain(hq, sr0, w.fc1)))
+    hq, sr0 = quant_rows(ln_rows(r, eps, bf16_ln))
+    uq, sr1 = quant_gelu(qlinear_plain(hq, sr0, w.fc1), gelu_fold)
     return r + torch._int_mm(uq, w.fc2.w.t()).to(F32) * (sr1 * w.fc2.s) + w.fc2.b
 
 
-def ln_qkv_plain(x, wqkv: QLinear, eps=1e-6):
+def ln_qkv_plain(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
     """Plain K8: x (..., C) -> (q (..., C), kv (..., 2C)) in x.dtype, from
     the stacked [to_q; to_kv] weights (3C, C)."""
     C = x.shape[-1]
-    hq, sr = quant_rows(ln_rows(x.to(F32).reshape(-1, C), eps))
+    hq, sr = quant_rows(ln_rows(x.to(F32).reshape(-1, C), eps, bf16_ln))
     qkv = qlinear_plain(hq, sr, wqkv).to(x.dtype)
     lead = x.shape[:-1]
     return qkv[:, :C].reshape(*lead, C), qkv[:, C:].reshape(*lead, -1)
 
 
-def attnout_mlp_plain(a, x, w: TimeBlockWeights, eps=1e-6):
+def attnout_mlp_plain(a, x, w: TimeBlockWeights, eps=1e-6, bf16_ln=False, gelu_fold=False):
     """Plain K9: a (..., C) the attention-core output, x (..., C) the
     residual stream -> (..., C) in x.dtype:
 
@@ -136,36 +178,66 @@ def attnout_mlp_plain(a, x, w: TimeBlockWeights, eps=1e-6):
     x32 = x.to(F32).reshape(-1, C)
     aq, sa = quant_rows(a.to(F32).reshape(-1, C))
     r = x32 + torch._int_mm(aq, w.out.w.t()).to(F32) * (sa * w.out.s) + w.out.b
-    hq, sh = quant_rows(ln_rows(r, eps))
-    uq, su = quant_rows(gelu_tanh(qlinear_plain(hq, sh, w.fc1)))
+    hq, sh = quant_rows(ln_rows(r, eps, bf16_ln))
+    uq, su = quant_gelu(qlinear_plain(hq, sh, w.fc1), gelu_fold)
     return (r + qlinear_plain(uq, su, w.fc2)).to(x.dtype).reshape(x.shape)
 
 
-def time_block_plain(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6):
+def time_block_plain(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6, bf16_ln=False,
+                     gelu_fold=False):
     """Plain K1: x (M, T, C) -> (M, T, C) in x.dtype."""
     M, T, C = x.shape
     x32 = x.to(F32).reshape(M * T, C)
-    hq, sr = quant_rows(ln_rows(x32, eps))
+    hq, sr = quant_rows(ln_rows(x32, eps, bf16_ln))
     qkv = qlinear_plain(hq, sr, w.qkv).to(x.dtype)  # q|kv rounded to the token dtype
     q, k, v = (
         t.reshape(M, T, num_heads, dim_head).transpose(1, 2) for t in qkv.split(C, dim=-1)
     )
     a = _attend(q, k, v, dim_head**-0.5, x.dtype).transpose(1, 2).reshape(M * T, C)
-    return _mlp_tail_plain(a, x32, w, eps).to(x.dtype).reshape(M, T, C)
+    return _mlp_tail_plain(a, x32, w, eps, bf16_ln, gelu_fold).to(x.dtype).reshape(M, T, C)
 
 
-def space_block_plain(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6):
-    """Plain K2: x (N, T, C) point tokens, kv (T, V, 2C) projected virtual
-    keys|values -> (N, T, C) in x.dtype."""
+def space_block_plain(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6, bf16_ln=False,
+                      gelu_fold=False):
+    """Plain K2 and K11: x (N, T, C) point tokens, kv (T, V, 2C) projected
+    virtual keys|values -> (N, T, C) in x.dtype."""
     N, T, C = x.shape
     V = kv.shape[1]
     x32 = x.to(F32).reshape(N * T, C)
-    hq, sr = quant_rows(ln_rows(x32, eps))
+    hq, sr = quant_rows(ln_rows(x32, eps, bf16_ln))
     q = qlinear_plain(hq, sr, w.q).to(kv.dtype)  # q cast to the kv dtype
     q = q.reshape(N, T, num_heads, dim_head).permute(1, 2, 0, 3)  # (T, h, N, d)
     k, v = (t.reshape(T, V, num_heads, dim_head).transpose(1, 2) for t in kv.split(C, dim=-1))
     a = _attend(q, k, v, dim_head**-0.5, kv.dtype).permute(2, 0, 1, 3).reshape(N * T, C)
-    return _mlp_tail_plain(a, x32, w, eps).to(x.dtype).reshape(N, T, C)
+    return _mlp_tail_plain(a, x32, w, eps, bf16_ln, gelu_fold).to(x.dtype).reshape(N, T, C)
+
+
+def ln_dense_plain(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=None, residual=False,
+                   bf16_ln=False):
+    """Plain K10: [x +] ((ln(x) [* gamma + beta]) @ W + b), W8A8; x (..., C)
+    -> (..., N) in x.dtype. The affine applies with or without the LN, the
+    residual after the bias (_dense_kernel)."""
+    C = x.shape[-1]
+    x32 = x.to(F32).reshape(-1, C)
+    h = ln_rows(x32, eps, bf16_ln) if ln else x32
+    if gamma is not None:
+        h = h * gamma.to(F32) + beta.to(F32)
+    hq, sr = quant_rows(h)
+    y = qlinear_plain(hq, sr, lin)
+    if residual:
+        y = y + x32
+    return y.to(x.dtype).reshape(*x.shape[:-1], lin.w.shape[0])
+
+
+def ln_mlp_plain(x, fc1: QLinear, fc2: QLinear, eps=1e-6, ln=True, bf16_ln=False,
+                 gelu_fold=False):
+    """Plain K12: x + fc2(gelu(fc1(ln(x)))), W8A8; x (..., C) -> (..., C) in
+    x.dtype (_mlp_kernel: x32 + (y * (s_row * s_w) + b2))."""
+    C = x.shape[-1]
+    x32 = x.to(F32).reshape(-1, C)
+    hq, s0 = quant_rows(ln_rows(x32, eps, bf16_ln) if ln else x32)
+    uq, s1 = quant_gelu(qlinear_plain(hq, s0, fc1), gelu_fold)
+    return (x32 + qlinear_plain(uq, s1, fc2)).to(x.dtype).reshape(x.shape)
 
 
 # ------------------------------------------------------------ CUDA chains
@@ -175,10 +247,12 @@ _fns = {}
 
 
 def _lib():
-    """ctypes functions of csrc/int8_blocks.cu (shared with attention_cuda)."""
+    """ctypes functions of csrc/int8_blocks.cu (shared with attention_cuda)
+    and csrc/int8_fused.cu."""
     if not _fns:
         lib = _build.load("int8_blocks")
-        _fns["ln_quant"] = _build.bind(lib, "ct_ln_quant", _P, _I, _I, _I, _P, _P, _F, _I, _P, _P, _P)
+        _fns["ln_quant"] = _build.bind(lib, "ct_ln_quant", _P, _I, _I, _I, _P, _P, _F, _I, _I, _P,
+                                       _P, _P)
         _fns["gemm"] = _build.bind(lib, "ct_gemm_s8", _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                                    _I, _I, _P)
         _fns["time_attn"] = _build.bind(lib, "ct_time_attention", _P, _I, _P, _I, _I, _I, _I, _F, _P)
@@ -186,9 +260,17 @@ def _lib():
                                        _F, _P)
         _fns["v2p_flash"] = _build.bind(lib, "ct_v2p_flash", _P, _P, _P, _I, _P, _I, _I, _I, _I,
                                         _I, _F, _P)
-        _fns["k8"] = _build.bind(lib, "ct_k8_ln_qkv", _P, _I, _I, _I, _P, _P, _P, _F, _P, _P, _P)
+        _fns["k8"] = _build.bind(lib, "ct_k8_ln_qkv", _P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P,
+                                 _P)
         _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P, _F, _P, _P)
+                                 _P, _P, _P, _P, _P, _F, _I, _I, _P, _P)
+        fused = _build.load("int8_fused")
+        _fns["k10"] = _build.bind(fused, "ct_k10_ln_dense", _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _P, _F, _I, _I, _I, _P, _P)
+        _fns["k11"] = _build.bind(fused, "ct_k11_space_allt", _P, _P, _I, _I, _I, _I, _I,
+                                  *([_P] * 12), _F, _F, _I, _I, _P, _P)
+        _fns["k12"] = _build.bind(fused, "ct_k12_ln_mlp", _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _P, _P, _F, _I, _I, _P, _P)
     return _fns
 
 
@@ -198,14 +280,19 @@ def _is_bf16(t) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def ln_quant_cuda(x2d, eps=1e-6, ln=True, gamma=None, beta=None):
-    """(rows, C) float32|bf16 -> (int8 codes, f32 row scales (rows,))."""
+LN_BF16, GELU_FOLD = 1, 2  # ct_ln_quant's mode bits: the two variants
+
+
+def ln_quant_cuda(x2d, eps=1e-6, ln=True, gamma=None, beta=None, mode=0):
+    """(rows, C) float32|bf16 -> (int8 codes, f32 row scales (rows,)).
+    mode: LN_BF16 | GELU_FOLD bits (GELU_FOLD quantizes gelu(x) with the
+    fold's scale)."""
     rows, C = x2d.shape
     q = torch.empty((rows, C), dtype=torch.int8, device=x2d.device)
     s = torch.empty((rows,), dtype=F32, device=x2d.device)
     _build.check(_lib()["ln_quant"](
         _build.ptr(x2d), _is_bf16(x2d), rows, C, _build.ptr(gamma), _build.ptr(beta), eps,
-        int(ln), _build.ptr(q), _build.ptr(s), _build.stream_ptr(x2d)), "ct_ln_quant")
+        int(ln), mode, _build.ptr(q), _build.ptr(s), _build.stream_ptr(x2d)), "ct_ln_quant")
     return q, s
 
 
@@ -222,16 +309,21 @@ def gemm_cuda(a8, sa, lin: QLinear, mode, out_dtype, res=None):
     return out
 
 
-def _mlp_tail_cuda(a32, x2d, w, eps, out_dtype):
+def _mlp_tail_cuda(a32, x2d, w, eps, out_dtype, bf16_ln, gelu_fold):
     aq, sa = ln_quant_cuda(a32, ln=False)
     r = gemm_cuda(aq, sa, w.out, MODE_RESID, F32, res=x2d)
-    hq, sr0 = ln_quant_cuda(r, eps)
-    u = gemm_cuda(hq, sr0, w.fc1, MODE_GELU, F32)
-    uq, sr1 = ln_quant_cuda(u, ln=False)
+    hq, sr0 = ln_quant_cuda(r, eps, mode=LN_BF16 * bf16_ln)
+    if gelu_fold:  # fc1 stays pre-GELU; the fold applies GELU as it quantizes
+        u = gemm_cuda(hq, sr0, w.fc1, MODE_AFFINE, F32)
+        uq, sr1 = ln_quant_cuda(u, ln=False, mode=GELU_FOLD)
+    else:
+        u = gemm_cuda(hq, sr0, w.fc1, MODE_GELU, F32)
+        uq, sr1 = ln_quant_cuda(u, ln=False)
     return gemm_cuda(uq, sr1, w.fc2, MODE_RESID, out_dtype, res=r)
 
 
 MAX_KEYS = 512  # frames (K1) or virtual tokens (K2) staged per block on chip
+ALLT_MAX_V = 128  # virtual tokens K11 stages per frame
 
 
 def _check_cuda(*tensors, keys):
@@ -242,35 +334,36 @@ def _check_cuda(*tensors, keys):
         raise ValueError(f"the attention core stages at most {MAX_KEYS} keys, got {keys}")
 
 
-def _time_block_cuda(x, w: TimeBlockWeights, num_heads, dim_head, eps):
+def _time_block_cuda(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
     M, T, C = x.shape
     _check_cuda(x, w.qkv.w, keys=T)
     x2d = x.contiguous().reshape(M * T, C)
-    hq, sr = ln_quant_cuda(x2d, eps)
+    hq, sr = ln_quant_cuda(x2d, eps, mode=LN_BF16 * bf16_ln)
     qkv = gemm_cuda(hq, sr, w.qkv, MODE_AFFINE, x.dtype)
     a = torch.empty((M * T, C), dtype=F32, device=x.device)
     _build.check(_lib()["time_attn"](
         _build.ptr(qkv), _is_bf16(qkv), _build.ptr(a), M, T, num_heads, dim_head,
         dim_head**-0.5, _build.stream_ptr(x)), "ct_time_attention")
-    return _mlp_tail_cuda(a, x2d, w, eps, x.dtype).reshape(M, T, C)
+    return _mlp_tail_cuda(a, x2d, w, eps, x.dtype, bf16_ln, gelu_fold).reshape(M, T, C)
 
 
-def _space_block_cuda(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps):
+def _space_block_cuda(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
     N, T, C = x.shape
     V = kv.shape[1]
     _check_cuda(x, kv, w.q.w, keys=V)
     x2d = x.contiguous().reshape(N * T, C)
     kv = kv.contiguous()
-    hq, sr = ln_quant_cuda(x2d, eps)
+    hq, sr = ln_quant_cuda(x2d, eps, mode=LN_BF16 * bf16_ln)
     q = gemm_cuda(hq, sr, w.q, MODE_AFFINE, kv.dtype)
     a = torch.empty((N * T, C), dtype=F32, device=x.device)
     _build.check(_lib()["p2v_attn"](
         _build.ptr(q), _build.ptr(kv), _is_bf16(kv), _build.ptr(a), N, T, V, num_heads,
         dim_head, dim_head**-0.5, _build.stream_ptr(x)), "ct_p2v_attention")
-    return _mlp_tail_cuda(a, x2d, w, eps, x.dtype).reshape(N, T, C)
+    return _mlp_tail_cuda(a, x2d, w, eps, x.dtype, bf16_ln, gelu_fold).reshape(N, T, C)
 
 
-def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6):
+def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6, bf16_ln=False,
+                          gelu_fold=False):
     """K1: the whole pre-norm time-attention block, per track over T:
 
         q, kv = to_q(ln(x)), to_kv(ln(x)); a = attention over T
@@ -278,8 +371,8 @@ def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6)
 
     x (M, T, C) float32 or bfloat16 -> (M, T, C) in x.dtype."""
     if x.device.type == "cpu":
-        return time_block_plain(x, w, num_heads, dim_head, eps)
-    out = _time_block_cuda(x, w, num_heads, dim_head, eps)
+        return time_block_plain(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    out = _time_block_cuda(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     fused_time_block_int8.launches += 1
     return out
 
@@ -287,7 +380,8 @@ def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6)
 fused_time_block_int8.launches = 0
 
 
-def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6):
+def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6,
+                           bf16_ln=False, gelu_fold=False):
     """K2: the whole points<-virtual block, per (track, frame):
 
         q = to_q(ln(x)); a = attention over that frame's V virtual keys|values
@@ -295,8 +389,8 @@ def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps
 
     x (N, T, C) point tokens; kv (T, V, 2C) -> (N, T, C) in x.dtype."""
     if x.device.type == "cpu":
-        return space_block_plain(x, kv, w, num_heads, dim_head, eps)
-    out = _space_block_cuda(x, kv, w, num_heads, dim_head, eps)
+        return space_block_plain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    out = _space_block_cuda(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     fused_space_block_int8.launches += 1
     return out
 
@@ -304,10 +398,39 @@ def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps
 fused_space_block_int8.launches = 0
 
 
-SPLIT_C, SPLIT_H = 384, 1536  # the widths K8 and K9 are built for
+def fused_space_block_allt_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6,
+                                bf16_ln=False, gelu_fold=False):
+    """K11: K2's function (space_block_plain) in one launch, each block a
+    tile of 64 tracks x all T frames with every intermediate in shared
+    memory. x (N, T, C) and kv (T, V, 2C) of one dtype, C = 384, V <= 128.
+    The model takes it where gates.space_allt_tile(N, T, bf16) holds."""
+    if x.device.type == "cpu":
+        return space_block_plain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    N, T, C = x.shape
+    V = kv.shape[1]
+    _check_cuda(x, kv, w.q.w, keys=0)
+    if C != SPLIT_C or num_heads * dim_head != C or tuple(kv.shape) != (T, V, 2 * C) \
+            or kv.dtype != x.dtype or V > ALLT_MAX_V:
+        raise ValueError(f"K11 takes C={SPLIT_C}, kv (T, V <= {ALLT_MAX_V}, 2C) in x's dtype; got "
+                         f"x {tuple(x.shape)} {x.dtype}, kv {tuple(kv.shape)} {kv.dtype}")
+    x, kv = x.contiguous(), kv.contiguous()
+    out = torch.empty_like(x)
+    ptrs = [_build.ptr(t) for lin in (w.q, w.out, w.fc1, w.fc2) for t in lin]
+    _build.check(_lib()["k11"](
+        _build.ptr(x), _build.ptr(kv), _is_bf16(x), N, T, V, C, *ptrs, eps, dim_head**-0.5,
+        int(bf16_ln), int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)),
+        "ct_k11_space_allt")
+    fused_space_block_allt_int8.launches += 1
+    return out
 
 
-def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6):
+fused_space_block_allt_int8.launches = 0
+
+
+SPLIT_C, SPLIT_H = 384, 1536  # the widths K8-K12 are built for
+
+
+def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
     """K8: the pre-norm attention entry, one LayerNorm and one row
     quantization feeding both projections:
 
@@ -316,7 +439,7 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6):
     x (..., C) float32 or bfloat16; wqkv the stacked [to_q; to_kv] (3C, C)
     (TimeBlockWeights.qkv). Returns (q (..., C), kv (..., 2C)) in x.dtype."""
     if x.device.type == "cpu":
-        return ln_qkv_plain(x, wqkv, eps)
+        return ln_qkv_plain(x, wqkv, eps, bf16_ln)
     C = x.shape[-1]
     _check_cuda(x, wqkv.w, keys=0)
     if C != SPLIT_C or tuple(wqkv.w.shape) != (3 * C, C):
@@ -328,8 +451,8 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6):
     kv = torch.empty((rows, 2 * C), dtype=x.dtype, device=x.device)
     _build.check(_lib()["k8"](
         _build.ptr(x2d), _is_bf16(x2d), rows, C, _build.ptr(wqkv.w), _build.ptr(wqkv.s),
-        _build.ptr(wqkv.b), eps, _build.ptr(q), _build.ptr(kv), _build.stream_ptr(x)),
-        "ct_k8_ln_qkv")
+        _build.ptr(wqkv.b), eps, int(bf16_ln), _build.ptr(q), _build.ptr(kv),
+        _build.stream_ptr(x)), "ct_k8_ln_qkv")
     fused_ln_qkv_int8.launches += 1
     lead = x.shape[:-1]
     return q.reshape(*lead, C), kv.reshape(*lead, 2 * C)
@@ -338,7 +461,8 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6):
 fused_ln_qkv_int8.launches = 0
 
 
-def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6):
+def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6, bf16_ln=False,
+                               gelu_fold=False):
     """K9: the post-attention half of a pre-norm block:
 
         r = x + to_out(a); return r + fc2(gelu(fc1(ln(r)))), all W8A8
@@ -347,7 +471,7 @@ def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6):
     both in the token dtype (float32 or bfloat16); w the block's pack (its
     out, fc1, fc2). Returns (..., C) in x.dtype."""
     if x.device.type == "cpu":
-        return attnout_mlp_plain(a, x, w, eps)
+        return attnout_mlp_plain(a, x, w, eps, bf16_ln, gelu_fold)
     C = x.shape[-1]
     _check_cuda(a, x, w.out.w, keys=0)
     if a.shape != x.shape or a.dtype != x.dtype:
@@ -361,9 +485,78 @@ def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6):
     ptrs = [_build.ptr(t) for lin in (w.out, w.fc1, w.fc2) for t in lin]
     _build.check(_lib()["k9"](
         _build.ptr(a2d), _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], C, SPLIT_H, *ptrs, eps,
-        _build.ptr(out), _build.stream_ptr(x)), "ct_k9_attnout_mlp")
+        int(bf16_ln), int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)),
+        "ct_k9_attnout_mlp")
     fused_attnout_res_mlp_int8.launches += 1
     return out.reshape(x.shape)
 
 
 fused_attnout_res_mlp_int8.launches = 0
+
+
+def _rows_tile(x, *widths) -> bool:
+    """The JAX wrappers' shape gates: lane-aligned widths and a row count
+    that _pick_tile can tile (a multiple of 8)."""
+    rows = x.numel() // x.shape[-1]
+    return all(n % 128 == 0 for n in widths) and rows % 8 == 0
+
+
+def fused_ln_dense_int8(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=None,
+                        residual=False, bf16_ln=False):
+    """K10: [x +] ((ln(x) [* gamma + beta]) @ W + b) with W8A8, one pass:
+
+    x (..., C) float32 or bfloat16; lin the quantized (N, C) weight. Returns
+    (..., N) in x.dtype, or None where the JAX wrapper returns None: C or N
+    not a multiple of 128, residual with N != C, or a row count that is not
+    a multiple of 8."""
+    C, N = x.shape[-1], lin.w.shape[0]
+    if not _rows_tile(x, C, N) or (residual and N != C):
+        return None
+    if x.device.type == "cpu":
+        return ln_dense_plain(x, lin, eps, ln, gamma, beta, residual, bf16_ln)
+    _check_cuda(x, lin.w, keys=0)
+    if C != SPLIT_C or (gamma is None) != (beta is None):
+        raise ValueError(f"K10 takes C={SPLIT_C} and gamma with beta, got x {tuple(x.shape)}")
+    x2d = x.contiguous().reshape(-1, C)
+    rows = x2d.shape[0]
+    g = None if gamma is None else gamma.detach().to(F32).contiguous()
+    b = None if beta is None else beta.detach().to(F32).contiguous()
+    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+    _build.check(_lib()["k10"](
+        _build.ptr(x2d), _is_bf16(x2d), rows, C, N, _build.ptr(lin.w), _build.ptr(lin.s),
+        _build.ptr(lin.b), _build.ptr(g), _build.ptr(b), eps, int(ln), int(residual),
+        int(bf16_ln), _build.ptr(out), _build.stream_ptr(x)), "ct_k10_ln_dense")
+    fused_ln_dense_int8.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+fused_ln_dense_int8.launches = 0
+
+
+def fused_ln_mlp_int8(x, fc1: QLinear, fc2: QLinear, eps=1e-6, ln=True, bf16_ln=False,
+                      gelu_fold=False):
+    """K12: x + fc2(gelu(fc1(ln(x)))) with W8A8, one pass (ln=False skips
+    the LayerNorm). x (..., C) float32 or bfloat16; fc1 (H, C), fc2 (C, H)
+    quantized. Returns (..., C) in x.dtype, or None where the JAX wrapper
+    returns None: C or H not a multiple of 128, or a row count that is not a
+    multiple of 8."""
+    C, H = x.shape[-1], fc1.w.shape[0]
+    if not _rows_tile(x, C, H):
+        return None
+    if x.device.type == "cpu":
+        return ln_mlp_plain(x, fc1, fc2, eps, ln, bf16_ln, gelu_fold)
+    _check_cuda(x, fc1.w, keys=0)
+    if C != SPLIT_C or H != SPLIT_H or tuple(fc2.w.shape) != (C, H):
+        raise ValueError(f"K12 takes C={SPLIT_C}, hidden {SPLIT_H}, got x {tuple(x.shape)}, "
+                         f"fc1 {tuple(fc1.w.shape)}")
+    x2d = x.contiguous().reshape(-1, C)
+    out = torch.empty_like(x2d)
+    ptrs = [_build.ptr(t) for lin in (fc1, fc2) for t in lin]
+    _build.check(_lib()["k12"](
+        _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], C, H, int(ln), *ptrs, eps, int(bf16_ln),
+        int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)), "ct_k12_ln_mlp")
+    fused_ln_mlp_int8.launches += 1
+    return out.reshape(x.shape)
+
+
+fused_ln_mlp_int8.launches = 0

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from cotracker_tpu_torch.models.build import build_cotracker
+from cotracker_tpu_torch.ops.kernels.variants import KernelVariants
 from cotracker_tpu_torch.ops.bilinear import resize_bilinear
 from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
 
@@ -38,10 +39,14 @@ class CoTrackerPredictor:
         device="cuda",
         dense_offsets_per_forward: int = 3,
         seed: int = 0,
+        variants: Optional[KernelVariants] = None,
     ):
+        """variants: the kernel-variant switches of the fast path; None reads
+        the JAX package's environment variables once, here."""
         self.model = build_cotracker(
             checkpoint, offline=offline, window_len=window_len, dtype=dtype,
             model_resolution=model_resolution, fast=fast, device=device, seed=seed,
+            variants=variants,
         )
         self.device = next(self.model.parameters()).device
         self.interp_shape = self.model.model_resolution
@@ -188,10 +193,13 @@ class CoTrackerOnlinePredictor:
         return_full_buffers: bool = False,
         device="cuda",
         seed: int = 0,
+        variants: Optional[KernelVariants] = None,
     ):
+        """variants: as CoTrackerPredictor's."""
         self.model = build_cotracker(
             checkpoint, offline=False, window_len=window_len, dtype=dtype,
             model_resolution=model_resolution, fast=fast, device=device, seed=seed,
+            variants=variants,
         )
         self.device = next(self.model.parameters()).device
         self.interp_shape = self.model.model_resolution

@@ -3,6 +3,7 @@
     python3 scripts/torch_breakdown.py [--frames 60] [--grid 100]
     python3 scripts/torch_breakdown.py --frames 250 --grid 50
     python3 scripts/torch_breakdown.py --online
+    python3 scripts/torch_breakdown.py --quasi-dense
     python3 scripts/torch_breakdown.py --train
 
 Profiles (torch.profiler, CUDA activity) one call of each kernel wrapper
@@ -23,6 +24,13 @@ attention-core kernels K5-K7 on, driven through online_step; device time is
 also summed by group (the hand-written kernels by name, library GEMMs,
 convolutions, everything else), and the window's feature stage (fnet on the
 8 new frames plus the pyramid) is profiled on its own. Writes chiprun_out/torch_breakdown_online.json.
+
+With --quasi-dense it profiles one steady window (the fourth) of
+quasi-dense streaming, CoTrackerOnlinePredictor(fast=True) with a 265x265
+grid (70,225 points, 70,656 padded), 384x512, iters=6, (a) with the kernel
+variants off and (c) with all four on (K4m, K11, bf16 LayerNorm,
+GELU-quant fold), by kernel and by group. Writes
+chiprun_out/torch_breakdown_quasi_dense.json.
 
 With --train it profiles one steady online training step (the third) at
 the reference training shape: 384x512, a 24-frame clip in two windows of
@@ -61,6 +69,8 @@ def device_table(prof, top=12):
 
 
 GROUPS = (  # first match wins, on the device kernel's name
+    ("K4m corr_mlp1_kernel", ("corr_mlp1_kernel",)),
+    ("K11 space_block_allt_kernel", ("space_block_allt_kernel",)),
     ("K8 ln_qkv_kernel", ("ln_qkv_kernel",)),
     ("K9 attnout_mlp_kernel", ("attnout_mlp_kernel",)),
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
@@ -172,6 +182,30 @@ def online(dev, smi):
         json.dump({"device": smi, "runs": out}, f, indent=1)
 
 
+def quasi_dense(dev, smi):
+    """One steady quasi-dense window in each variant setting (see the
+    module docstring); the stream's first three windows are the warm-up."""
+    from cotracker_tpu_torch import CoTrackerOnlinePredictor
+    from cotracker_tpu_torch.ops.kernels.variants import KernelVariants
+
+    S, frames, grid = 16, chip_smoke.QD_FRAMES, chip_smoke.QD_GRID
+    video = chip_smoke.synthetic_video(frames, 384, 512, dev)
+    out = []
+    for name, variants in (("a", KernelVariants()), ("c", chip_smoke.ALL_ON)):
+        pred = CoTrackerOnlinePredictor(fast=True, device="cuda", capacity=frames,
+                                        variants=variants)
+        pred(video[:, :1], is_first_step=True, grid_size=grid)
+        for ind in (0, 8, 16):
+            pred(video[:, ind : ind + S])
+        out.append(run(f"quasi-dense ({name}) window 4: {grid * grid} points, {variants}",
+                       lambda: pred(video[:, 24 : 24 + S]), warm=False, groups=True))
+        del pred
+        torch.cuda.empty_cache()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/torch_breakdown_quasi_dense.json", "w") as f:
+        json.dump({"device": smi, "runs": out}, f, indent=1)
+
+
 def train(dev, smi):
     """One steady online training step (see the module docstring)."""
     from cotracker_tpu_torch.models.build import build_training_model
@@ -206,6 +240,8 @@ def main():
     ap.add_argument("--grid", type=int, default=100, help="the forward's query grid size")
     ap.add_argument("--online", action="store_true",
                     help="profile one steady streaming window in each kernel configuration")
+    ap.add_argument("--quasi-dense", action="store_true",
+                    help="profile one steady quasi-dense window, variants off and on")
     ap.add_argument("--train", action="store_true",
                     help="profile one steady online training step at the reference shape")
     args = ap.parse_args()
@@ -220,6 +256,8 @@ def main():
     _build.build_all()
     if args.online:
         return online(dev, smi)
+    if args.quasi_dense:
+        return quasi_dense(dev, smi)
     if args.train:
         return train(dev, smi)
     g = torch.Generator().manual_seed(0)

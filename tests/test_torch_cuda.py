@@ -1,7 +1,8 @@
-"""The CUDA kernels K1-K9, K4r and K4f against their plain PyTorch versions
-on the card, at small shapes (K5-K7 also at the full streaming width),
-float32 and bfloat16, and the training autograd wrapper's gradients against
-plain autograd (marker `cuda`; skips without a GPU).
+"""The CUDA kernels K1-K12, K4r, K4f and K4m against their plain PyTorch
+versions on the card, at small shapes (K5-K7 also at the full streaming
+width), float32 and bfloat16, every W8A8 body in the two variant modes
+(bf16 LayerNorm, GELU-quant fold), and the training autograd wrapper's
+gradients against plain autograd (marker `cuda`; skips without a GPU).
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py -q
 
@@ -15,7 +16,9 @@ within the rounding of the output and of the probabilities (two bf16 ulps,
 2^-7 relative to the largest output). K4r's integer products are exact
 and its arithmetic the plain version's: codes and scales match exactly.
 K4f sums float32 products in another order: 1e-5 of the largest output in
-float32, one bf16 ulp (2^-8) of it in bfloat16.
+float32, one bf16 ulp (2^-8) of it in bfloat16. K4m's arithmetic is its
+plain version's, integer products and epilogue order alike: its rows match
+exactly. K10, K11, K12 and the variant modes take the W8A8 bound above.
 """
 
 import numpy as np
@@ -301,3 +304,140 @@ def test_cores_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="at most"):
         attention_cuda.fused_time_attention(torch.randn(1, 513, C, device=dev),
                                             torch.randn(1, 513, 2 * C, device=dev), H, D)
+
+
+# ------------------------------------------------ K4m, K10, K11, K12, the modes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [5, 16])
+def test_corr_mlp1(dev, dtype, T):
+    """K4m: the same integer products, combine, codes and epilogue order as
+    its plain version, so the rows match exactly."""
+    g = torch.Generator().manual_seed(T)
+    B, Hh, W, NP = 2, 24, 32, 40
+    fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
+    fmq = corr_cuda.build_int8_level(fm.to(dev), 3)
+    sup = torch.nn.functional.normalize(torch.randn(B, 49, NP // B, 128, generator=g), dim=-1)
+    supq, sscale = corr_cuda.quantize_support(sup.to(dev), dtype)
+    coords = (torch.rand(B, T, NP // B, 2, generator=g) * torch.tensor([W + 6.0, Hh + 6.0]) - 3)
+    starts, wxy = corr_cuda.level_operands(coords.to(dev), B, T, Hh, W, 3)
+    w1 = (0.02 * torch.randn(2401, 384, generator=g)).to(dev)
+    b1 = (0.1 * torch.randn(384, generator=g)).to(dev)
+    args = (fmq, supq.reshape(NP, 49, 128), starts, wxy, *corr_cuda.quantize_w1_mlp1(w1), b1,
+            sscale.reshape(NP), dtype)
+    n = corr_cuda.corr_mlp1_int8.launches
+    out = corr_cuda.corr_mlp1_int8(*args)
+    torch.cuda.synchronize()
+    assert corr_cuda.corr_mlp1_int8.launches == n + 1
+    ref = corr_cuda.corr_mlp1_plain(*args)
+    assert out.dtype == dtype and out.shape == ref.shape == (NP, starts.shape[1], 384)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T", [(300, 16), (70, 8)])
+def test_space_block_allt(dev, dtype, N, T):
+    """K11 computes K2's function: against space_block_plain (a ragged
+    64-track tile at both shapes)."""
+    g = torch.Generator().manual_seed(N + T)
+    w = mlp_int8_cuda.SpaceBlockWeights(_lin(g, C, C, dev), _lin(g, C, C, dev),
+                                        _lin(g, HID, C, dev), _lin(g, C, HID, dev))
+    x = torch.randn(N, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(T, 64, 2 * C, generator=g).to(dev, dtype)
+    n = mlp_int8_cuda.fused_space_block_allt_int8.launches
+    out = mlp_int8_cuda.fused_space_block_allt_int8(x, kv, w, H, D)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_space_block_allt_int8.launches == n + 1
+    _close(out, mlp_int8_cuda.space_block_plain(x, kv, w, H, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln,affine,residual", [
+    (ln, af, res) for ln in (False, True) for af in (False, True) for res in (False, True)])
+def test_ln_dense(dev, dtype, ln, affine, residual):
+    g = torch.Generator().manual_seed(1)
+    lin = _lin(g, C if residual else 3 * C, C, dev)
+    x = torch.randn(136, C, generator=g).to(dev, dtype)  # a ragged 128-row tile
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev) if affine else None
+    beta = (0.05 * torch.randn(C, generator=g)).to(dev) if affine else None
+    kw = dict(ln=ln, gamma=gamma, beta=beta, residual=residual)
+    n = mlp_int8_cuda.fused_ln_dense_int8.launches
+    out = mlp_int8_cuda.fused_ln_dense_int8(x, lin, **kw)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_dense_int8.launches == n + 1
+    _close(out, mlp_int8_cuda.ln_dense_plain(x, lin, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln", [True, False])
+def test_ln_mlp(dev, dtype, ln):
+    g = torch.Generator().manual_seed(2)
+    fc1, fc2 = _lin(g, HID, C, dev), _lin(g, C, HID, dev)
+    x = torch.randn(3, 40, C, generator=g).to(dev, dtype)  # 120 rows: a ragged 64-row tile
+    n = mlp_int8_cuda.fused_ln_mlp_int8.launches
+    out = mlp_int8_cuda.fused_ln_mlp_int8(x, fc1, fc2, ln=ln)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_mlp_int8.launches == n + 1
+    _close(out, mlp_int8_cuda.ln_mlp_plain(x, fc1, fc2, ln=ln), dtype)
+
+
+def _fold_pack(g, dev):
+    """fc1 leaving every pre-GELU value negative: the fold's scale then
+    differs from the absmax one on every row."""
+    w = _time_pack(g, dev)
+    w1 = 0.3 * torch.randn(HID, C, generator=g) / C**0.5
+    fc1 = mlp_int8_cuda.quantize_linear(w1.to(dev), (-3.0 + 0.05 * torch.randn(HID, generator=g)).to(dev))
+    return w._replace(fc1=fc1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bf16_ln", "gelu_fold"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K8", "K9", "K10", "K11", "K12"])
+def test_w8a8_modes(dev, name, mode, dtype):
+    g = torch.Generator().manual_seed(3)
+    w = _fold_pack(g, dev) if mode == "gelu_fold" else _time_pack(g, dev)
+    sw = mlp_int8_cuda.SpaceBlockWeights(
+        mlp_int8_cuda.QLinear(w.qkv.w[:C].contiguous(), w.qkv.s[:C].contiguous(),
+                              w.qkv.b[:C].contiguous()), w.out, w.fc1, w.fc2)
+    x = torch.randn(70, 16, C, generator=g).to(dev, dtype)
+    a = torch.randn(70, 16, C, generator=g).to(dev, dtype)
+    kv = torch.randn(16, 64, 2 * C, generator=g).to(dev, dtype)
+    kw = {mode: True}
+    lnkw = {"bf16_ln": True} if mode == "bf16_ln" else {}
+    m = mlp_int8_cuda
+    kern, plain = {
+        "K1": (lambda: m.fused_time_block_int8(x, w, H, D, **kw),
+               lambda: m.time_block_plain(x, w, H, D, **kw)),
+        "K2": (lambda: m.fused_space_block_int8(x, kv, sw, H, D, **kw),
+               lambda: m.space_block_plain(x, kv, sw, H, D, **kw)),
+        "K8": (lambda: torch.cat(m.fused_ln_qkv_int8(x, w.qkv, **lnkw), -1),
+               lambda: torch.cat(m.ln_qkv_plain(x, w.qkv, **lnkw), -1)),
+        "K9": (lambda: m.fused_attnout_res_mlp_int8(a, x, w, **kw),
+               lambda: m.attnout_mlp_plain(a, x, w, **kw)),
+        "K10": (lambda: m.fused_ln_dense_int8(x, w.qkv, ln=True, **lnkw),
+                lambda: m.ln_dense_plain(x, w.qkv, ln=True, **lnkw)),
+        "K11": (lambda: m.fused_space_block_allt_int8(x, kv, sw, H, D, **kw),
+                lambda: m.space_block_plain(x, kv, sw, H, D, **kw)),
+        "K12": (lambda: m.fused_ln_mlp_int8(x, w.fc1, w.fc2, **kw),
+                lambda: m.ln_mlp_plain(x, w.fc1, w.fc2, **kw)),
+    }[name]
+    out = kern()
+    torch.cuda.synchronize()
+    _close(out, plain(), dtype)
+
+
+def test_variant_kernels_raise_instead_of_falling_back(dev):
+    g = torch.Generator().manual_seed(4)
+    w = _time_pack(g, dev)
+    sw = mlp_int8_cuda.SpaceBlockWeights(w.out, w.out, w.fc1, w.fc2)
+    x = torch.randn(8, 16, C, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_int8_cuda.fused_space_block_allt_int8(x, torch.randn(16, 64, 2 * C), sw, H, D)
+    with pytest.raises(ValueError, match="K11 takes"):
+        mlp_int8_cuda.fused_space_block_allt_int8(x, torch.randn(16, 200, 2 * C, device=dev),
+                                                  sw, H, D)
+    with pytest.raises(ValueError, match="K12 takes"):
+        mlp_int8_cuda.fused_ln_mlp_int8(x, w.fc1, _lin(g, C, 2 * HID, dev))
+    with pytest.raises(ValueError, match="K10 takes"):
+        mlp_int8_cuda.fused_ln_dense_int8(torch.randn(8, 2 * C, device=dev), _lin(g, C, 2 * C, dev))

@@ -1,11 +1,14 @@
-"""Import hygiene of the port: cotracker_tpu_torch and chip_smoke.py load
-nothing of JAX, flax or the JAX package. Checked in a fresh interpreter,
-because tests/conftest.py has already imported JAX in this one."""
+"""Import hygiene of the port: cotracker_tpu_torch, chip_smoke.py and the
+port's scripts (scripts/torch_*.py) load nothing of JAX, flax or the JAX
+package. The package is checked in a fresh interpreter, because
+tests/conftest.py has already imported JAX in this one."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "cotracker_tpu")
@@ -42,5 +45,24 @@ def test_chip_smoke_imports_no_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
+    assert any(n.startswith("cotracker_tpu_torch") for n in names), names
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def _imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("script", ["torch_ubench.py", "torch_breakdown.py"])
+def test_port_scripts_import_no_jax(script):
+    names = _imported_names(os.path.join(REPO, "scripts", script))
     assert any(n.startswith("cotracker_tpu_torch") for n in names), names
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names

@@ -8,6 +8,8 @@ the reference implementation): coords rtol 1e-3 / atol 2e-2 pixels, vis and
 conf 1e-3.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -24,14 +26,22 @@ from cotracker_tpu_torch.models.cotracker3 import CoTrackerThree
 torch.set_num_threads(2)
 
 
+@functools.lru_cache(maxsize=None)
+def _param_shapes(jax_model):
+    """The JAX model's parameter tree as shapes, from eval_shape (no
+    compile); cached per model configuration, as tracing the init is the
+    costly part of random_params."""
+    return jax.eval_shape(
+        lambda r: jax_model.init(r, jnp.zeros((1, 2, 32, 32, 3)), jnp.zeros((1, 1, 3)), iters=1),
+        jax.random.PRNGKey(0),
+    )["params"]
+
+
 def random_params(jax_model, seed=0):
     """Random float32 parameters in the JAX model's tree, drawn with numpy:
     kernels N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.01), virtual tracks
     N(0, 1), biases N(0, 0.0025). Shapes come from eval_shape (no compile)."""
-    shapes = jax.eval_shape(
-        lambda r: jax_model.init(r, jnp.zeros((1, 2, 32, 32, 3)), jnp.zeros((1, 1, 3)), iters=1),
-        jax.random.PRNGKey(0),
-    )["params"]
+    shapes = _param_shapes(jax_model)
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
