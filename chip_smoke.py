@@ -19,7 +19,11 @@ Phases, each raising on failure:
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames): K4r's codes and
      scales bit-identical to its plain version, K4f within a float32 bound;
-     then K8 (LN + W8A8 q|kv) and K9 (W8A8 out + MLP), the two halves of the
+     then K7 at the quasi-dense key count (70,656 padded tracks x 16 frames,
+     the keys of each frame and head shared by several blocks and merged;
+     once with every key masked) and K5 past the 512 frames its short route
+     stages (256 tracks x 640 frames: the long route); then K8 (LN + W8A8
+     q|kv) and K9 (W8A8 out + MLP), the two halves of the
      time block's split, in bf16 at the long path's point tokens (2,048
      tracks x 250 frames) and virtual tokens (64 x 250);
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
@@ -49,9 +53,10 @@ Phases, each raising on failure:
      decreasing, K4r 64 launches per step (4 levels x 4 iterations x 2
      windows x 2: the checkpointed forward runs again in the backward), K4f
      and K1-K7 none; ms per step and peak memory. Then 3 steps of the
-     offline model (one 16-frame window, K4r 32 per step) and 2 steps of the
+     offline model (one 16-frame window, K4r 32 per step), 2 steps of the
      online model with K4f instead of K4r (corr_quant_int8=False, K4f 64 per
-     step, K4r none);
+     step, K4r none) and 2 with COTRACKER_CORR_FUSE_MLP1=1 (the wrapper's
+     forward through K4m: K4m 64 per step, K4r none);
   8. gradients on the card: one batch at 64x96, 8 frames, 32 tracks,
      iters=2 through the K4r, the K4f and the plain training models of the
      same weights; the loss within rtol 1e-3 and every gradient within rtol
@@ -91,7 +96,11 @@ Phases, each raising on failure:
      (no K11 at 60 frames), K1 36, K3 18, K4 0; seconds and points*frames/s;
  14. the micro-benchmark entry point, scripts/torch_ubench.py int8pallas
      corr, in this process: K10 and K12 9 launches each (a warm-up and 8
-     timed), K4 and K4m 18.
+     timed), K4 and K4m 18;
+ 15. (run after phase 9) a 600-frame video (384x512, a 16x16 grid: 256
+     points, 512 padded) through CoTrackerPredictor(fast=True), one forward:
+     past K5's 512-frame short route, K8 36, K5 36, K9 36, K2 18, K3 18, K4
+     24; shapes, finiteness, snap-back.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -194,6 +203,15 @@ TRAIN_SHAPE, INFER_SHAPE = (768, 16), (CHUNK, T_FRAMES)
 # (median, 90th percentile, max) of the per-point distance in pixels, about
 # 2.5x what an H100 (700 W) measures with these seeds (0.41, 0.72, 1.81)
 AB_BAND = (1.0, 2.0, 8.0)
+# K5's long route (past the 512 frames its short route stages) against its
+# plain version, and the offline predictor on a video that takes it
+LONG5_TRACKS, LONG5_T = 256, 640
+VIDEO600_T, VIDEO600_GRID = 600, 16
+
+
+def hm(t):
+    """(..., L, C) -> (..., H, L, D): the head-major view SDPA takes."""
+    return t.unflatten(-1, (HEADS, DH)).transpose(-2, -3)
 
 
 def kernel_phase(dev):
@@ -281,7 +299,6 @@ def kernel_phase(dev):
         out = attention_cuda.fused_time_attention(x, kv5, HEADS, DH)
         ref = attention_cuda.time_attention_plain(x, kv5, HEADS, DH)
         err = check_close(f"K5 time attention T={T}", out, ref, *CORE_TOL)
-        hm = lambda t: t.unflatten(-1, (HEADS, DH)).transpose(-2, -3)  # (.., L, C) -> (.., H, L, D)
         lib = sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))
         check_close(f"   SDPA vs K5 T={T}", lib.transpose(1, 2).flatten(-2), out, 2.0**-6, 2.0**-4)
         entry("K5_time_attention", SRC_CORES, "cotracker_tpu/ops/kernels/attention_pallas.py:50",
@@ -363,6 +380,55 @@ def kernel_phase(dev):
                      (CHUNK * Tp * 64 * 49 * 10, F32_OPS)]))
         del fm, fmq, sup, supq, vol, rvol, diff
     results["K4_corr_volume"]["shape"] = f"level 0 (96x128), {CHUNK} points x {T_FRAMES} frames"
+
+    # K7 at the quasi-dense key count (K3's chain in a quasi-dense window):
+    # several blocks share each (frame, head)'s keys, then the merge
+    N, T = QD_PAD, T_STREAM
+    q = (0.3 * torch.randn(T, V, C, generator=g)).to(dev, bf)
+    kv7 = torch.randn(N, T, 2 * C, generator=g).to(dev, bf)
+    qbias = torch.zeros(N, device=dev)
+    qbias[QD_GRID**2:] = attention_cuda.NEG_BIG
+    out = attention_cuda.fused_virtual_from_points(q, kv7, HEADS, DH, key_bias=qbias)
+    err = check_close(f"K7 virtual<-points {N} tracks x {T}", out,
+                      attention_cuda.v2p_plain(q, kv7, HEADS, DH, key_bias=qbias), *CORE_TOL)
+    dead = attention_cuda.fused_virtual_from_points(
+        q, kv7, HEADS, DH, key_bias=torch.full((N,), attention_cuda.NEG_BIG, device=dev))
+    if not torch.isfinite(dead.float()).all():
+        raise AssertionError("K7: non-finite output with every key masked")
+    k7t = kv7.transpose(0, 1)
+    mask = qbias.to(bf)[None, None, None, :]
+    e = results["K7_virtual_from_points"]
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    e.update(
+        splits_n70656=attention_cuda.v2p_splits(N, T, V, HEADS, dev),
+        ms_n70656=time_ms(lambda: attention_cuda.fused_virtual_from_points(
+            q, kv7, HEADS, DH, key_bias=qbias)),
+        bound_ms_n70656=bound(nbytes(q, kv7, qbias, out),
+                              [(T * HEADS * V * N * 4 * DH, BF16_OPS)])[0],
+        library_ms_n70656=time_ms(lambda: sdpa(hm(q), hm(k7t[..., :C]), hm(k7t[..., C:]),
+                                               attn_mask=mask)))
+    log(f"  K7 {N} tracks x {T}: {e['ms_n70656']:.3f} ms ({e['splits_n70656']} key ranges; "
+        f"library call {e['library_ms_n70656']:.3f} ms, bound {e['bound_ms_n70656']:.3f} ms)")
+    del q, kv7, k7t, out, dead
+
+    # K5 past the 512 frames its short route stages: the long route
+    M, T = LONG5_TRACKS, LONG5_T
+    x = torch.randn(M, T, C, generator=g).to(dev, bf)
+    kv5 = torch.randn(M, T, 2 * C, generator=g).to(dev, bf)
+    out = attention_cuda.fused_time_attention(x, kv5, HEADS, DH)
+    err = check_close(f"K5 time attention {M} tracks x {T}", out,
+                      attention_cuda.time_attention_plain(x, kv5, HEADS, DH), *CORE_TOL)
+    e = results["K5_time_attention"]
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    e.update(
+        ms_t640=time_ms(lambda: attention_cuda.fused_time_attention(x, kv5, HEADS, DH)),
+        plain_ms_t640=time_ms(lambda: attention_cuda.time_attention_plain(x, kv5, HEADS, DH),
+                              reps=2),
+        bound_ms_t640=bound(nbytes(x, kv5, out), [(M * T * HEADS * 4 * T * DH, BF16_OPS)])[0],
+        library_ms_t640=time_ms(lambda: sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))),
+        shape_t640=f"{M} tracks x {T} frames, bf16 (the long route)")
+    log(f"  K5 {M} tracks x {T}: {e['ms_t640']:.3f} ms (plain {e['plain_ms_t640']:.3f} ms, "
+        f"library call {e['library_ms_t640']:.3f} ms, bound {e['bound_ms_t640']:.3f} ms)")
     return [results[k] for k in sorted(results)]
 
 
@@ -864,11 +930,26 @@ def training_phase(dev, smi):
             f"{[round(m, 1) for _, _, m in run_f]}")
         if not all(math.isfinite(x) for x in fl):
             raise AssertionError("training (c): non-finite loss")
+
+        log("training (d): online model with COTRACKER_CORR_FUSE_MLP1=1 (K4m forward), "
+            "2 steps:")
+        exp = os.path.join(root, "k4m")
+        os.environ[ENV["corr_fuse_mlp1"]] = "1"  # read once, when the trainer builds
+        try:
+            run_m = train_run(exp, clip, 2, **online)
+        finally:
+            os.environ.pop(ENV["corr_fuse_mlp1"])
+        check_launches("training (d)", run_m, {**zeros, "K4m_corr_mlp1": k4r})
+        ml = [r["total_loss"] for r in read_losses(exp)]
+        log(f"  total loss per step {[round(x, 4) for x in ml]}; ms per step "
+            f"{[round(m, 1) for _, _, m in run_m]}")
+        if not all(math.isfinite(x) for x in ml):
+            raise AssertionError("training (d): non-finite loss")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return run1[-1][1], run_f[-1][1], dict(ms_per_step=ms_step, peak_gib=peak,
-                                           ms_per_step_offline=[m for _, _, m in run],
-                                           ms_per_step_k4f=[m for _, _, m in run_f])
+    return run1[-1][1], run_f[-1][1], run_m[-1][1], dict(
+        ms_per_step=ms_step, peak_gib=peak, ms_per_step_offline=[m for _, _, m in run],
+        ms_per_step_k4f=[m for _, _, m in run_f], ms_per_step_k4m=[m for _, _, m in run_m])
 
 
 def gradient_phase(dev):
@@ -951,6 +1032,44 @@ def long_path(dev):
         raise AssertionError("snap-back: frame-0 tracks differ from the grid queries")
     log("  shapes, finiteness and snap-back ok")
     return launches, dict(seconds=dt, points_frames_per_s=n * LONG_T / dt, peak_gib=peak)
+
+
+def video600_path(dev):
+    """Phase 15: the offline predictor on a 600-frame video (past the 512
+    frames K5's short route stages; the frame gate sends it to the split):
+    one forward at 256 points, counters zeroed before and read after it."""
+    from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    pred = CoTrackerPredictor(fast=True, device="cuda")
+    T, grid = VIDEO600_T, VIDEO600_GRID
+    video = synthetic_video(T, 384, 512, dev)
+    n, n_pad = grid * grid, -(-grid * grid // 512) * 512
+    expected = {**dict.fromkeys(WRAPPERS, 0), "K8_ln_qkv": 36, "K5_time_attention": 36,
+                "K9_attnout_mlp": 36, "K2_space_block": 18, "K3_virtual_from_points_proj": 18,
+                "K4_corr_volume": 4 * 6 * -(-n_pad // pred.model.corr_chunk)}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = pred(video, grid_size=grid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  first forward {dt:.3f} s for {n} points x {T} frames; peak memory {peak:.1f} GiB")
+    log(f"  launches per forward {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError("the 600-frame video did not launch every kernel as expected")
+    if tuple(tracks.shape) != (1, T, n, 2) or tuple(vis.shape) != (1, T, n):
+        raise AssertionError(f"shapes {tuple(tracks.shape)}, {tuple(vis.shape)}")
+    if not torch.isfinite(tracks).all():
+        raise AssertionError("non-finite tracks")
+    q = get_points_on_a_grid(grid, (384, 512)).to(dev)[0]
+    if not (torch.equal(tracks[0, 0], q) and bool(vis[0, 0].all())):
+        raise AssertionError("snap-back: frame-0 tracks differ from the grid queries")
+    log("  shapes, finiteness and snap-back ok")
+    return launches, dict(seconds=dt, peak_gib=peak)
 
 
 # the evaluation phase's sequences: (name, frames, tracks, launches per
@@ -1061,6 +1180,7 @@ def evaluation_phase(dev):
 SRC_FUSED = "cotracker_tpu_torch/csrc/int8_fused.cu"
 ALL_ON = KernelVariants(corr_fuse_mlp1=True, space_allt=True, bf16_ln=True, gelu_quant_fold=True)
 QD_GRID, QD_FRAMES = 265, 48  # 70,225 points (70,656 padded), 5 windows of 16 at step 8
+QD_PAD = -(-QD_GRID**2 // 512) * 512
 UB_ROWS, UB_REPS = 604_800, 8  # scripts/torch_ubench.py int8pallas rows; launches = 1 + reps
 MODE_SHAPE = (2048, T_STREAM)  # each W8A8 body in both modes
 K8_TOL = (2.0**-9, 2.0**-7)  # K8's band (split_kernel_phase), for K10
@@ -1429,13 +1549,17 @@ def main():
     torch.cuda.empty_cache()
     counts_a, counts_b, pfs_a, pfs_b = streaming_paths(dev)
     torch.cuda.empty_cache()
-    step_r, step_f, train_metrics = training_phase(dev, smi)
+    step_r, step_f, step_m, train_metrics = training_phase(dev, smi)
     torch.cuda.empty_cache()
     log("gradients on the card, K4r and K4f training models against the plain model:")
     gradient_phase(dev)
     torch.cuda.empty_cache()
     log(f"long offline path: CoTrackerPredictor(fast=True), 384x512, {LONG_T} frames, iters=6:")
     long_counts, long_metrics = long_path(dev)
+    torch.cuda.empty_cache()
+    log(f"600-frame video: CoTrackerPredictor(fast=True), 384x512, {VIDEO600_T} frames, "
+        f"{VIDEO600_GRID**2} points, iters=6:")
+    v600_counts, v600 = video600_path(dev)
     torch.cuda.empty_cache()
     log("evaluation: evaluate.run_eval(fast=True) on a synthetic TAP-Vid DAVIS pickle:")
     eval_counts, eval_secs = evaluation_phase(dev)
@@ -1459,6 +1583,7 @@ def main():
         k["launches"] = launches[name] or counts_b[name] or long_counts[name]
         k["launches_per_window"] = {"a": counts_a[name], "b": counts_b[name]}
         k["launches_long_forward"] = long_counts[name]
+        k["launches_600_frame_forward"] = v600_counts[name]
         k["launches_eval_sequence_a"] = eval_counts[name]
     for k in train_kernels:
         # per training step: K4r in the online K4r run, K4f in the K4f run
@@ -1473,6 +1598,7 @@ def main():
         k["launches_quasi_dense_window"] = {r: qd_runs[r]["counts"][name] for r in qd_runs}
         k["launches_offline_variants_forward"] = off_c_counts[name]
         k["launches_ubench"] = ub_counts[name]
+        k["launches_per_train_step_fuse_mlp1"] = step_m[name]
     kernels += variant_kernels
     for k in kernels:
         if k["launches"] < 1:
@@ -1484,7 +1610,9 @@ def main():
         f"peak memory {train_metrics['peak_gib']:.2f} GiB")
     log(f"long offline forward ({LONG_T} frames, 2,500 points): {long_metrics['seconds']:.3f} s, "
         f"{long_metrics['points_frames_per_s']:.0f} points*frames/s, peak memory "
-        f"{long_metrics['peak_gib']:.1f} GiB; evaluation seconds {eval_secs} ({smi})")
+        f"{long_metrics['peak_gib']:.1f} GiB; 600-frame video ({VIDEO600_GRID**2} points, "
+        f"first forward): {v600['seconds']:.3f} s, peak memory {v600['peak_gib']:.1f} GiB; "
+        f"evaluation seconds {eval_secs} ({smi})")
     for r, v in qd_runs.items():
         log(f"quasi-dense streaming ({r}), {QD_GRID**2} points: {v['seconds_per_window']:.4f} s "
             f"per steady window, {v['points_frames_per_s']:.0f} points*frames/s of new frames, "

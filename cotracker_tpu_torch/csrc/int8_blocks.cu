@@ -16,7 +16,8 @@
 //   ct_p2v_attention  per-(track, frame) attention over the V virtual tokens (K2)
 //   ct_v2p_flash      virtual queries over all N point keys, online softmax (K3)
 // The three attention cores are the device code of attention_cores.cuh, here
-// reading the chains' fused buffers and writing f32 for the next quantization.
+// reading the chains' fused buffers (K2's core writes f32 for the next
+// quantization); in bf16 K2's and K3's are K6's and K7's tensor-core bodies.
 // K8 and K9, the two W8A8 halves of the time block's three-kernel split
 // around the K5 attention core (videos whose frames leave no whole-block
 // track tile), are one launch each:
@@ -32,7 +33,7 @@
 // 3.35 TB/s): compute-bound. This first version keeps the products on the
 // tensor cores (mma.sync, synchronous shared-memory tiles) and stages each
 // attention core's keys and values in shared memory once per block (per
-// track for K1, per frame and 64 tracks for K2), but q|kv, the attention
+// track for K1, per frame and track range for K2), but q|kv, the attention
 // output and the 1,536-wide GELU activations still round-trip device memory
 // between launches (~8 GB per block); fusing the chain so they stay on chip,
 // and wgmma/TMA GEMMs, are the next steps. K8 moves 3,072 bytes a bf16 row
@@ -391,12 +392,14 @@ int ct_p2v_attention(const void* q, const void* kv, int bf16, float* out, int N,
               : launch_p2v_attention<float, float>(q, kv, out, N, T, V, H, scale, s);
 }
 
-int ct_v2p_flash(const void* q, const void* kv, const float* bias, int bf16, void* out, int N,
-                 int T, int V, int H, int D, float scale, void* stream) {
+int ct_v2p_flash(const void* q, const void* kv, const float* bias, int bf16, void* out,
+                 float* part, int splits, int N, int T, int V, int H, int D, float scale,
+                 void* stream) {
   if (!v2p_shape_ok(N, T, V, H, D)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_v2p_flash<__nv_bfloat16>(q, kv, bias, out, N, T, V, H, scale, s)
-              : launch_v2p_flash<float>(q, kv, bias, out, N, T, V, H, scale, s);
+  return bf16 ? launch_v2p_flash<__nv_bfloat16>(q, kv, bias, out, part, splits, N, T, V, H,
+                                                scale, s)
+              : launch_v2p_flash<float>(q, kv, bias, out, part, splits, N, T, V, H, scale, s);
 }
 
 int ct_k8_ln_qkv(const void* x, int bf16, int rows, int C, const int8_t* w, const float* sw,

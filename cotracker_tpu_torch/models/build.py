@@ -62,6 +62,7 @@ def build_training_model(
     remat_iterations: bool = False,
     device="cuda",
     seed: int = 0,
+    corr_fuse_mlp1: Optional[bool] = None,
 ) -> CoTrackerThree:
     """The model the trainer trains (JAX trainer.py:228-236): float32, the
     unfolded iteration with plain updateformer blocks (K1-K7 off), and by
@@ -69,15 +70,22 @@ def build_training_model(
     through K4r and the autograd wrapper (`corr_kernels`, int8 with
     `corr_quant_int8`, K4f without), every iteration rematerialised (on
     whenever corr_kernels is, as in JAX). Randomly initialised from `seed`,
-    in training mode, on `device` (CUDA by default)."""
+    in training mode, on `device` (CUDA by default).
+
+    corr_fuse_mlp1: the wrapper's forward through K4m (the corr_fuse_mlp1
+    variant; raises with K4f, as JAX asserts); None reads
+    COTRACKER_CORR_FUSE_MLP1 now (`KernelVariants.from_env()`), as the JAX
+    training wrapper reads it at trace time."""
     dev = resolve_device(device)
     if window_len is None:
         window_len = 60 if offline else 16
+    fuse = KernelVariants.from_env(corr_fuse_mlp1=corr_fuse_mlp1).corr_fuse_mlp1
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = CoTrackerThree(
             window_len=window_len, model_resolution=model_resolution, dtype=torch.float32,
             corr_kernels=corr_kernels, corr_quant_int8=corr_kernels and corr_quant_int8,
             remat_iterations=remat_iterations or corr_kernels,
+            variants=KernelVariants(corr_fuse_mlp1=corr_kernels and fuse),
         )
     return model.to(dev).train()

@@ -36,7 +36,9 @@ unfolded form with plain updateformer blocks. `corr_kernels` (the JAX
 package's `use_pallas_corr` with `corr_pallas_grad`) puts each level's
 correlation through K4r (`corr_quant_int8`) or K4f and the epilogue,
 wrapped in an autograd Function whose backward is the plain featurizer;
-`remat_iterations` recomputes each iteration in the backward pass.
+with `corr_fuse_mlp1` that forward is K4m (int8 only, as in JAX, whose
+training wrapper reads the variable). `remat_iterations` recomputes each
+iteration in the backward pass.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -208,13 +210,17 @@ class CoTrackerThree(nn.Module):
         the iteration core).
 
         variants: the JAX package's kernel-variant switches (see the module
-        docstring); the training path's wrapper does not take them."""
+        docstring); of these the training path's wrapper takes
+        corr_fuse_mlp1 (K4m forward, int8 only, as the JAX wrapper reads it)."""
         super().__init__()
         if kernels and not fold_input_proj:
             raise ValueError("kernels=True runs the folded correlation path; set fold_input_proj")
         if kernels and corr_kernels:
             raise ValueError("kernels=True (K4) and corr_kernels (K4r/K4f) are two correlation "
                              "paths; set one")
+        if corr_kernels and variants.corr_fuse_mlp1 and not corr_quant_int8:
+            raise ValueError("corr_fuse_mlp1 rides the int8 window/support path (K4m): set "
+                             "corr_quant_int8")
         attn_kernels = kernels if attn_kernels is None else attn_kernels
         attn_quant_int8 = kernels if attn_quant_int8 is None else attn_quant_int8
         self.window_len, self.stride = window_len, stride
@@ -353,13 +359,14 @@ class CoTrackerThree(nn.Module):
 
         def level_embs(i, w2_, b2_):
             """Level i's correlation embedding (B, N, T, Do), plain or
-            through K4r/K4f and the autograd wrapper."""
+            through K4r/K4f/K4m and the autograd wrapper."""
             args = (fmaps_pyramid[i], support_pyramid[i].transpose(1, 2), coords.to(cd) / 2**i,
                     w1, b1, w2_, b2_)
             kw = dict(radius=self.corr_radius, chunk=self.corr_chunk, compute_dtype=cd)
             if self.corr_kernels:
                 return corr_cuda.fused_corr_embs_trainable(
-                    corr_in["raw_levels"][i], *args, quant_int8=self.corr_quant_int8, **kw)
+                    corr_in["raw_levels"][i], *args, quant_int8=self.corr_quant_int8,
+                    fuse_mlp1=self.variants.corr_fuse_mlp1, **kw)
             return fused_corr_embs(*args, track_major=True, **kw)
 
         if not self.fold_input_proj:

@@ -27,16 +27,19 @@ configuration that runs the attention-core kernels without W8A8. Common
 contract: heads of 48 read as lane slices of the unsplit K|V projection,
 float32 logits and softmax, probabilities rounded to the value dtype before
 P.V, float32 accumulation, one rounding to the query dtype. The kernels are
-csrc/attention_cores.cu (see there for what bounds them); they take any
-number of rows, tracks and keys, up to 512 frames (K5) or virtual tokens
-(K6), and the JAX package's shape gates decide where the model runs them
-(models/blocks.py).
+csrc/attention_cores.cu (see there for what bounds them and the design);
+they take any number of rows, tracks and frames (K5 past 512 frames on its
+long route) and up to 512 virtual tokens (K6), and the JAX package's shape
+gates decide where the model runs them (models/blocks.py). In bf16, K7 and
+K3's core split the keys into ranges (`v2p_splits`) whose f32 partials the
+wrapper allocates and a second launch merges.
 
 Each wrapper takes its plain PyTorch version for CPU tensors, and for CUDA
 tensors launches its kernel or raises; `launches` counts the kernel runs.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -70,14 +73,8 @@ def _v2p_proj_cuda(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps):
     b = beta.detach().to(F32).contiguous()
     hq, sr = ln_quant_cuda(x2d, eps, gamma=g, beta=b)
     kv = gemm_cuda(hq, sr, wkv, MODE_AFFINE, q.dtype)
-    q = q.contiguous()
-    bias = key_bias.to(F32).contiguous()
-    out = torch.empty((T, V, C), dtype=q.dtype, device=q.device)
-    _build.check(mlp_int8_cuda._lib()["v2p_flash"](
-        _build.ptr(q), _build.ptr(kv), _build.ptr(bias), mlp_int8_cuda._is_bf16(q),
-        _build.ptr(out), N, T, V, num_heads, dim_head, dim_head**-0.5,
-        _build.stream_ptr(q)), "ct_v2p_flash")
-    return out
+    return _v2p_core(mlp_int8_cuda._lib()["v2p_flash"], "ct_v2p_flash", q.contiguous(), kv,
+                     key_bias.to(F32).contiguous(), N, num_heads, dim_head)
 
 
 def fused_virtual_from_points_proj(q, x, wkv: QLinear, gamma, beta, num_heads, dim_head,
@@ -108,8 +105,8 @@ def _cores_lib():
         _fns["k5"] = _build.bind(lib, "ct_k5_time_attention", _P, _P, _I, _P, _I, _I, _I, _I, _F, _P)
         _fns["k6"] = _build.bind(lib, "ct_k6_points_from_virtual", _P, _P, _I, _P, _I, _I, _I, _I,
                                  _I, _F, _P)
-        _fns["k7"] = _build.bind(lib, "ct_k7_virtual_from_points", _P, _P, _P, _I, _P, _I, _I, _I,
-                                 _I, _I, _F, _P)
+        _fns["k7"] = _build.bind(lib, "ct_k7_virtual_from_points", _P, _P, _P, _I, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _F, _P)
     return _fns
 
 
@@ -124,10 +121,10 @@ def _flash_plain(q, k, v, dim_head, bias=None):
     kernels' starting max), unnormalized probabilities rounded to v's dtype
     before P.V, f32 accumulation, f32 row sums of the unrounded
     probabilities. (K5 and K6 normalize before the rounding: `_attend`.)"""
-    s = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)) * dim_head**-0.5
+    s = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)).mul_(dim_head**-0.5)
     if bias is not None:
-        s = s + bias.to(F32)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG))
+        s.add_(bias.to(F32))
+    p = s.sub_(s.amax(dim=-1, keepdim=True).clamp_min(NEG_BIG)).exp_()
     out = torch.einsum("...ij,...jd->...id", p.to(v.dtype).to(F32), v.to(F32))
     return out / p.sum(dim=-1, keepdim=True)
 
@@ -163,6 +160,48 @@ def v2p_plain(q, kv, num_heads, dim_head, key_bias=None):
     return out.transpose(1, 2).reshape(q.shape).to(q.dtype)
 
 
+V2P_RANGE_KEYS = 2048  # fewest keys a key range of the bf16 virtual<-points core takes
+
+
+def v2p_splits(N, T, V, H, device) -> int:
+    """Key ranges of the bf16 virtual<-points core (K7, K3's core). Each
+    range takes at least V2P_RANGE_KEYS keys: fewer ranges keep the result
+    closer to one walk over the keys (a range rounds its probabilities
+    against its own running max, and the merge rescales them). Among the
+    counts that allows, the one whose (head, range, frame, query group)
+    blocks fill the card in the most nearly whole waves of four resident
+    blocks an SM (127 registers x 128 threads a block), up to three waves,
+    and of equals the most ranges: measured on an H100 at 10,240 keys, 4
+    ranges take 0.152 ms at T=16 and 5 ranges 0.165 ms (1.2 waves)."""
+    resident = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = H * T * -(-V // 64)
+    best, best_tail = 1, math.inf
+    for s in range(1, max(1, min(16, N // V2P_RANGE_KEYS)) + 1):
+        waves = s * blocks / resident
+        if s > 1 and waves > 3:
+            break
+        tail = math.ceil(waves) / waves
+        if tail <= best_tail * (1 + 1e-9):
+            best, best_tail = s, tail
+    return best
+
+
+def _v2p_core(fn, what, q, kv, bias, N, num_heads, dim_head):
+    """Launches a virtual<-points core entry (ct_k7_virtual_from_points or
+    ct_v2p_flash) on contiguous operands: in bf16 with its key ranges and
+    their f32 partials (allocated here), in f32 the first version."""
+    T, V, C = q.shape
+    bf16 = mlp_int8_cuda._is_bf16(q)
+    splits = v2p_splits(N, T, V, num_heads, q.device) if bf16 else 1
+    part = (torch.empty((splits * T * V * (C + 2 * num_heads),), dtype=F32, device=q.device)
+            if bf16 else None)
+    out = torch.empty_like(q)
+    _build.check(fn(
+        _build.ptr(q), _build.ptr(kv), _build.ptr(bias), bf16, _build.ptr(out), _build.ptr(part),
+        splits, N, T, V, num_heads, dim_head, dim_head**-0.5, _build.stream_ptr(q)), what)
+    return out
+
+
 def _check_core(q, kv, num_heads, dim_head, kv_shape, keys=0):
     for t in (q, kv):
         if t.device.type != "cuda":
@@ -183,7 +222,7 @@ def fused_time_attention(q, kv, num_heads, dim_head):
     if q.device.type == "cpu":
         return time_attention_plain(q, kv, num_heads, dim_head)
     M, T, C = q.shape
-    bf16 = _check_core(q, kv, num_heads, dim_head, (M, T, 2 * C), keys=T)
+    bf16 = _check_core(q, kv, num_heads, dim_head, (M, T, 2 * C))
     q, kv = q.contiguous(), kv.contiguous()
     out = torch.empty_like(q)
     _build.check(_cores_lib()["k5"](
@@ -226,16 +265,13 @@ def fused_virtual_from_points(q, kv, num_heads, dim_head, key_bias=None):
         return v2p_plain(q, kv, num_heads, dim_head, key_bias)
     T, V, C = q.shape
     N = kv.shape[0]
-    bf16 = _check_core(q, kv, num_heads, dim_head, (N, T, 2 * C))
+    _check_core(q, kv, num_heads, dim_head, (N, T, 2 * C))
     if key_bias is None:
         key_bias = torch.zeros((N,), dtype=F32, device=q.device)
     if key_bias.device.type != "cuda" or tuple(key_bias.shape) != (N,):
         raise ValueError(f"key_bias must be a CUDA tensor of shape ({N},)")
-    q, kv, bias = q.contiguous(), kv.contiguous(), key_bias.to(F32).contiguous()
-    out = torch.empty_like(q)
-    _build.check(_cores_lib()["k7"](
-        _build.ptr(q), _build.ptr(kv), _build.ptr(bias), bf16, _build.ptr(out), N, T, V,
-        num_heads, dim_head, dim_head**-0.5, _build.stream_ptr(q)), "ct_k7_virtual_from_points")
+    out = _v2p_core(_cores_lib()["k7"], "ct_k7_virtual_from_points", q.contiguous(),
+                    kv.contiguous(), key_bias.to(F32).contiguous(), N, num_heads, dim_head)
     fused_virtual_from_points.launches += 1
     return out
 

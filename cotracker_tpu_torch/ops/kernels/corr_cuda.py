@@ -481,19 +481,19 @@ def fused_corr_embs_kernel(level, fmaps_hw, support, coords, w1, b1, w2, b2, rad
 
 
 class _TrainableCorr(torch.autograd.Function):
-    """K4r / K4f forward, plain-PyTorch backward (see fused_corr_embs_trainable)."""
+    """K4r / K4f / K4m forward, plain-PyTorch backward (see fused_corr_embs_trainable)."""
 
     @staticmethod
     def forward(ctx, level, fmaps, support, coords, w1, b1, w2, b2, opts):
-        radius, chunk, cd, quant_int8 = opts
+        radius, chunk, cd, quant_int8, fuse_mlp1 = opts
         ctx.opts = opts
         ctx.save_for_backward(fmaps, support, coords, w1, b1, w2, b2)
         return fused_corr_embs_kernel(level, fmaps.shape[2:4], support, coords, w1, b1, w2, b2,
-                                      radius, chunk, cd, quant_int8)
+                                      radius, chunk, cd, quant_int8, fuse_mlp1)
 
     @staticmethod
     def backward(ctx, ct):
-        radius, chunk, cd, _ = ctx.opts
+        radius, chunk, cd = ctx.opts[:3]
         needs = ctx.needs_input_grad[1:8]
         inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
         wanted = [t for t in inputs if t.requires_grad]
@@ -508,13 +508,16 @@ class _TrainableCorr(torch.autograd.Function):
 
 def fused_corr_embs_trainable(level, fmaps, support, coords, w1, b1, w2, b2, radius: int = 3,
                               chunk: Optional[int] = None, compute_dtype=F32,
-                              quant_int8: bool = True):
+                              quant_int8: bool = True, fuse_mlp1: bool = False):
     """Differentiable fused_corr_embs_kernel (port of
     fused_corr_embs_pallas_trainable): K4r or K4f plus the epilogue forward,
-    and as backward the exact autograd of the plain ops.corr.fused_corr_embs
-    evaluated at the same inputs, recomputed from them. With quant_int8 the
-    forward is quantized while the backward stays full precision: a
-    straight-through estimator, as in the JAX package.
+    or with fuse_mlp1 (the corr_fuse_mlp1 variant, int8 only; the JAX
+    wrapper reads COTRACKER_CORR_FUSE_MLP1 at trace time, the model passes
+    its resolved switch) K4m, and as backward the exact autograd of the
+    plain ops.corr.fused_corr_embs evaluated at the same inputs, recomputed
+    from them. With quant_int8 the forward is quantized while the backward
+    stays full precision: a straight-through estimator, as in the JAX
+    package.
 
     The backward is plain PyTorch on purpose: the JAX package's is XLA
     autodiff (jax.vjp of fused_corr_embs), not a kernel, so there is none
@@ -523,4 +526,4 @@ def fused_corr_embs_trainable(level, fmaps, support, coords, w1, b1, w2, b2, rad
     channel to the encoder. Gradients reach fmaps, support, coords and the
     MLP weights (the model detaches coords at each iteration)."""
     return _TrainableCorr.apply(level, fmaps, support, coords, w1, b1, w2, b2,
-                                (radius, chunk, compute_dtype, quant_int8))
+                                (radius, chunk, compute_dtype, quant_int8, fuse_mlp1))

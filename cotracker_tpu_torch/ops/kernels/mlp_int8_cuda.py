@@ -107,17 +107,26 @@ def ln_rows(x32, eps, bf16=False):
     mean = x32.mean(dim=-1, keepdim=True)
     c = x32 - mean
     var = (c * c).mean(dim=-1, keepdim=True)
-    return c * torch.rsqrt(var + eps)
+    return c.mul_(torch.rsqrt(var + eps))
+
+
+# The plain versions below evaluate in place where a temporary as large as
+# the activations would be made: the same operations in the same order (so
+# the same roundings), without the allocations that dominate on the CPU.
 
 
 def quant_rows(v32):
     """Per-row symmetric int8: (codes, scale (rows, 1))."""
-    s = v32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-20) * (1.0 / 127.0)
-    return torch.round(v32 * (1.0 / s)).to(torch.int8), s
+    lo, hi = torch.aminmax(v32, dim=-1, keepdim=True)  # the row's absmax, max(-lo, hi)
+    s = torch.maximum(-lo, hi).clamp_min(1e-20) * (1.0 / 127.0)
+    return (v32 * (1.0 / s)).round_().to(torch.int8), s
 
 
 def gelu_tanh(x):
-    return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
+    """0.5 * x * (1 + tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))."""
+    t = x * 0.044715
+    t.mul_(x).mul_(x).add_(x).mul_(0.7978845608028654).tanh_().add_(1.0)
+    return t.mul_(x * 0.5)
 
 
 def quant_gelu(a32, fold=False):
@@ -136,14 +145,13 @@ def quant_gelu(a32, fold=False):
 
 def qlinear_plain(a8, sa, lin: QLinear):
     """Dequantized s8 x s8 -> s32 product: acc * (row scale * column scale) + b."""
-    acc = torch._int_mm(a8, lin.w.t())
-    return acc.to(F32) * (sa * lin.s) + lin.b
+    return torch._int_mm(a8, lin.w.t()).to(F32).mul_(sa * lin.s).add_(lin.b)
 
 
 def _attend(q, k, v, scale, out_dtype):
     """softmax(q.k * scale) in float32, probabilities rounded to `out_dtype`,
     P.V accumulated in float32. q/k/v (..., L, D)."""
-    sim = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)) * scale
+    sim = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)).mul_(scale)
     p = torch.softmax(sim, dim=-1).to(out_dtype)
     return torch.einsum("...ij,...jd->...id", p.to(F32), v.to(F32))
 
@@ -258,8 +266,8 @@ def _lib():
         _fns["time_attn"] = _build.bind(lib, "ct_time_attention", _P, _I, _P, _I, _I, _I, _I, _F, _P)
         _fns["p2v_attn"] = _build.bind(lib, "ct_p2v_attention", _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                        _F, _P)
-        _fns["v2p_flash"] = _build.bind(lib, "ct_v2p_flash", _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                                        _I, _F, _P)
+        _fns["v2p_flash"] = _build.bind(lib, "ct_v2p_flash", _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _F, _P)
         _fns["k8"] = _build.bind(lib, "ct_k8_ln_qkv", _P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P,
                                  _P)
         _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,

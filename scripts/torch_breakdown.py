@@ -76,9 +76,12 @@ GROUPS = (  # first match wins, on the device kernel's name
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
     ("K1-K3 LN + row quant (ln_quant_kernel)", ("ln_quant_kernel",)),
     ("K4 corr_volume_kernel", ("corr_volume_kernel",)),
-    ("time core (K1 stage / K5) time_attention_kernel", ("time_attention_kernel",)),
-    ("points<-virtual core (K2 stage / K6) p2v_attention_kernel", ("p2v_attention_kernel",)),
-    ("virtual<-points core (K3 stage / K7) v2p_flash_kernel", ("v2p_flash_kernel",)),
+    ("time core (K1 stage / K5) time_attention_kernel",
+     ("time_attention_kernel", "time_attention_long")),
+    ("points<-virtual core (K2 stage / K6) p2v_tc_kernel (f32: p2v_attention_kernel)",
+     ("p2v_tc_kernel", "p2v_attention_kernel")),
+    ("virtual<-points core (K3 stage / K7) v2p_tc_kernel + merge (f32: v2p_flash_kernel)",
+     ("v2p_tc_kernel", "v2p_merge_kernel", "v2p_flash_kernel")),
     ("convolutions (fnet)", ("conv", "cudnn", "fprop", "implicit_gemm", "nchw", "nhwc")),
     ("library GEMMs (cuBLAS / CUTLASS)", ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
 )

@@ -49,6 +49,18 @@ def test_time_attention_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_time_attention_long_matches_pallas(dtype):
+    """Past the 512 frames that K5's short route stages on chip (the
+    wrapper takes its long route there): T=520, M=8, one Pallas block."""
+    rng = np.random.default_rng(3)
+    M, T = 8, 520
+    jq, tq = _pair(rng.standard_normal((M, T, C)).astype(np.float32), dtype)
+    jkv, tkv = _pair(rng.standard_normal((M, T, 2 * C)).astype(np.float32), dtype)
+    ref = attention_pallas.fused_time_attention(jq, jkv, HEADS, DH, interpret=True)
+    _check(attention_cuda.fused_time_attention(tq, tkv, HEADS, DH), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_points_from_virtual_matches_pallas(dtype):
     rng = np.random.default_rng(1)
     N, T = 256, 3

@@ -3,8 +3,11 @@ versions on the card, at small shapes (K5-K7 also at the full streaming
 width), float32 and bfloat16, every W8A8 body in the two variant modes
 (bf16 LayerNorm, GELU-quant fold), and the training autograd wrapper's
 gradients against plain autograd (marker `cuda`; skips without a GPU).
+K6 and K7 also at ragged shapes and, K7, at the quasi-dense key count
+(several blocks per key range, merged); K5 past 512 frames; the K2 and K3
+chains at the streaming width; the wrapper with corr_fuse_mlp1 (K4m).
 
-Run on the card:  python -m pytest tests/test_torch_cuda.py -q
+Run on the card:  python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Bounds: float32 outputs differ only by summation order and rounding ties
 of the int8 codes (see test_torch_kernels); bfloat16 outputs additionally by
@@ -302,8 +305,130 @@ def test_cores_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError, match="dtype"):
         attention_cuda.fused_time_attention(q, torch.randn(4, 5, 2 * C, device=dev).bfloat16(), H, D)
     with pytest.raises(ValueError, match="at most"):
-        attention_cuda.fused_time_attention(torch.randn(1, 513, C, device=dev),
-                                            torch.randn(1, 513, 2 * C, device=dev), H, D)
+        attention_cuda.fused_points_from_virtual(torch.randn(1, 2, C, device=dev),
+                                                 torch.randn(2, 513, 2 * C, device=dev), H, D)
+
+
+# K6 and K7's tensor-core bodies (bf16) and the first versions (f32) at
+# ragged shapes: track counts that fill no tile, one frame, the streaming and
+# offline windows; K6 also past one 64-key chunk (its two-pass route)
+RAGGED = [(300, 1), (300, 5), (10000, 16), (10000, 60)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T,V", [(n, t, 64) for n, t in RAGGED] + [(300, 5, 100), (70, 3, 512)])
+def test_points_from_virtual_ragged(dev, dtype, N, T, V):
+    g = torch.Generator().manual_seed(N + T + V)
+    q = torch.randn(N, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(T, V, 2 * C, generator=g).to(dev, dtype)
+    out = attention_cuda.fused_points_from_virtual(q, kv, H, D)
+    torch.cuda.synchronize()
+    _core_close(out, attention_cuda.p2v_plain(q, kv, H, D), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,T", RAGGED)
+def test_virtual_from_points_ragged(dev, dtype, N, T):
+    g = torch.Generator().manual_seed(N + T + 1)
+    q = (0.3 * torch.randn(T, 64, C, generator=g)).to(dev, dtype)
+    kv = torch.randn(N, T, 2 * C, generator=g).to(dev, dtype)
+    bias = torch.zeros(N, device=dev)
+    bias[N - N // 7:] = attention_cuda.NEG_BIG
+    out = attention_cuda.fused_virtual_from_points(q, kv, H, D, key_bias=bias)
+    torch.cuda.synchronize()
+    _core_close(out, attention_cuda.v2p_plain(q, kv, H, D, key_bias=bias), dtype)
+
+
+@pytest.mark.parametrize("masked", ["tail", "all"])
+def test_virtual_from_points_key_splits(dev, masked):
+    """K7 at the quasi-dense key count (70,656 padded tracks x 16 frames),
+    whose keys several blocks share (the partials' merge): the padded tail
+    masked, or every key masked (finite, the plain average of the values,
+    across the merge as within a block)."""
+    N, T = 70656, 16
+    assert attention_cuda.v2p_splits(N, T, 64, H, dev) > 1
+    g = torch.Generator().manual_seed(3)
+    q = (0.3 * torch.randn(T, 64, C, generator=g)).to(dev, torch.bfloat16)
+    kv = torch.randn(N, T, 2 * C, generator=g).to(dev, torch.bfloat16)
+    bias = torch.zeros(N, device=dev)
+    bias[(70225 if masked == "tail" else 0):] = attention_cuda.NEG_BIG
+    out = attention_cuda.fused_virtual_from_points(q, kv, H, D, key_bias=bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    _core_close(out, attention_cuda.v2p_plain(q, kv, H, D, key_bias=bias), torch.bfloat16)
+    if masked == "all":
+        mean_v = kv[..., C:].float().mean(dim=0)[:, None].expand(T, 64, C)
+        assert (out.float() - mean_v).abs().max() <= 2.0**-7 * mean_v.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [520, 640])
+def test_time_attention_long(dev, dtype, T):
+    """K5 past the 512 frames its short route stages: the long route
+    (keys in tiles, two passes) against the plain version."""
+    g = torch.Generator().manual_seed(T)
+    q = torch.randn(5, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(5, T, 2 * C, generator=g).to(dev, dtype)
+    n = attention_cuda.fused_time_attention.launches
+    out = attention_cuda.fused_time_attention(q, kv, H, D)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_time_attention.launches == n + 1
+    _core_close(out, attention_cuda.time_attention_plain(q, kv, H, D), dtype)
+
+
+def test_chain_cores_at_width(dev):
+    """The K2 and K3 chains, whose attention stages are K6's and K7's
+    tensor-core bodies (K2's writing f32 for its next quantization), at the
+    streaming width: 10,000 tracks x 16 frames, bf16, in the W8A8 band."""
+    g = torch.Generator().manual_seed(4)
+    N, T, V = 10000, 16, 64
+    w = mlp_int8_cuda.SpaceBlockWeights(_lin(g, C, C, dev), _lin(g, C, C, dev),
+                                        _lin(g, HID, C, dev), _lin(g, C, HID, dev))
+    x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+    kv = torch.randn(T, V, 2 * C, generator=g).to(dev, torch.bfloat16)
+    _close(mlp_int8_cuda.fused_space_block_int8(x, kv, w, H, D),
+           mlp_int8_cuda.space_block_plain(x, kv, w, H, D), torch.bfloat16)
+    wkv = _lin(g, 2 * C, C, dev)
+    q = (torch.randn(T, V, C, generator=g) * 0.3).to(dev, torch.bfloat16)
+    gamma = (1 + 0.2 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(C, generator=g)).to(dev)
+    bias = torch.zeros(N, device=dev)
+    bias[9000:] = attention_cuda.NEG_BIG
+    args = (q, x, wkv, gamma, beta, H, D, bias)
+    _close(attention_cuda.fused_virtual_from_points_proj(*args),
+           attention_cuda.v2p_proj_plain(*args), torch.bfloat16)
+
+
+def test_trainable_fuse_mlp1_on_card(dev):
+    """The autograd wrapper with fuse_mlp1 (the corr_fuse_mlp1 variant in
+    training): the forward launches K4m once per level-chunk and no K4r,
+    and equals the same wrapper on the CPU (K4m's plain version, whose rows
+    K4m matches exactly) up to the float32 epilogue (GELU, the W2 product:
+    1e-4 of the output scale); the gradients equal plain autograd up to the
+    order of the backward's atomic scatter-adds (1e-5 of each gradient's
+    largest)."""
+    g = torch.Generator().manual_seed(8)
+    B, T, N, Hh, W = 1, 6, 37, 24, 32
+    fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(B, N, 49, 128, generator=g), dim=-1)
+    coords = torch.rand(B, T, N, 2, generator=g) * torch.tensor([W + 4.0, Hh + 4.0]) - 2
+    w = [torch.randn(2401, 384, generator=g) * 0.02, torch.randn(384, generator=g) * 0.1,
+         torch.randn(384, 32, generator=g) * 0.1, torch.randn(32, generator=g) * 0.1]
+    inputs = [t.to(dev) for t in (fm, sup, coords, *w)]
+    level = corr_cuda.build_int8_level(inputs[0], 3)
+    a = [t.clone().requires_grad_() for t in inputs]
+    b = [t.clone().requires_grad_() for t in inputs]
+    n4m, n4r = corr_cuda.corr_mlp1_int8.launches, corr_cuda.corr_volume_raw_int8.launches
+    out = corr_cuda.fused_corr_embs_trainable(level, *a, chunk=16, fuse_mlp1=True)
+    assert corr_cuda.corr_mlp1_int8.launches == n4m + 3
+    assert corr_cuda.corr_volume_raw_int8.launches == n4r
+    cpu = corr_cuda.fused_corr_embs_trainable(corr_cuda.build_int8_level(fm, 3), fm, sup,
+                                              coords, *w, chunk=16, fuse_mlp1=True)
+    assert (out.detach().cpu() - cpu).abs().max() <= 1e-4 * cpu.abs().max()
+    ref = fused_corr_embs(*b, chunk=16, track_major=True)
+    ct = torch.randn(out.shape, generator=g).to(dev)
+    for x, y in zip(torch.autograd.grad(out, a, ct), torch.autograd.grad(ref, b, ct)):
+        assert (x - y).abs().max() <= 1e-5 * y.abs().max()
 
 
 # ------------------------------------------------ K4m, K10, K11, K12, the modes

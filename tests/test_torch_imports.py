@@ -61,7 +61,7 @@ def _imported_names(path):
     return names
 
 
-@pytest.mark.parametrize("script", ["torch_ubench.py", "torch_breakdown.py"])
+@pytest.mark.parametrize("script", ["torch_ubench.py", "torch_breakdown.py", "torch_cores.py"])
 def test_port_scripts_import_no_jax(script):
     names = _imported_names(os.path.join(REPO, "scripts", script))
     assert any(n.startswith("cotracker_tpu_torch") for n in names), names

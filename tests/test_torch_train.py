@@ -166,6 +166,53 @@ def test_kernel_level_path_matches_pallas(quant_int8):
         np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
+def test_trainable_fuse_mlp1_matches_pallas(monkeypatch):
+    """The autograd wrapper with fuse_mlp1 (K4m forward, plain version)
+    against fused_corr_embs_pallas_trainable with COTRACKER_CORR_FUSE_MLP1=1
+    (the JAX wrapper reads it at trace time), Pallas interpreted, at the
+    shapes of test_kernel_level_path_matches_pallas with MLP1's 384 rows:
+    the forward within the int8 band of test_torch_kernels.assert_codes_close,
+    and the gradients of fmaps, support, coords, W1, b1, W2 and b2 (both
+    backwards are the plain featurizer's autograd: a straight-through
+    estimator) within float32 noise, 1e-4 of each tensor's largest."""
+    monkeypatch.setenv("COTRACKER_CORR_FUSE_MLP1", "1")
+    rng = np.random.default_rng(22)
+    B, T, N, H, W = 1, 4, 8, 12, 16
+    fm = rng.standard_normal((B, T, H, W, 128)).astype(np.float32)
+    fm /= np.linalg.norm(fm, axis=-1, keepdims=True)
+    sup = rng.standard_normal((B, N, 49, 128)).astype(np.float32)
+    sup /= np.linalg.norm(sup, axis=-1, keepdims=True)
+    coords = (rng.random((B, T, N, 2)) * np.array([W + 6, H + 6]) - 3).astype(np.float32)
+    w1 = (rng.standard_normal((2401, 384)) * 0.02).astype(np.float32)
+    b1 = (rng.standard_normal(384) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((384, 32)) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(32) * 0.1).astype(np.float32)
+    ct = rng.standard_normal((B, N, T, 32)).astype(np.float32)
+    inputs = (fm, sup, coords, w1, b1, w2, b2)
+    packed = corr_pallas.build_shifted_fmaps(jnp.asarray(fm), 3, jnp.float32, quant_int8=True)
+
+    @jax.jit
+    def value_and_vjp(ct, *a):
+        out, vjp = jax.vjp(lambda *a: corr_pallas.fused_corr_embs_pallas_trainable(
+            packed, *a, radius=3, chunk=3, compute_dtype=jnp.float32, interpret=True,
+            track_major=True, quant_int8=True), *a)
+        return out, vjp(ct)
+
+    ref, ref_grads = value_and_vjp(jnp.asarray(ct), *map(jnp.asarray, inputs))
+
+    a = [t.requires_grad_() for t in _t(*inputs)]
+    level = corr_cuda.build_int8_level(a[0].detach(), 3)
+    out = corr_cuda.fused_corr_embs_trainable(level, *a, chunk=3, compute_dtype=torch.float32,
+                                              quant_int8=True, fuse_mlp1=True)
+    assert out.shape == (B, N, T, 32)
+    assert_codes_close(out.detach().numpy(), np.asarray(ref))
+    out.backward(torch.from_numpy(ct))
+    for name, x, g in zip(("fmaps", "support", "coords", "w1", "b1", "w2", "b2"), a, ref_grads):
+        g = np.asarray(g)
+        np.testing.assert_allclose(x.grad.numpy(), g, rtol=0, atol=1e-4 * np.abs(g).max(),
+                                   err_msg=name)
+
+
 @pytest.fixture(scope="module")
 def params():
     return random_params(JaxCoTrackerThree(), seed=3)

@@ -1,13 +1,15 @@
 """The port's training stack on its own (PyTorch only, CPU, float32): query
 sampling, the autograd wrapper of the correlation kernels against autograd
 through the plain featurizer, the training model's switches (remat, K4r /
-K4f) against the plain model, gradients across the online windows, the data
-loader and the trainer's checkpoints and hooks. The comparisons with the
-JAX package are in test_torch_train.py.
+K4f, the corr_fuse_mlp1 variable) against the plain model, gradients
+across the online windows, the data loader and the trainer's checkpoints
+and hooks. The comparisons with the JAX package are in test_torch_train.py.
 """
 
 import json
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -74,6 +76,39 @@ def test_trainable_corr_grads_equal_plain_autograd(quant_int8):
     ct = torch.randn(out.shape, generator=g)
     for x, y in zip(torch.autograd.grad(out, a, ct), torch.autograd.grad(ref, b, ct)):
         assert torch.equal(x, y)
+
+
+def test_fuse_mlp1_switch_in_training(monkeypatch):
+    """COTRACKER_CORR_FUSE_MLP1 reaches the training model: build_training_model
+    reads it once (an explicit argument overrides it), the wrapper then runs
+    K4m (its plain version here) in place of K4r, and the switch raises with
+    K4f, where the JAX wrapper asserts."""
+    monkeypatch.setenv("COTRACKER_CORR_FUSE_MLP1", "1")
+    kw = dict(window_len=8, model_resolution=(32, 32), device="cpu")
+    assert build_training_model(**kw).variants.corr_fuse_mlp1
+    assert not build_training_model(corr_fuse_mlp1=False, **kw).variants.corr_fuse_mlp1
+    assert not build_training_model(corr_kernels=False, **kw).variants.corr_fuse_mlp1
+    with pytest.raises(ValueError, match="int8"):
+        build_training_model(corr_quant_int8=False, **kw)
+    monkeypatch.delenv("COTRACKER_CORR_FUSE_MLP1")
+    assert not build_training_model(**kw).variants.corr_fuse_mlp1
+
+    g = torch.Generator().manual_seed(6)
+    B, T, N, H, W = 1, 2, 3, 12, 16
+    fm = torch.nn.functional.normalize(torch.randn(B, T, H, W, 128, generator=g), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(B, N, 49, 128, generator=g), dim=-1)
+    coords = torch.rand(B, T, N, 2, generator=g) * torch.tensor([W - 1.0, H - 1.0])
+    w = [torch.randn(2401, 384, generator=g) * 0.02, torch.randn(384, generator=g) * 0.1,
+         torch.randn(384, 16, generator=g) * 0.1, torch.randn(16, generator=g) * 0.1]
+    seen, plain = [], corr_cuda.corr_mlp1_plain
+    monkeypatch.setattr(corr_cuda, "corr_mlp1_plain", lambda *a: seen.append(1) or plain(*a))
+    out = corr_cuda.fused_corr_embs_trainable(corr_cuda.build_int8_level(fm, 3), fm, sup,
+                                              coords, *w, fuse_mlp1=True)
+    assert seen and out.shape == (B, N, T, 16) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="int8"):
+        corr_cuda.fused_corr_embs_trainable(corr_cuda.build_float_level(fm, 3, torch.float32),
+                                            fm, sup, coords, *w, quant_int8=False,
+                                            fuse_mlp1=True)
 
 
 def _batch(T=8, H=32, W=32, N=6, seed=0):
@@ -212,12 +247,17 @@ class _Moving:
                       valids[0].numpy()), True
 
 
-def test_trainer_checkpoints_resume_and_hooks(tmp_path):
+def test_trainer_checkpoints_resume_and_hooks(tmp_path, monkeypatch):
     """train() on the CPU (offline model, window 8, iters=1): a checkpoint
     every 2 steps and a final one, auto-resume from the latest step
     checkpoint at its step (a removed step-4 checkpoint makes the second
     call resume at 2 and redo steps 2-3 with the same losses), the hooks on
-    their cadences, and NotImplementedError for what is not ported."""
+    their cadences, and NotImplementedError for what is not ported. The
+    TensorBoard writer runs on tensorboard's own no-TensorFlow stub (its
+    `tensorboard.compat.notf` switch): where TensorFlow is installed,
+    tensorboard would otherwise import it to write the event files, ~20 s."""
+    monkeypatch.setitem(sys.modules, "tensorboard.compat.notf",
+                        types.ModuleType("tensorboard.compat.notf"))
     args = TrainerArgs(exp_dir=str(tmp_path), num_steps=4, train_iters=1, save_every_n_steps=2,
                        eval_every_n_steps=2, save_vis_every_n_steps=3, num_loader_workers=1,
                        dataset_repeats=1, crop_size=(32, 32), model_window_len=8,
