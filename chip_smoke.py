@@ -15,14 +15,19 @@ Phases, each raising on failure:
      CUDA-event times, the bytes/operations bound and, for K5-K7, the time
      of the one PyTorch call that computes the same function
      (scaled_dot_product_attention: a yardstick, never called by the port);
+     K1 in bf16 is two launches (counted from a captured CUDA graph) and
+     the launch chain it replaced (nine launches, kept as the f32 route) is
+     timed beside it; K5 in bf16 is the tensor-core time core (k5_plan's route);
      then the training kernels K4r (raw int8 volume) and K4f (raw float
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames): K4r's codes and
      scales bit-identical to its plain version, K4f within a float32 bound;
      then K7 at the quasi-dense key count (70,656 padded tracks x 16 frames,
      the keys of each frame and head shared by several blocks and merged;
-     once with every key masked) and K5 past the 512 frames its short route
-     stages (256 tracks x 640 frames: the long route); then K8 (LN + W8A8
+     once with every key masked) and K5 on its other bf16 routes (256
+     tracks x 640 frames: the long route; 2,560 and 64 tracks x 250, the
+     long forward's shapes: four key chunks in registers; 256 x 400: two
+     passes over the staged keys); then K8 (LN + W8A8
      q|kv) and K9 (W8A8 out + MLP), the two halves of the
      time block's split, in bf16 at the long path's point tokens (2,048
      tracks x 250 frames) and virtual tokens (64 x 250);
@@ -124,6 +129,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import mlp_int8_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels.variants import ENV, KernelVariants  # noqa: E402
+from cotracker_tpu_torch.utils.profiling import device_launches  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BPS = 3.35e12
@@ -184,6 +190,7 @@ def lin(g, o, i, dev):
 
 
 SRC_BLOCKS = "cotracker_tpu_torch/csrc/int8_blocks.cu"
+SRC_K1 = "cotracker_tpu_torch/csrc/int8_time_block.cu"
 SRC_CORR = "cotracker_tpu_torch/csrc/corr_window.cu"
 SRC_CORES = "cotracker_tpu_torch/csrc/attention_cores.cu"
 T_STREAM = 16  # the streaming window; T_FRAMES is the offline window
@@ -203,9 +210,13 @@ TRAIN_SHAPE, INFER_SHAPE = (768, 16), (CHUNK, T_FRAMES)
 # (median, 90th percentile, max) of the per-point distance in pixels, about
 # 2.5x what an H100 (700 W) measures with these seeds (0.41, 0.72, 1.81)
 AB_BAND = (1.0, 2.0, 8.0)
-# K5's long route (past the 512 frames its short route stages) against its
-# plain version, and the offline predictor on a video that takes it
-LONG5_TRACKS, LONG5_T = 256, 640
+# K5 on each bf16 route of k5_plan beyond the streaming and offline shapes,
+# against its plain version: (tracks, frames, route, register key chunks,
+# key suffix) -- the long route past 512 frames, the long forward's point
+# and virtual tokens (four key chunks in registers) and the two-pass route
+K5_ROUTES = ((256, 640, "long", 0, "_t640"), (2560, 250, "tc", 4, "_m2560_t250"),
+             (64, 250, "tc", 4, "_m64_t250"), (256, 400, "tc", 0, "_t400"))
+# the offline predictor on a video past K5's 512-frame short route
 VIDEO600_T, VIDEO600_GRID = 600, 16
 
 
@@ -257,13 +268,21 @@ def kernel_phase(dev):
         ref = mlp_int8_cuda.time_block_plain(x, tw, HEADS, DH)
         err = check_close(f"K1 time block T={T}", out, ref, 0.01, 0.05)
         del out, ref
-        entry("K1_time_block", SRC_BLOCKS, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:672",
+        entry("K1_time_block", SRC_K1, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:672",
               T, T_FRAMES, err,
               time_ms(lambda: mlp_int8_cuda.fused_time_block_int8(x, tw, HEADS, DH)),
               time_ms(lambda: mlp_int8_cuda.time_block_plain(x, tw, HEADS, DH), reps=2),
               bound(2 * nbytes(x) + nbytes(*[t for q in tw for t in q]),
                     [(rows * 2 * C * (3 * C + C + 2 * HID), INT8_OPS),
                      (rows * HEADS * 4 * T * DH, BF16_OPS)]))
+        sfx = "" if T == T_FRAMES else f"_t{T}"
+        results["K1_time_block"].update({
+            "chain_ms" + sfx: time_ms(lambda: mlp_int8_cuda._time_block_chain(
+                x, tw, HEADS, DH, 1e-6, False, False), reps=2),
+            "device_launches" + sfx: device_launches(
+                lambda: mlp_int8_cuda.fused_time_block_int8(x, tw, HEADS, DH))})
+        log(f"  K1 T={T}: the launch chain it replaced {results['K1_time_block']['chain_ms' + sfx]:.3f} ms; "
+            f"{results['K1_time_block']['device_launches' + sfx]} device launches a call")
 
         # K2: points <- virtual block
         kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
@@ -411,24 +430,31 @@ def kernel_phase(dev):
         f"library call {e['library_ms_n70656']:.3f} ms, bound {e['bound_ms_n70656']:.3f} ms)")
     del q, kv7, k7t, out, dead
 
-    # K5 past the 512 frames its short route stages: the long route
-    M, T = LONG5_TRACKS, LONG5_T
-    x = torch.randn(M, T, C, generator=g).to(dev, bf)
-    kv5 = torch.randn(M, T, 2 * C, generator=g).to(dev, bf)
-    out = attention_cuda.fused_time_attention(x, kv5, HEADS, DH)
-    err = check_close(f"K5 time attention {M} tracks x {T}", out,
-                      attention_cuda.time_attention_plain(x, kv5, HEADS, DH), *CORE_TOL)
+    # K5 on its other bf16 routes, each pinned to k5_plan's choice
     e = results["K5_time_attention"]
-    e["max_abs_err"] = max(e["max_abs_err"], err)
-    e.update(
-        ms_t640=time_ms(lambda: attention_cuda.fused_time_attention(x, kv5, HEADS, DH)),
-        plain_ms_t640=time_ms(lambda: attention_cuda.time_attention_plain(x, kv5, HEADS, DH),
-                              reps=2),
-        bound_ms_t640=bound(nbytes(x, kv5, out), [(M * T * HEADS * 4 * T * DH, BF16_OPS)])[0],
-        library_ms_t640=time_ms(lambda: sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))),
-        shape_t640=f"{M} tracks x {T} frames, bf16 (the long route)")
-    log(f"  K5 {M} tracks x {T}: {e['ms_t640']:.3f} ms (plain {e['plain_ms_t640']:.3f} ms, "
-        f"library call {e['library_ms_t640']:.3f} ms, bound {e['bound_ms_t640']:.3f} ms)")
+    for M, T, route, nc, sfx in K5_ROUTES:
+        plan = attention_cuda.k5_plan(T, HEADS, True)
+        if (plan.route, plan.nc) != (route, nc):
+            raise AssertionError(f"K5 at {M} x {T}: k5_plan gives {plan}, not {route} nc={nc}")
+        x = torch.randn(M, T, C, generator=g).to(dev, bf)
+        kv5 = torch.randn(M, T, 2 * C, generator=g).to(dev, bf)
+        out = attention_cuda.fused_time_attention(x, kv5, HEADS, DH)
+        err = check_close(f"K5 time attention {M} tracks x {T}", out,
+                          attention_cuda.time_attention_plain(x, kv5, HEADS, DH), *CORE_TOL)
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e.update({
+            "err" + sfx: err,
+            "ms" + sfx: time_ms(lambda: attention_cuda.fused_time_attention(x, kv5, HEADS, DH)),
+            "plain_ms" + sfx: time_ms(lambda: attention_cuda.time_attention_plain(
+                x, kv5, HEADS, DH), reps=2),
+            "bound_ms" + sfx: bound(nbytes(x, kv5, out),
+                                    [(M * T * HEADS * 4 * T * DH, BF16_OPS)])[0],
+            "library_ms" + sfx: time_ms(lambda: sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))),
+            "shape" + sfx: f"{M} tracks x {T} frames, bf16 (route {route}, nc={nc})"})
+        log(f"  K5 {M} tracks x {T} ({route}, nc={nc}): {e['ms' + sfx]:.3f} ms (plain "
+            f"{e['plain_ms' + sfx]:.3f} ms, library call {e['library_ms' + sfx]:.3f} ms, "
+            f"bound {e['bound_ms' + sfx]:.3f} ms)")
+        del x, kv5, out
     return [results[k] for k in sorted(results)]
 
 

@@ -37,16 +37,35 @@
 // run within ~2x of their byte bound and under one SDPA call on the same
 // operands, and the products are ~20% of the bound's time.
 //
-// K5 up to 512 frames, and every f32 operand, keep the first-version
-// bodies: keys and values staged in shared memory as f32, products on the
-// CUDA cores (TF32 tensor cores would change the f32 function), one warp
-// per query (K5, K6) or four threads per query (K7). K5 past 512 frames
-// (more than the 227 KB of an SM can stage) takes its long route: in bf16 a
-// 64-frame query tile on mma.sync with the keys streamed in 64-frame
-// chunks, pass 1 for each row's max and sum and pass 2 for the normalized
-// probabilities and P.V (the contract exactly: softmax normalized before
-// the rounding); in f32 a simple warp-per-query walk over the keys in
-// device memory, which only the tests reach.
+// K5 in bf16 (the time core, also K1's attention stage in
+// int8_time_block.cu) is time_tc_kernel up to 512 frames: a block holds
+// whole tracks (64 // T of them up to 64 frames, one above) x a group of
+// heads (48 KB of shared memory a block where a head allows), neighbours in
+// the grid; every 16-byte piece of its q, k and v head slices is moved once
+// by cp.async into the interleaved layout; warps take (head, 16 query rows)
+// tasks with both products on mma.sync m16n8k16 and the fragments by
+// ldmatrix; a tile of several tracks masks the other tracks' keys. The
+// contract's softmax, normalized before its rounding to bf16, needs each
+// row's max and sum before the first probability: up to 4 key chunks (256
+// frames) the scores stay in registers (one pass), above the keys already
+// in shared memory are read twice (online max and sum, then the
+// probabilities and P.V); at 128 and 250 frames the registers win (0.57
+// against 0.77 ms at 2,048 x 128, 2.52 against 2.87 at 2,560 x 250). The
+// output goes back through the task's q rows to 16-byte stores. Past 512
+// frames the long route streams keys in 64-frame chunks, twice per
+// 128-frame query tile, the 8 head blocks of a track neighbours, fragments
+// by ldmatrix. What bounds it: bytes, ~0.56 ms at 10,240 x 60. How far it
+// got (chip_smoke and scripts/torch_cores.py, one NVIDIA H100 80GB HBM3 at
+// 700 W): 0.30 / 1.09 ms at 10,240 x 16 / 60 against SDPA's 1.31 / 1.31
+// and the first version's 1.28 / 7.64 (2.0x / 1.9x the byte bound); 2.52
+// ms at 2,560 x 250 (SDPA 1.07, first version 26.9), 3.80 at 512 x 600 and
+// 1.93 at 256 x 640 on the long route (SDPA 1.12 / 0.53): past 128 frames
+// the two passes, or the 254 registers of four chunks, leave it over SDPA.
+//
+// Every f32 operand keeps the first-version bodies (keys and values staged
+// as f32, products on the CUDA cores; TF32 tensor cores would change the
+// f32 function): K5 up to 512 frames and, past them, a warp-per-query walk
+// over the keys in device memory, which only the tests reach.
 
 #include "attention_cores.cuh"
 
@@ -57,14 +76,22 @@ using namespace ct;
 // PyTorch's current stream, passed as an opaque pointer.
 extern "C" {
 
-// q (M, T, C); kv (M, T, 2C) = [K | V]; out (M, T, C), C = H * D.
+// q (M, T, C); kv (M, T, 2C) = [K | V]; out (M, T, C), C = H * D. In bf16
+// up to kMaxKeys frames the plan (nc, hs, tracks, rows_pad) of
+// attention_cuda.k5_plan picks the tensor-core body's tiling; the long route
+// and f32 ignore it.
 int ct_k5_time_attention(const void* q, const void* kv, int bf16, void* out, int M, int T, int H,
-                         int D, float scale, void* stream) {
+                         int D, float scale, int nc, int hs, int tracks, int rows_pad,
+                         void* stream) {
   if (!time_shape_ok(M, T, H, D, /*capped=*/false)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int C = H * D;
   if (bf16) {
     const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(kv);
+    if (T <= kMaxKeys)
+      return launch_time_tc(static_cast<const __nv_bfloat16*>(q), C, k, k + C, 2 * C,
+                            static_cast<__nv_bfloat16*>(out), M, T, H, scale, nc, hs, tracks,
+                            rows_pad, s);
     return launch_time_attention<__nv_bfloat16, __nv_bfloat16>(q, C, k, k + C, 2 * C, out, M, T,
                                                                H, scale, s);
   }

@@ -14,11 +14,13 @@
 //
 // Two generations of device code live here. The first-version bodies above
 // stage keys and values as f32 and do the products on the CUDA cores; they
-// serve every f32 operand (TF32 tensor cores would change the function), the
-// time core up to kMaxKeys frames, and K11's stages (int8_fused.cu). The
-// tensor-core bodies below (p2v_tc_kernel, v2p_tc_kernel + v2p_merge_kernel,
+// serve every f32 operand (TF32 tensor cores would change the function),
+// the K1 launch chain's bf16 time core (kept as K1's f32 route and as a
+// yardstick) and K11's stages (int8_fused.cu). The tensor-core bodies below
+// (p2v_tc_kernel, v2p_tc_kernel + v2p_merge_kernel, the time core
+// time_task / time_tc_kernel, also K1's attention stage, and
 // time_attention_long_tc_kernel) serve bf16 operands: both products on
-// mma.sync m16n8k16 (bf16 x bf16 -> f32), keys and values streamed through
+// mma.sync m16n8k16 (bf16 x bf16 -> f32), keys and values moved through
 // shared memory as bf16 with cp.async, the score fragment reused in
 // registers as P's A fragment.
 #pragma once
@@ -785,41 +787,241 @@ __global__ void v2p_merge_kernel(const float* __restrict__ part, OutT* __restric
   }
 }
 
+// ------------------------------------------- the time core on tensor cores
+//
+// K5's body in bf16 (every frame count) and the attention stage of K1's
+// fused block (int8_time_block.cu). Operands of one head sit in shared
+// memory in the interleaved layout (ilv: 8 rows x 6 chunks of 16 bytes per
+// row group), q, k and v alike, so every ldmatrix reads 128 contiguous
+// bytes. A warp takes 16 query rows of one head; key j is valid for query
+// row i iff lo(i) <= j < hi(i): a tile of several whole tracks of T frames
+// (T <= 64, one 64-key chunk) masks the other tracks' keys, one track of
+// more frames takes keys 0..T-1 in ceil(T / 64) chunks. The contract is the
+// Pallas body's: f32 logits, scaled after the product; the softmax
+// normalized (exp(s - max) times the reciprocal of the row's sum, as K6's
+// body) before its rounding to bf16; P.V in f32. NC > 0 holds the NC
+// chunks' scores in registers (one pass); NC == 0 takes two passes over the
+// chunks in shared memory (online max and sum, then the normalized
+// probabilities and P.V), the logits recomputed.
+
+// A fragments of the 16 query rows row0.. (row0 % 16 == 0) of one head.
+__device__ __forceinline__ void load_q_ilv(uint32_t (&qa)[3][4], const bf16* qs, int row0) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const int row = row0 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) ldsm_x4(qa[s], qs + ilv(row, 2 * s + (mi >> 1)));
+}
+
+// Scaled logits of chunk c (keys 64c..) with the rows' key ranges applied
+// (a chunk inside both rows' ranges, every chunk but the last of one track,
+// is only scaled).
+__device__ __forceinline__ void mask_rows(float (&S)[8][4], int c, float scale,
+                                          const int (&lo)[2], const int (&hi)[2]) {
+  const int t = threadIdx.x & 3, k0 = kKeyTile * c;
+  if (k0 >= max(lo[0], lo[1]) && k0 + kKeyTile <= min(hi[0], hi[1])) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[j][e] = __fmul_rn(S[j][e], scale);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kKeyTile * c + 8 * j + 2 * t + (e & 1), r = e >> 1;
+      S[j][e] = (key >= lo[r] && key < hi[r]) ? __fmul_rn(S[j][e], scale) : -INFINITY;
+    }
+}
+
+// Normalized probabilities of one chunk: exp(s - max) * (1 / sum).
+__device__ __forceinline__ void normalize_rcp(float (&S)[8][4], const float (&m)[2],
+                                              const float (&rl)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[j][e] = __fmul_rn(expf(__fsub_rn(S[j][e], m[e >> 1])), rl[e >> 1]);
+}
+
+// acc (16 x 48, f32) = softmax(q . K^T * scale) . V for one warp's task.
+template <int NC>
+__device__ __forceinline__ void time_task(float (&acc)[6][4], const uint32_t (&qa)[3][4],
+                                          const bf16* ks, const bf16* vs, int nch,
+                                          const int (&lo)[2], const int (&hi)[2], float scale) {
+  constexpr int CH = kKeyTile * kDimHead;  // elements of one 64-key chunk
+#pragma unroll
+  for (int mm = 0; mm < 6; ++mm) acc[mm][0] = acc[mm][1] = acc[mm][2] = acc[mm][3] = 0.f;
+  if constexpr (NC > 0) {
+    float S[NC][8][4];
+    float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      chunk_scores_ilv(S[c], qa, ks + c * CH);
+      mask_rows(S[c], c, scale, lo, hi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], S[c][j][e]);
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          S[c][j][e] = expf(__fsub_rn(S[c][j][e], mx[e >> 1]));
+          l[e >> 1] += S[c][j][e];
+        }
+    const float rl[2] = {__frcp_rn(quad_sum(l[0])), __frcp_rn(quad_sum(l[1]))};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) S[c][j][e] = __fmul_rn(S[c][j][e], rl[e >> 1]);
+      chunk_pv_ilv(acc, S[c], vs + c * CH);
+    }
+  } else {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float S[8][4];
+    for (int c = 0; c < nch; ++c) {
+      chunk_scores_ilv(S, qa, ks + c * CH);
+      mask_rows(S, c, scale, lo, hi);
+      online_update(S, m, l, alpha);
+    }
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+    for (int c = 0; c < nch; ++c) {
+      chunk_scores_ilv(S, qa, ks + c * CH);
+      mask_rows(S, c, scale, lo, hi);
+      normalize_rcp(S, m, rl);
+      chunk_pv_ilv(acc, S, vs + c * CH);
+    }
+  }
+}
+
+// The rows' key ranges of a task (rows row0 + g, row0 + g + 8 of a tile of
+// whole tracks of Tn frames).
+__device__ __forceinline__ void task_ranges(int row0, int Tn, int (&lo)[2], int (&hi)[2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lo[r] = (row0 + g + 8 * r) / Tn * Tn;
+    hi[r] = lo[r] + Tn;
+  }
+}
+
+// K5 in bf16 up to kMaxKeys frames. Block: `tracks` whole tracks (rows =
+// tracks x Tn <= rows_pad, zero-filled to rows_pad) x a group of `hs` heads;
+// the groups of a tile are neighbours in the grid (blockIdx.x = tile *
+// groups + group). Every 16-byte piece of the block's q, k and v head
+// slices is moved once, by cp.async, into the interleaved layout; each
+// warp then takes (head, 16 query rows) tasks and writes its output over
+// the task's q rows (read into registers first), and the block stores the
+// tile's output in 16-byte pieces.
+template <int NC>
+constexpr int time_tc_threads() {  // NC = 0 (many query tiles a block): 8 warps
+  return NC == 0 ? 256 : kTcThreads;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(time_tc_threads<NC>())
+time_tc_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, int ldkv, bf16* __restrict__ out, int M, int Tn,
+               int H, int hs, int tracks, int rows_pad, float scale) {
+  constexpr int D = kDimHead;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const sm = reinterpret_cast<bf16*>(tc_smem);  // [q | k | v][hs][rows_pad x D] (ilv)
+  const int groups = (H + hs - 1) / hs, tile = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * hs, nh = min(hs, H - h0), C = H * D;
+  const int m0 = tile * tracks, rows = min(tracks, M - m0) * Tn;
+  const size_t row0 = static_cast<size_t>(m0) * Tn;
+  const int hsz = rows_pad * D;  // elements of one head's operand
+  for (int i = threadIdx.x; i < 3 * nh * rows_pad * 6; i += blockDim.x) {
+    const int c = i % 6, hh = (i / 6) % nh, which = (i / (6 * nh)) % 3, r = i / (18 * nh);
+    const bool ok = r < rows;
+    const size_t o = row0 + (ok ? r : 0);
+    const bf16* src = which == 0 ? q + o * ldq : (which == 1 ? k : v) + o * ldkv;
+    cp_async16(sm + (which * hs + hh) * hsz + ilv(r, c), src + (h0 + hh) * D + 8 * c, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qtiles = (rows + 15) / 16, nch = (rows_pad + kKeyTile - 1) / kKeyTile;
+  for (int task = warp; task < qtiles * nh; task += blockDim.x >> 5) {
+    const int hh = task % nh, r0 = (task / nh) * 16;
+    bf16* qs = sm + hh * hsz;
+    uint32_t qa[3][4];
+    load_q_ilv(qa, qs, r0);
+    int lo[2], hi[2];
+    task_ranges(r0, Tn, lo, hi);
+    float acc[6][4];
+    time_task<NC>(acc, qa, sm + (hs + hh) * hsz, sm + (2 * hs + hh) * hsz, nch, lo, hi, scale);
+    __syncwarp();
+#pragma unroll
+    for (int mm = 0; mm < 6; ++mm) {
+      *reinterpret_cast<uint32_t*>(qs + ilv(r0 + g, mm) + 2 * t) = pack_bf16(acc[mm][0], acc[mm][1]);
+      *reinterpret_cast<uint32_t*>(qs + ilv(r0 + g + 8, mm) + 2 * t) =
+          pack_bf16(acc[mm][2], acc[mm][3]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * nh * 6; i += blockDim.x) {
+    const int c = i % 6, hh = (i / 6) % nh, r = i / (6 * nh);
+    *reinterpret_cast<uint4*>(out + (row0 + r) * C + (h0 + hh) * D + 8 * c) =
+        *reinterpret_cast<const uint4*>(sm + hh * hsz + ilv(r, c));
+  }
+}
+
 // Time core past kMaxKeys frames, bf16 (K5's long route). Block (track,
-// head), 4 warps; per 64-frame query tile, the head's keys (pass 1) and
-// keys and values (pass 2) stream through two shared-memory buffers in
-// 64-frame chunks: pass 1 takes each row's max and sum over all frames,
-// pass 2 recomputes the logits, normalizes (exp(s - max) / sum), rounds to
-// bf16 and accumulates P.V in f32: K5's contract with the keys in tiles.
-__global__ void __launch_bounds__(kTcThreads)
+// head), the 8 head blocks of a track neighbours in the grid (blockIdx.x =
+// track * H + head); per 128-frame query tile, the tile's q slices
+// arrive by cp.async in the interleaved layout (fragments by ldmatrix), and
+// the head's keys (pass 1) and keys and values (pass 2) stream through two
+// shared-memory buffers in 64-frame chunks, interleaved too: pass 1 takes
+// each row's max and sum over all frames, pass 2 recomputes the logits,
+// normalizes (exp(s - max) times 1 / sum), rounds to bf16 and accumulates
+// P.V in f32: K5's contract with the keys in tiles. 8 warps take 128 query
+// frames a tile, so the keys stream twice per 128 frames.
+constexpr int kLongThreads = 256, kLongRows = 2 * kKeyTile;
+
+__global__ void __launch_bounds__(kLongThreads)
 time_attention_long_tc_kernel(const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, int ldkv, bf16* __restrict__ out,
                               int Tn, int H, float scale) {
-  constexpr int D = kDimHead, KS = kKeyTile * D, VS = kKeyTile * kVRow;
-  __shared__ __align__(16) unsigned char long_smem[2 * (KS + VS) * sizeof(bf16)];
-  bf16* const ks0 = reinterpret_cast<bf16*>(long_smem);  // 2 x KS
-  bf16* const vs0 = ks0 + 2 * KS;                          // 2 x VS
-  const int mtrack = blockIdx.x, h = blockIdx.y, C = H * D;
+  constexpr int D = kDimHead, CH = kKeyTile * D;
+  __shared__ __align__(16) unsigned char long_smem[6 * CH * sizeof(bf16)];
+  bf16* const qs = reinterpret_cast<bf16*>(long_smem);  // the query tile, 2 x CH
+  bf16* const ks0 = qs + 2 * CH;                         // 2 x CH
+  bf16* const vs0 = qs + 4 * CH;                         // 2 x CH
+  const int mtrack = blockIdx.x / H, h = blockIdx.x % H, C = H * D;
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2;
   const size_t row0 = static_cast<size_t>(mtrack) * Tn;
   const int nch = (Tn + kKeyTile - 1) / kKeyTile;
   auto load = [&](int c, int buf, bool with_v) {
     const int parts = with_v ? 12 : 6;
-    for (int i = tid; i < kKeyTile * parts; i += kTcThreads) {
+    for (int i = tid; i < kKeyTile * parts; i += kLongThreads) {
       const int key = i / parts, p = i % parts, j = c * kKeyTile + key;
       const bool ok = j < Tn;
       const size_t o = (row0 + (ok ? j : 0)) * ldkv + h * D;
-      if (p < 6) cp_async16(ks0 + buf * KS + key * D + 8 * p, k + o + 8 * p, ok);
-      else cp_async16(vs0 + buf * VS + key * kVRow + 8 * (p - 6), v + o + 8 * (p - 6), ok);
+      if (p < 6) cp_async16(ks0 + buf * CH + ilv(key, p), k + o + 8 * p, ok);
+      else cp_async16(vs0 + buf * CH + ilv(key, p - 6), v + o + 8 * (p - 6), ok);
     }
   };
-  for (int qt = 0; qt < Tn; qt += 64) {
-    const int ia = qt + warp * 16 + g, ib = ia + 8;
-    uint32_t qa[3][4];
-    load_q_frags(qa, ia < Tn ? q + (row0 + ia) * ldq + h * D : nullptr,
-                 ib < Tn ? q + (row0 + ib) * ldq + h * D : nullptr);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  const int lo[2] = {0, 0}, hi[2] = {Tn, Tn};
+  for (int qt = 0; qt < Tn; qt += kLongRows) {
+    __syncthreads();
+    for (int i = tid; i < kLongRows * 6; i += kLongThreads) {
+      const int r = i / 6, c = i % 6, j = qt + r;
+      const bool ok = j < Tn;
+      cp_async16(qs + ilv(r, c), q + (row0 + (ok ? j : 0)) * ldq + h * D + 8 * c, ok);
+    }
+    cp_async_commit();
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2], rl[2] = {0.f, 0.f};
     float acc[6][4] = {};
+    uint32_t qa[3][4];
     for (int pass = 0; pass < 2; ++pass) {
       __syncthreads();
       load(0, 0, pass == 1);
@@ -829,18 +1031,22 @@ time_attention_long_tc_kernel(const bf16* __restrict__ q, int ldq, const bf16* _
         cp_async_commit();
         cp_async_wait<1>();
         __syncthreads();
+        if (pass == 0 && c == 0) load_q_ilv(qa, qs, warp * 16);
         float S[8][4];
-        chunk_scores(S, qa, ks0 + (c & 1) * KS);
-        scale_mask(S, scale, Tn - c * kKeyTile);
+        chunk_scores_ilv(S, qa, ks0 + (c & 1) * CH);
+        mask_rows(S, c, scale, lo, hi);
         if (pass == 0) {
           online_update(S, m, l, alpha);
         } else {
-          normalize_chunk(S, m, l);
-          chunk_pv(acc, S, vs0 + (c & 1) * VS);
+          normalize_rcp(S, m, rl);
+          chunk_pv_ilv(acc, S, vs0 + (c & 1) * CH);
         }
         __syncthreads();
       }
+      rl[0] = __frcp_rn(l[0]);
+      rl[1] = __frcp_rn(l[1]);
     }
+    const int ia = qt + warp * 16 + g, ib = ia + 8;
     store_rows<bf16>(acc, ia < Tn ? out + (row0 + ia) * C + h * D : nullptr,
                      ib < Tn ? out + (row0 + ib) * C + h * D : nullptr);
   }
@@ -942,7 +1148,7 @@ cudaError_t launch_time_attention(const void* q, int ldq, const void* k, const v
                                   cudaStream_t s) {
   if (Tn > kMaxKeys) {  // the long route: keys in tiles
     if constexpr (std::is_same<T, bf16>::value && std::is_same<OutT, bf16>::value) {
-      time_attention_long_tc_kernel<<<dim3(M, H), kTcThreads, 0, s>>>(
+      time_attention_long_tc_kernel<<<M * H, kLongThreads, 0, s>>>(
           static_cast<const bf16*>(q), ldq, static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), ldkv, static_cast<bf16*>(out), Tn, H, scale);
     } else if constexpr (std::is_same<T, float>::value && std::is_same<OutT, float>::value) {
@@ -961,6 +1167,43 @@ cudaError_t launch_time_attention(const void* q, int ldq, const void* k, const v
   kern<<<dim3(M, H), kCoreThreads, smem, s>>>(
       static_cast<const T*>(q), ldq, static_cast<const T*>(k), static_cast<const T*>(v), ldkv,
       static_cast<OutT*>(out), Tn, H, scale);
+  return cudaGetLastError();
+}
+
+// The bf16 time core's plan (ops/kernels/attention_cuda.py::k5_plan):
+// NC the chunks held in registers (1-4; 0: two passes over rows_pad / 64
+// chunks), hs heads and `tracks` whole tracks a block, rows_pad staged rows.
+inline size_t time_tc_smem(int hs, int rows_pad) {
+  return 3 * static_cast<size_t>(hs) * rows_pad * kDimHead * sizeof(bf16);
+}
+
+inline bool time_tc_plan_ok(int Tn, int H, int nc, int hs, int tracks, int rows_pad) {
+  return hs >= 1 && hs <= H && tracks >= 1 && rows_pad % kKeyTile == 0 &&
+         static_cast<long long>(tracks) * Tn <= rows_pad && (nc == 0 || rows_pad == kKeyTile * nc) &&
+         nc >= 0 && nc <= 4 && time_tc_smem(hs, rows_pad) <= 232448;
+}
+
+// q, k, v rows as launch_time_attention; out (M*Tn, C) bf16. Tn <= kMaxKeys.
+inline cudaError_t launch_time_tc(const bf16* q, int ldq, const bf16* k, const bf16* v, int ldkv,
+                                  bf16* out, int M, int Tn, int H, float scale, int nc, int hs,
+                                  int tracks, int rows_pad, cudaStream_t s) {
+  if (!time_tc_plan_ok(Tn, H, nc, hs, tracks, rows_pad)) return cudaErrorInvalidValue;
+  const long long blocks =
+      static_cast<long long>((M + tracks - 1) / tracks) * ((H + hs - 1) / hs);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = time_tc_smem(hs, rows_pad);
+  auto kern = time_tc_kernel<0>;
+  int threads = time_tc_threads<0>();
+  switch (nc) {
+    case 1: kern = time_tc_kernel<1>; threads = time_tc_threads<1>(); break;
+    case 2: kern = time_tc_kernel<2>; threads = time_tc_threads<2>(); break;
+    case 3: kern = time_tc_kernel<3>; threads = time_tc_threads<3>(); break;
+    case 4: kern = time_tc_kernel<4>; threads = time_tc_threads<4>(); break;
+  }
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), threads, smem, s>>>(q, ldq, k, v, ldkv, out, M, Tn, H, hs,
+                                                             tracks, rows_pad, scale);
   return cudaGetLastError();
 }
 

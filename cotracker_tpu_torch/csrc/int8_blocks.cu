@@ -6,7 +6,8 @@
 //   K3 cotracker_tpu/ops/kernels/attention_pallas.py::_v2p_proj_kernel
 //   K8 cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_qkv_kernel
 //   K9 cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel
-// K1-K3 are each a short chain of the launches below, driven from
+// K1 (f32 tokens; bf16 takes csrc/int8_time_block.cu), K2 and K3 are each
+// a short chain of the launches below, driven from
 // ops/kernels/{mlp_int8,attention}_cuda.py:
 //   ct_ln_quant       LayerNorm (optionally affine) + per-row absmax int8
 //   ct_gemm_s8        s8 x s8 -> s32 GEMM on tensor cores (mma.sync) with a
@@ -30,19 +31,23 @@
 // What bounds them: at the bench shape (10,240 tracks x 60 frames, C=384)
 // a points time block is ~2.2 s8 TOP, near 1.1 ms at the card's 1,979 TOP/s
 // int8 peak, against ~0.5 GB of token reads and writes (~0.15 ms at
-// 3.35 TB/s): compute-bound. This first version keeps the products on the
-// tensor cores (mma.sync, synchronous shared-memory tiles) and stages each
-// attention core's keys and values in shared memory once per block (per
-// track for K1, per frame and track range for K2), but q|kv, the attention
-// output and the 1,536-wide GELU activations still round-trip device memory
-// between launches (~8 GB per block); fusing the chain so they stay on chip,
-// and wgmma/TMA GEMMs, are the next steps. K8 moves 3,072 bytes a bf16 row
-// for 0.88 M int8 operations (~290 a byte, under the card's int8 balance of
-// ~590: bytes-bound), K9 2,304 bytes for 2.65 M (compute-bound); both re-read
-// the weights from L2 for every row tile (128 rows for K8, 64 for K9, whose
-// tile is bounded by the 227 KB of shared memory a block may hold), and K9
-// computes fc1 twice (the GELU codes' row scale needs the row's absmax
-// before the first code is written): 1.45x its operations.
+// 3.35 TB/s): compute-bound. The chains keep the products on the tensor
+// cores (mma.sync, synchronous shared-memory tiles) and stage each
+// attention core's keys and values in shared memory once per block, but
+// their q|kv, attention output and 1,536-wide GELU activations round-trip
+// device memory between launches (~8 GB per block). K1 in bf16 no longer
+// runs here: csrc/int8_time_block.cu takes it in two launches with those
+// activations on chip (24.2 -> 11.7 ms at the bench shape on an H100; its
+// note says what bounds it now); its f32 route is the K1 chain below
+// (ct_time_attention with the first-version time core). K2's chain keeps
+// its tail (_mlp_tail_cuda); moving it onto K1's is queued. K8 moves 3,072
+// bytes a bf16 row for 0.88 M int8 operations (~290 a byte, under the
+// card's int8 balance of ~590: bytes-bound), K9 2,304 bytes for 2.65 M
+// (compute-bound); both re-read the weights from L2 for every row tile (128
+// rows for K8, 64 for K9, whose tile is bounded by the 227 KB of shared
+// memory a block may hold), and K9 computes fc1 twice (the GELU codes' row
+// scale needs the row's absmax before the first code is written): 1.45x
+// its operations.
 //
 // The shared device routines (LN + row quant, GELU, the tile GEMM and the
 // MLP-tail stages) live in int8_tile.cuh, with the two variant flags of the

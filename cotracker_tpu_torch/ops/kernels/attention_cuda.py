@@ -30,7 +30,11 @@ P.V, float32 accumulation, one rounding to the query dtype. The kernels are
 csrc/attention_cores.cu (see there for what bounds them and the design);
 they take any number of rows, tracks and frames (K5 past 512 frames on its
 long route) and up to 512 virtual tokens (K6), and the JAX package's shape
-gates decide where the model runs them (models/blocks.py). In bf16, K7 and
+gates decide where the model runs them (models/blocks.py). K5's route and
+tiling for a shape is `k5_plan`'s: in bf16 the tensor-core time core up to
+512 frames (several whole tracks a block up to 64 frames, one track above,
+a group of heads a block), the long route above; in f32 the first-version
+bodies. In bf16, K7 and
 K3's core split the keys into ranges (`v2p_splits`) whose f32 partials the
 wrapper allocates and a second launch merges.
 
@@ -40,6 +44,7 @@ tensors launches its kernel or raises; `launches` counts the kernel runs.
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -102,7 +107,8 @@ def _cores_lib():
     """ctypes functions of csrc/attention_cores.cu."""
     if not _fns:
         lib = _build.load("attention_cores")
-        _fns["k5"] = _build.bind(lib, "ct_k5_time_attention", _P, _P, _I, _P, _I, _I, _I, _I, _F, _P)
+        _fns["k5"] = _build.bind(lib, "ct_k5_time_attention", _P, _P, _I, _P, _I, _I, _I, _I, _F,
+                                 _I, _I, _I, _I, _P)
         _fns["k6"] = _build.bind(lib, "ct_k6_points_from_virtual", _P, _P, _I, _P, _I, _I, _I, _I,
                                  _I, _F, _P)
         _fns["k7"] = _build.bind(lib, "ct_k7_virtual_from_points", _P, _P, _P, _I, _P, _P, _I, _I,
@@ -215,6 +221,52 @@ def _check_core(q, kv, num_heads, dim_head, kv_shape, keys=0):
     return mlp_int8_cuda._is_bf16(q)
 
 
+class TimePlan(NamedTuple):
+    """K5's route for T frames: "tc" (bf16, T <= 512: the tensor-core time
+    core; `nc` 64-key chunks held in registers (up to 256 frames), 0 = two
+    passes over rows_pad / 64 chunks; `tracks` whole tracks and `hs` heads
+    a block, `rows_pad` rows staged, `smem` bytes), "long" (bf16 past 512
+    frames: keys streamed in 64-frame chunks), "staged" (f32 up to 512
+    frames, the first version) or "long_f32"."""
+
+    route: str
+    nc: int = 0
+    hs: int = 0
+    tracks: int = 0
+    rows_pad: int = 0
+    smem: int = 0
+
+
+K5_BLOCK_BYTES = 48 * 1024  # shared memory a tensor-core block aims for (its head group)
+
+
+def k5_plan(T: int, H: int, bf16: bool) -> TimePlan:
+    """K5's route and tiling for T frames of H heads (the checks of
+    time_tc_plan_ok in csrc/attention_cores.cuh)."""
+    if T < 1 or H < 1:
+        raise ValueError(f"K5 takes T >= 1 frames and H >= 1 heads, got T={T}, H={H}")
+    if not bf16:
+        return TimePlan("staged" if T <= MAX_KEYS else "long_f32")
+    if T > MAX_KEYS:
+        return TimePlan("long")
+    chunks = -(-T // 64)  # 64-key chunks; up to 4 held in registers
+    nc, tracks, rows_pad = (chunks if chunks <= 4 else 0), (64 // T if T <= 64 else 1), 64 * chunks
+    head = 3 * rows_pad * 48 * 2
+    hs = max([h for h in (8, 4, 2, 1) if h <= H and h * head <= K5_BLOCK_BYTES] or [1])
+    return TimePlan("tc", nc, hs, tracks, rows_pad, hs * head)
+
+
+def _k5_launch(q, kv, num_heads, dim_head, plan: TimePlan):
+    """ct_k5_time_attention on contiguous CUDA operands with `plan`."""
+    M, T, _ = q.shape
+    out = torch.empty_like(q)
+    _build.check(_cores_lib()["k5"](
+        _build.ptr(q), _build.ptr(kv), mlp_int8_cuda._is_bf16(q), _build.ptr(out), M, T,
+        num_heads, dim_head, dim_head**-0.5, plan.nc, plan.hs, plan.tracks, plan.rows_pad,
+        _build.stream_ptr(q)), "ct_k5_time_attention")
+    return out
+
+
 def fused_time_attention(q, kv, num_heads, dim_head):
     """K5: self-attention over axis 1, independently per row of axis 0.
     q (M, T, H*D); kv (M, T, 2*H*D), K in [:H*D] and V in [H*D:] (the
@@ -223,11 +275,8 @@ def fused_time_attention(q, kv, num_heads, dim_head):
         return time_attention_plain(q, kv, num_heads, dim_head)
     M, T, C = q.shape
     bf16 = _check_core(q, kv, num_heads, dim_head, (M, T, 2 * C))
-    q, kv = q.contiguous(), kv.contiguous()
-    out = torch.empty_like(q)
-    _build.check(_cores_lib()["k5"](
-        _build.ptr(q), _build.ptr(kv), bf16, _build.ptr(out), M, T, num_heads, dim_head,
-        dim_head**-0.5, _build.stream_ptr(q)), "ct_k5_time_attention")
+    out = _k5_launch(q.contiguous(), kv.contiguous(), num_heads, dim_head,
+                     k5_plan(T, num_heads, bool(bf16)))
     fused_time_attention.launches += 1
     return out
 

@@ -6,17 +6,22 @@ bodies only the micro-benchmark reaches.
 
 K1 replaces cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel
 (wrapper fused_time_block_int8), K2 its ::_space_block_kernel (wrapper
-fused_space_block_int8). On the H100 each is a chain of hand-written
+fused_space_block_int8). On the H100, K1 in bfloat16 is two launches of
+csrc/int8_time_block.cu (a front per block of whole tracks: LN + quant, the
+q|k|v products, the bf16 time core, a's row codes; a tail per 64-row tile:
+to_out + residual, LN + quant, fc1 + GELU + quant, fc2 + residual), whose
+tiling `k1_plan` computes; K1 in float32 and K2 are chains of hand-written
 launches of csrc/int8_blocks.cu (LN + row quant, tensor-core s8 GEMMs with
-fused dequant/bias/GELU/residual epilogues, the attention core). K8 replaces
-::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel (wrapper
-fused_attnout_res_mlp_int8), one launch each: a row tile's activations, its
-f32 residual and its GELU codes stay in shared memory. See csrc/int8_blocks.cu
-for what bounds them and what the design does about it. K10 replaces
-::_dense_kernel (fused_ln_dense_int8), K11 ::_space_block_allt_kernel (the
-`space_allt` route of fused_space_block_int8; here its own wrapper,
-fused_space_block_allt_int8) and K12 ::_mlp_kernel (fused_ln_mlp_int8), one
-launch each of csrc/int8_fused.cu.
+fused dequant/bias/GELU/residual epilogues, the attention core). K8
+replaces ::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel
+(wrapper fused_attnout_res_mlp_int8), one launch each: a row tile's
+activations, its f32 residual and its GELU codes stay in shared memory. See
+the sources for what bounds them and what the designs do about it. K10
+replaces ::_dense_kernel (fused_ln_dense_int8), K11
+::_space_block_allt_kernel (the `space_allt` route of
+fused_space_block_int8; here its own wrapper, fused_space_block_allt_int8)
+and K12 ::_mlp_kernel (fused_ln_mlp_int8), one launch each of
+csrc/int8_fused.cu.
 
 The two variant switches that change the function of every body here
 (ops/kernels/variants.py) are the wrappers' `bf16_ln` (COTRACKER_BF16_LN:
@@ -33,9 +38,10 @@ Contract (quantization scheme of the JAX package):
 
 Each wrapper takes its plain PyTorch version for CPU tensors, and for CUDA
 tensors launches the kernel chain or raises; `launches` counts the kernel
-runs. The wrappers take any number of rows and tracks, and up to 512
-frames (K1) or virtual tokens (K2), whose keys the attention core holds in
-shared memory. Which of K1 or K8 -> K5 -> K9 a time block runs is the
+runs. The wrappers take any number of rows and tracks; K1 takes up to 256
+frames in bfloat16 (its front holds a track's rows on chip) and 512 in
+float32, K2 up to 512 virtual tokens, whose keys the attention core holds
+in shared memory. Which of K1 or K8 -> K5 -> K9 a time block runs is the
 JAX package's decision (ops/kernels/gates.py, models/blocks.py): the two
 differ in bfloat16, where the split rounds the attention output to the token
 dtype before K9 quantizes it and K1 quantizes it in float32.
@@ -272,6 +278,11 @@ def _lib():
                                  _P)
         _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _F, _I, _I, _P, _P)
+        k1 = _build.load("int8_time_block")
+        _fns["k1"] = _build.bind(k1, "ct_k1_time_block", _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
+        _fns["k1_smem"] = _build.bind(k1, "ct_k1_smem", _I, _I, _I)
+        _fns["k1_gelu_check"] = _build.bind(k1, "ct_k1_gelu_check", _P, _P, _P)
         fused = _build.load("int8_fused")
         _fns["k10"] = _build.bind(fused, "ct_k10_ln_dense", _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                   _P, _F, _I, _I, _I, _P, _P)
@@ -342,7 +353,68 @@ def _check_cuda(*tensors, keys):
         raise ValueError(f"the attention core stages at most {MAX_KEYS} keys, got {keys}")
 
 
-def _time_block_cuda(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
+class K1Plan(NamedTuple):
+    """The tiling of K1's two launches (csrc/int8_time_block.cu) for M
+    tracks of T frames: `nc` 1 is the tile route (a front block holds
+    `tracks` = 64 // T whole tracks in 64 rows, one 64-key chunk), 2 and 0
+    the track route (one track a block, its rows padded to `rows_pad`, the
+    time core's key chunks in registers (2) or in two passes (0)); shared
+    memory of the front and the tail in bytes."""
+
+    nc: int
+    tracks: int
+    rows_pad: int
+    front_smem: int
+    tail_smem: int
+    front_blocks: int
+    tail_blocks: int
+
+
+K1_MAX_T = 256  # frames of one track the bf16 front holds on chip
+# int8_time_block.cu's kGeluNegBound: |gelu_tanh(x)| stays under it for every
+# f32 x < 0 (the card test runs ct_k1_gelu_check over every f32)
+GELU_NEG_BOUND = 0.1701
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+_LDA_C = 384 + 16
+
+
+def _ring_bytes(NW, NI, BK, STAGES):
+    """RingGemm<MW, NW, MI, NI, BK, STAGES>::kRingBytes: STAGES buffers of
+    BN = NW * NI * 8 weight rows of BK + 16 bytes."""
+    return STAGES * (NW * NI * 8) * (BK + 16)
+
+
+# int8_time_block.cu's rings, by their template parameters (the plan test
+# reads them back from the source): FrontTileGemm = RingGemm<2, 4, 2, 9, 64,
+# 3>, FrontTrackGemm = RingGemm<4, 2, 1, 9, 64, 4>; the tail's Stream:
+# K1T_SLOTS slots of K1T_SLOT bytes, one full and one empty mbarrier each
+K1_FRONT_TILE_RING = _ring_bytes(NW=4, NI=9, BK=64, STAGES=3)
+K1_FRONT_TRACK_RING = _ring_bytes(NW=2, NI=9, BK=64, STAGES=4)
+K1T_SLOTS, K1T_SLOT = 5, 384 * (32 + 16)
+
+
+def k1_plan(M: int, T: int) -> K1Plan:
+    """K1's tiling for M tracks of T frames in bfloat16 (the arithmetic of
+    k1_front_smem / K1_TAIL_SMEM in csrc/int8_time_block.cu)."""
+    if not 1 <= T <= K1_MAX_T or M < 1:
+        raise ValueError(f"K1 in bfloat16 takes 1..{K1_MAX_T} frames (the frame gate sends at "
+                         f"most 192), got M={M}, T={T}")
+    if T <= 64:
+        nc, tracks, rows_pad = 1, 64 // T, 64
+    else:
+        nc, tracks, rows_pad = (2 if T <= 128 else 0), 1, -(-T // 64) * 64
+    tile = nc == 1
+    front = (rows_pad * _LDA_C + rows_pad * 4 * (1 if tile else 3)
+             + 3 * (2 if tile else 1) * rows_pad * 48 * 2
+             + (K1_FRONT_TILE_RING + rows_pad * (384 + 4) * 4 if tile else K1_FRONT_TRACK_RING))
+    tail = (64 * (384 + 8) * 4 + 64 * _LDA_C + 64 * (128 + 16) + K1T_SLOTS * K1T_SLOT
+            + 5 * 64 * 4 + 2 * K1T_SLOTS * 8 + 16)
+    return K1Plan(nc, tracks, rows_pad, front, tail, -(-M // tracks), -(-M * T // 64))
+
+
+def _time_block_chain(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
+    """K1 as the launch chain of csrc/int8_blocks.cu: the route of float32
+    tokens (the fused front's bf16 time core does not take f32 operands)."""
     M, T, C = x.shape
     _check_cuda(x, w.qkv.w, keys=T)
     x2d = x.contiguous().reshape(M * T, C)
@@ -353,6 +425,28 @@ def _time_block_cuda(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln, 
         _build.ptr(qkv), _is_bf16(qkv), _build.ptr(a), M, T, num_heads, dim_head,
         dim_head**-0.5, _build.stream_ptr(x)), "ct_time_attention")
     return _mlp_tail_cuda(a, x2d, w, eps, x.dtype, bf16_ln, gelu_fold).reshape(M, T, C)
+
+
+def _time_block_fused(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
+    """K1 in bfloat16: the two launches of ct_k1_time_block on k1_plan's
+    tiling; a's int8 codes and row scales pass between them through device
+    memory."""
+    M, T, C = x.shape
+    _check_cuda(x, w.qkv.w, keys=0)
+    if C != SPLIT_C or num_heads * dim_head != C or tuple(w.fc1.w.shape) != (SPLIT_H, C):
+        raise ValueError(f"K1 takes C={SPLIT_C}, hidden {SPLIT_H}, got x {tuple(x.shape)}, "
+                         f"fc1 {tuple(w.fc1.w.shape)}")
+    plan = k1_plan(M, T)
+    x = x.contiguous()
+    acode = torch.empty((M * T, C), dtype=torch.int8, device=x.device)
+    ascale = torch.empty((M * T,), dtype=F32, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = [_build.ptr(t) for lin in w for t in lin]
+    _build.check(_lib()["k1"](
+        _build.ptr(x), M, T, C, num_heads, dim_head, plan.nc, plan.tracks, plan.rows_pad, *ptrs,
+        eps, dim_head**-0.5, int(bf16_ln), int(gelu_fold), _build.ptr(acode),
+        _build.ptr(ascale), _build.ptr(out), _build.stream_ptr(x)), "ct_k1_time_block")
+    return out
 
 
 def _space_block_cuda(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
@@ -377,10 +471,16 @@ def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6,
         q, kv = to_q(ln(x)), to_kv(ln(x)); a = attention over T
         r = x + to_out(a); return r + fc2(gelu(fc1(ln(r))))
 
-    x (M, T, C) float32 or bfloat16 -> (M, T, C) in x.dtype."""
+    x (M, T, C) float32 or bfloat16 -> (M, T, C) in x.dtype. On the card,
+    bfloat16 takes the two launches of ct_k1_time_block (k1_plan's tiling,
+    up to K1_MAX_T frames), float32 the launch chain."""
     if x.device.type == "cpu":
         return time_block_plain(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
-    out = _time_block_cuda(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    if x.dtype == torch.bfloat16:
+        out = _time_block_fused(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    else:
+        _is_bf16(x)
+        out = _time_block_chain(x, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     fused_time_block_int8.launches += 1
     return out
 

@@ -1,5 +1,6 @@
 """Profiling surface of the port (port of cotracker_tpu/utils/profiling.py):
-torch.profiler traces and per-stage timers.
+torch.profiler traces, per-stage timers, and two readings of one call of a
+function on the card: its device launches and its device time by kernel.
 
 The users' metric is points·frames per second on the card, so a stage's
 time must include the device work it queued: `StageTimer` synchronises the
@@ -8,8 +9,9 @@ stage's CUDA device before it reads the clock.
 
 import contextlib
 import os
+import tempfile
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -27,6 +29,40 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_launches(fn: Callable[[], object]) -> int:
+    """Kernel launches one call of fn makes on the current CUDA device: the
+    kernel nodes of a CUDA graph captured from the call (as
+    cudaGraphDebugDotPrint writes them). fn runs once before the capture."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "call.dot")
+        graph.debug_dump(path)
+        with open(path) as dot:
+            return dot.read().count("{KERNEL")
+
+
+def kernel_ms(fn: Callable[[], object], reps: int = 10) -> Dict[str, float]:
+    """Device ms per call of fn by kernel name (torch.profiler's CUDA
+    activity over `reps` calls after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t > 0 and e.device_type.name == "CUDA":
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3 / reps
+    return out
 
 
 def _synchronize(sync) -> None:

@@ -73,11 +73,13 @@ GROUPS = (  # first match wins, on the device kernel's name
     ("K11 space_block_allt_kernel", ("space_block_allt_kernel",)),
     ("K8 ln_qkv_kernel", ("ln_qkv_kernel",)),
     ("K9 attnout_mlp_kernel", ("attnout_mlp_kernel",)),
+    ("K1 front (bf16) k1_front_kernel", ("k1_front_kernel",)),
+    ("K1 tail (bf16) k1_tail_kernel", ("k1_tail_kernel",)),
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
     ("K1-K3 LN + row quant (ln_quant_kernel)", ("ln_quant_kernel",)),
     ("K4 corr_volume_kernel", ("corr_volume_kernel",)),
-    ("time core (K1 stage / K5) time_attention_kernel",
-     ("time_attention_kernel", "time_attention_long")),
+    ("time core (K5; K1's f32 chain) time_tc_kernel (f32: time_attention_kernel)",
+     ("time_tc_kernel", "time_attention_kernel", "time_attention_long")),
     ("points<-virtual core (K2 stage / K6) p2v_tc_kernel (f32: p2v_attention_kernel)",
      ("p2v_tc_kernel", "p2v_attention_kernel")),
     ("virtual<-points core (K3 stage / K7) v2p_tc_kernel + merge (f32: v2p_flash_kernel)",

@@ -4,8 +4,10 @@ width), float32 and bfloat16, every W8A8 body in the two variant modes
 (bf16 LayerNorm, GELU-quant fold), and the training autograd wrapper's
 gradients against plain autograd (marker `cuda`; skips without a GPU).
 K6 and K7 also at ragged shapes and, K7, at the quasi-dense key count
-(several blocks per key range, merged); K5 past 512 frames; the K2 and K3
-chains at the streaming width; the wrapper with corr_fuse_mlp1 (K4m).
+(several blocks per key range, merged); K5 past 512 frames and at the
+edges of every route of k5_plan; K1 in bf16 (two launches) at every route
+of k1_plan the frame gate reaches; the K2 and K3 chains at the streaming
+width; the wrapper with corr_fuse_mlp1 (K4m).
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -48,13 +50,16 @@ def _lin(g, o, i, dev):
     return mlp_int8_cuda.quantize_linear(w.to(dev), (torch.randn(o, generator=g) * 0.1).to(dev))
 
 
-def _close(out, ref, dtype):
-    out, ref = out.float(), ref.float()
-    err = (out - ref).abs()
-    scale = ref.abs().mean()
+def _beyond_tight(out, ref, dtype):
+    """Share of the elements of out beyond the W8A8 band's tight bound."""
+    err = (out.float() - ref.float()).abs()
     tight = 1e-4 if dtype == torch.float32 else 8e-3
-    assert (err > tight * scale).float().mean().item() <= 0.02
-    assert err.max().item() <= 0.05 * ref.abs().max().item()
+    return (err > tight * ref.float().abs().mean()).float().mean().item()
+
+
+def _close(out, ref, dtype, share=0.02):
+    assert _beyond_tight(out, ref, dtype) <= share
+    assert (out.float() - ref.float()).abs().max().item() <= 0.05 * ref.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -374,6 +379,112 @@ def test_time_attention_long(dev, dtype, T):
     torch.cuda.synchronize()
     assert attention_cuda.fused_time_attention.launches == n + 1
     _core_close(out, attention_cuda.time_attention_plain(q, kv, H, D), dtype)
+
+
+# K5 at the edges of its routes (k5_plan): several whole tracks a block up
+# to 64 frames, 2-4 key chunks in registers up to 256, two passes up to 512,
+# the long route past it; small and odd track counts
+K5_FRAMES = [1, 15, 16, 17, 60, 64, 65, 250, 512, 513, 640]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4, 37])
+@pytest.mark.parametrize("T", K5_FRAMES)
+def test_time_attention_frames(dev, dtype, M, T):
+    g = torch.Generator().manual_seed(1000 * M + T)
+    q = torch.randn(M, T, C, generator=g).to(dev, dtype)
+    kv = torch.randn(M, T, 2 * C, generator=g).to(dev, dtype)
+    n = attention_cuda.fused_time_attention.launches
+    out = attention_cuda.fused_time_attention(q, kv, H, D)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_time_attention.launches == n + 1
+    _core_close(out, attention_cuda.time_attention_plain(q, kv, H, D), dtype)
+
+
+def _k1_close(out, ref):
+    """K1's band (chip_smoke): median |err| within 1% of mean |ref|, max
+    within 5% of max |ref| (W8A8 code ties spread along a row)."""
+    err = (out.float() - ref.float()).abs()
+    assert err.median().item() <= 0.01 * ref.float().abs().mean().item()
+    assert err.max().item() <= 0.05 * ref.float().abs().max().item()
+
+
+def _k1_bands(out, x, w, **kw):
+    """K1 in bf16 against time_block_plain: chip_smoke's band and the W8A8
+    band (_close). The latter's share of elements past its tight bound grows
+    with T for any order of the attention sums but the plain version's: the
+    launch chain K1 ran before (kept as the f32 route) reads 1.3-2.3% at
+    T >= 96 on these inputs, and the tensor cores' accumulation adds ~0.2
+    points. So the share may reach the chain's, on the same inputs, plus
+    0.5 points where that exceeds the band's 2%."""
+    ref = mlp_int8_cuda.time_block_plain(x, w, H, D, **kw)
+    chain = mlp_int8_cuda._time_block_chain(x, w, H, D, 1e-6, kw.get("bf16_ln", False),
+                                            kw.get("gelu_fold", False))
+    _k1_close(out, ref)
+    _close(out, ref, torch.bfloat16,
+           share=max(0.02, _beyond_tight(chain, ref, torch.bfloat16) + 0.005))
+
+
+@pytest.mark.parametrize("variants", [False, True])
+@pytest.mark.parametrize("M", [64, 37, 10240])
+@pytest.mark.parametrize("T", [8, 16, 24, 60, 96, 128, 192])
+def test_time_block_frames(dev, T, M, variants):
+    """K1 in bf16 (two launches of ct_k1_time_block) at every route of
+    k1_plan the frame gate reaches: several whole tracks a 64-row tile up to
+    64 frames, one track a block above (key chunks in registers up to 128,
+    in two passes to 192); 37 tracks fill no tile; bf16_ln and gelu_fold
+    both off or both on. The plan's shared-memory bytes are the kernel's."""
+    g = torch.Generator().manual_seed(T + M)
+    w = _time_pack(g, dev)
+    x = torch.randn(M, T, C, generator=g).to(dev, torch.bfloat16)
+    kw = dict(bf16_ln=variants, gelu_fold=variants)
+    plan = mlp_int8_cuda.k1_plan(M, T)
+    smem = mlp_int8_cuda._lib()["k1_smem"]
+    assert (plan.front_smem, plan.tail_smem) == (smem(plan.nc, plan.rows_pad, 0),
+                                                 smem(plan.nc, plan.rows_pad, 1))
+    n = mlp_int8_cuda.fused_time_block_int8.launches
+    out = mlp_int8_cuda.fused_time_block_int8(x, w, H, D, **kw)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_time_block_int8.launches == n + 1
+    _k1_bands(out, x, w, **kw)
+
+
+def test_time_block_raises_past_its_frames(dev):
+    """K1 in bf16 holds a track's rows on chip up to K1_MAX_T frames (the
+    frame gate sends at most 192): one frame more raises, and launches
+    nothing."""
+    g = torch.Generator().manual_seed(0)
+    w = _time_pack(g, dev)
+    x = torch.randn(2, mlp_int8_cuda.K1_MAX_T + 1, C, generator=g).to(dev, torch.bfloat16)
+    n = mlp_int8_cuda.fused_time_block_int8.launches
+    with pytest.raises(ValueError, match="frames"):
+        mlp_int8_cuda.fused_time_block_int8(x, w, H, D)
+    assert mlp_int8_cuda.fused_time_block_int8.launches == n
+
+
+def test_gelu_scale_shortcut_holds(dev):
+    """K1's tail takes a row's GELU-code scale from gelu(max pre-GELU value)
+    where that exceeds GELU_NEG_BOUND: exact only while gelu_tanh, as the
+    kernels evaluate it, never falls on x >= 0 and stays under the bound in
+    magnitude on x < 0. Checked over every f32 on the card."""
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    negmax = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert mlp_int8_cuda._lib()["k1_gelu_check"](
+        bad.data_ptr(), negmax.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert bad.item() == 0
+    assert 0.17 < negmax.view(torch.float32).item() < mlp_int8_cuda.GELU_NEG_BOUND
+
+
+@pytest.mark.parametrize("T", [16, 60, 128])
+def test_time_block_negative_gelu(dev, T):
+    """K1 with every pre-GELU value negative and the fold off: the tail's
+    one-GELU-a-row scale does not hold there, so every row takes the full
+    max of |gelu| (pass 1b)."""
+    g = torch.Generator().manual_seed(5)
+    w = _fold_pack(g, dev)
+    x = torch.randn(40, T, C, generator=g).to(dev, torch.bfloat16)
+    _k1_bands(mlp_int8_cuda.fused_time_block_int8(x, w, H, D), x, w)
 
 
 def test_chain_cores_at_width(dev):
