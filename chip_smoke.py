@@ -10,7 +10,10 @@ Phases, each raising on failure:
   3. each kernel K1-K9 against its plain PyTorch version on the same inputs
      on the card, in bf16 at the shapes of both main paths (10,240 tracks,
      384 channels, 60 frames offline and 16 frames streaming; K4 at level 0,
-     96x128, a 2,048-point chunk; K7 with the padded tracks' keys masked and
+     96x128, a 2,048-point chunk, then at levels 1-3 of the offline window
+     and at level 0 of 250 frames (the long forward's chunk: two passes),
+     its codes and scales bit-identical to its plain version at every
+     shape; K7 with the padded tracks' keys masked and
      once with every key masked), with errors against stated bounds,
      CUDA-event times, the bytes/operations bound and, for K5-K7, the time
      of the one PyTorch call that computes the same function
@@ -30,7 +33,8 @@ Phases, each raising on failure:
      passes over the staged keys); then K8 (LN + W8A8
      q|kv) and K9 (W8A8 out + MLP), the two halves of the
      time block's split, in bf16 at the long path's point tokens (2,048
-     tracks x 250 frames) and virtual tokens (64 x 250);
+     and 2,560 tracks x 250 frames) and virtual tokens (64 x 250); K9 in
+     bf16 is K1's streamed tail with K9's prologue;
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
      (384x512, 4 levels, 3+3 blocks, iters=6) on a synthetic
      (1, 60, 3, 384, 512) video with a 100x100 grid of queries (10,000
@@ -225,6 +229,58 @@ def hm(t):
     return t.unflatten(-1, (HEADS, DH)).transpose(-2, -3)
 
 
+# K4's shapes beyond level 0 of the offline and streaming windows: (key
+# suffix, level size, frames): the 384x512 input's levels 1-3 (stride 4, then
+# 2x pooling) at the offline window, level 0 at the long forward's 250 frames
+K4_MORE = (("_l1", (48, 64), 60), ("_l2", (24, 32), 60), ("_l3", (12, 16), 60),
+           ("_t250", LVL0, 250))
+K4_PLAIN_POINTS = 256  # points a plain K4 call takes (its f32 window gather grows with T)
+
+
+def k4_operands(g, dev, hw, T):
+    """K4's operands at one pyramid level for a CHUNK-point chunk: unit
+    features and support in bf16, coordinates uniform over the level."""
+    bf = torch.bfloat16
+    Hh, W = hw
+    fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
+    fmq = corr_cuda.build_int8_level(fm.to(bf), 3)
+    del fm
+    sup = torch.nn.functional.normalize(
+        torch.randn(1, 49, CHUNK, 128, generator=g).to(dev), dim=-1).to(bf)
+    supq, _ = corr_cuda.quantize_support(sup, bf)
+    coords = (torch.rand(1, T, CHUNK, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+    starts, wxy = corr_cuda.level_operands(coords.to(bf), 1, T, Hh, W, 3)
+    return fmq, supq.reshape(CHUNK, 49, 128), starts, wxy
+
+
+def k4_plain(fmq, supq, starts, wxy):
+    """corr_volume_plain, K4_PLAIN_POINTS points at a time (per point
+    independent: the same function)."""
+    parts = [corr_cuda.corr_volume_plain(fmq, supq[i:i + K4_PLAIN_POINTS],
+                                         starts[i:i + K4_PLAIN_POINTS], wxy[i:i + K4_PLAIN_POINTS])
+             for i in range(0, supq.shape[0], K4_PLAIN_POINTS)]
+    return torch.cat([v for v, _ in parts]), torch.cat([s for _, s in parts])
+
+
+def k4_exact(what, ops):
+    """K4 against its plain version: codes and scales bit-identical (the two
+    share every rounding); returns the kernel's output."""
+    vol, scale = corr_cuda.corr_volume_int8(*ops)
+    rvol, rscale = k4_plain(*ops)
+    codes, scales = int((vol != rvol).sum().item()), int((scale != rscale).sum().item())
+    log(f"  K4 corr volume {what}: {codes} codes and {scales} scales differ (bound 0)")
+    if codes or scales:
+        raise AssertionError("K4: kernel disagrees with its plain version")
+    return vol, scale
+
+
+def k4_bound(ops, vol, scale):
+    fmq, supq, starts, wxy = ops
+    n = CHUNK * starts.shape[1] * 64 * 49
+    return bound(nbytes(fmq, supq, starts, wxy, vol, scale),
+                 [(n * 128 * 2, INT8_OPS), (n * 10, F32_OPS)])
+
+
 def kernel_phase(dev):
     """Every kernel against its plain version at the offline (T=60) and the
     streaming (T=16) shape. One entry per kernel: K1-K4 carry the offline
@@ -370,35 +426,28 @@ def kernel_phase(dev):
         del x, kv, kv7, out, ref, dead, lib
 
         # K4: correlation volume, level 0, one chunk
-        Hh, W = LVL0
-        fm = torch.nn.functional.normalize(
-            torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1).to(bf)
-        fmq = corr_cuda.build_int8_level(fm, 3)
-        sup = torch.nn.functional.normalize(
-            torch.randn(1, 49, CHUNK, 128, generator=g).to(dev), dim=-1).to(bf)
-        supq, _ = corr_cuda.quantize_support(sup, bf)
-        coords = (torch.rand(1, T, CHUNK, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
-        starts, wxy = corr_cuda.level_operands(coords.to(bf), 1, T, Hh, W, 3)
-        supq = supq.reshape(CHUNK, 49, 128)
-        vol, scale = corr_cuda.corr_volume_int8(fmq, supq, starts, wxy)
-        rvol, rscale = corr_cuda.corr_volume_plain(fmq, supq, starts, wxy)
-        diff = (vol.int() - rvol.int()).abs()
-        mism = (diff > 0).float().mean().item()
-        serr = ((scale - rscale).abs() / rscale).max().item()
-        log(f"  K4 corr volume T={T}: code mismatches {mism:.2e} (bound 1e-4), max code diff "
-            f"{diff.max().item()} (bound 1), scale rel err {serr:.2e} (bound 1e-6)")
-        if mism > 1e-4 or diff.max().item() > 1 or serr > 1e-6:
-            raise AssertionError("K4: kernel disagrees with its plain version")
-        Tp = starts.shape[1]
+        ops = k4_operands(g, dev, LVL0, T)
+        vol, scale = k4_exact(f"level 0, T={T}", ops)
         entry("K4_corr_volume", SRC_CORR, "cotracker_tpu/ops/kernels/corr_pallas.py:105",
-              T, T_FRAMES, float(diff.max().item()),
-              time_ms(lambda: corr_cuda.corr_volume_int8(fmq, supq, starts, wxy)),
-              time_ms(lambda: corr_cuda.corr_volume_plain(fmq, supq, starts, wxy), reps=2),
-              bound(nbytes(fmq, supq, starts, wxy, vol, scale),
-                    [(CHUNK * Tp * 64 * 49 * 128 * 2, INT8_OPS),
-                     (CHUNK * Tp * 64 * 49 * 10, F32_OPS)]))
-        del fm, fmq, sup, supq, vol, rvol, diff
-    results["K4_corr_volume"]["shape"] = f"level 0 (96x128), {CHUNK} points x {T_FRAMES} frames"
+              T, T_FRAMES, 0.0, time_ms(lambda: corr_cuda.corr_volume_int8(*ops)),
+              time_ms(lambda: k4_plain(*ops), reps=2), k4_bound(ops, vol, scale))
+        del ops, vol, scale
+    e = results["K4_corr_volume"]
+    e["shape"] = f"level 0 (96x128), {CHUNK} points x {T_FRAMES} frames"
+    # K4 at the forwards' other shapes: levels 1-3 of the offline window and
+    # level 0 of the long forward's 250 frames (k4_plan's two-pass route)
+    for sfx, hw, T in K4_MORE:
+        ops = k4_operands(g, dev, hw, T)
+        vol, scale = k4_exact(f"{hw[0]}x{hw[1]}, T={T}", ops)
+        bnd = k4_bound(ops, vol, scale)
+        e.update({"ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_int8(*ops)),
+                  "plain_ms" + sfx: time_ms(lambda: k4_plain(*ops), reps=1),
+                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1],
+                  "plan" + sfx: corr_cuda.k4_plan(CHUNK, ops[2].shape[1])._asdict(),
+                  "shape" + sfx: f"{hw[0]}x{hw[1]}, {CHUNK} points x {T} frames"})
+        log(f"  K4_corr_volume {e['shape' + sfx]}: {e['ms' + sfx]:.3f} ms (plain "
+            f"{e['plain_ms' + sfx]:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]})")
+        del ops, vol, scale
 
     # K7 at the quasi-dense key count (K3's chain in a quasi-dense window):
     # several blocks share each (frame, head)'s keys, then the merge
@@ -522,6 +571,7 @@ def train_kernel_phase(dev):
 
 
 LONG_T, LONG_TRACKS = 250, 2048  # the long path's point tokens (2,048 tracks x 250 frames)
+LONG_FORWARD_TRACKS = 2560  # the long forward's own point-token count (2,500 points, padded)
 
 
 def bf16_ulp_frac(out, ref):
@@ -548,7 +598,7 @@ def split_kernel_phase(dev):
                                        lin(g, HID, C, dev), lin(g, C, HID, dev))
     wbytes = nbytes(*[t for q in w for t in q])
     out = {}
-    for M, sfx in ((LONG_TRACKS, ""), (V, "_virtual")):
+    for M, sfx in ((LONG_TRACKS, ""), (LONG_FORWARD_TRACKS, "_m2560"), (V, "_virtual")):
         rows = M * LONG_T
         x = torch.randn(M, LONG_T, C, generator=g).to(dev, bf)
         a = (0.5 * torch.randn(M, LONG_T, C, generator=g)).to(dev, bf)
@@ -577,7 +627,7 @@ def split_kernel_phase(dev):
         err = check_close(f"K9 out + MLP {M}x{LONG_T}", y, ry, 0.01, 0.05)
         del y, ry
         e = out.setdefault("K9_attnout_mlp", dict(
-            name="K9_attnout_mlp", route="cuda", source=SRC_BLOCKS,
+            name="K9_attnout_mlp", route="cuda", source=SRC_K1,
             replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:335", launches=0,
             max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
         e["max_abs_err"] = max(e["max_abs_err"], err)

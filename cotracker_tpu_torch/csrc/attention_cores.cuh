@@ -329,24 +329,10 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
                : "r"(a));
 }
 
-// 16 bytes (or zeros when !ok; src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -520,14 +506,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[6][4], OutT* ra, O
 // layout: 8 keys x 6 chunks x 8 elements per key group.
 __device__ __forceinline__ int ilv(int key, int c) {
   return ((key >> 3) * 6 + c) * 64 + (key & 7) * 8;
-}
-
-// ldmatrix (non-transposed) of four 8x8 bf16 matrices.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
 }
 
 // S (16 x 64) = q . K^T over one chunk of 64 keys in the interleaved layout.

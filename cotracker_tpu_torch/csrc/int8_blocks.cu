@@ -24,9 +24,13 @@
 // track tile), are one launch each:
 //   ct_k8_ln_qkv      one read of x -> LN + row quant into shared memory ->
 //                     the q and kv products -> q, kv in the token dtype
-//   ct_k9_attnout_mlp one read of a and x -> r = x + to_out(a) kept in shared
-//                     memory (f32) -> LN + quant -> fc1 + GELU -> quant (the
-//                     1,536-wide codes stay in shared memory) -> fc2 + r
+//   ct_k9_attnout_mlp float32 tokens only: one read of a and x -> r = x +
+//                     to_out(a) kept in shared memory (f32) -> LN + quant ->
+//                     fc1 + GELU -> quant (the 1,536-wide codes stay in
+//                     shared memory) -> fc2 + r. K9 in bfloat16 runs K1's
+//                     streamed tail with K9's prologue (ct_k9_tail,
+//                     int8_time_block.cu): 19.56 -> 6.96 ms at 2,048 tracks
+//                     x 250 frames on an H100.
 //
 // What bounds them: at the bench shape (10,240 tracks x 60 frames, C=384)
 // a points time block is ~2.2 s8 TOP, near 1.1 ms at the card's 1,979 TOP/s
@@ -44,10 +48,10 @@
 // bytes a bf16 row for 0.88 M int8 operations (~290 a byte, under the
 // card's int8 balance of ~590: bytes-bound), K9 2,304 bytes for 2.65 M
 // (compute-bound); both re-read the weights from L2 for every row tile (128
-// rows for K8, 64 for K9, whose tile is bounded by the 227 KB of shared
-// memory a block may hold), and K9 computes fc1 twice (the GELU codes' row
-// scale needs the row's absmax before the first code is written): 1.45x
-// its operations.
+// rows for K8, 64 for K9's f32 body, whose tile is bounded by the 227 KB of
+// shared memory a block may hold), and K9 computes fc1 twice (the GELU
+// codes' row scale needs the row's absmax before the first code is
+// written): 1.45x its operations.
 //
 // The shared device routines (LN + row quant, GELU, the tile GEMM and the
 // MLP-tail stages) live in int8_tile.cuh, with the two variant flags of the
@@ -419,17 +423,14 @@ int ct_k8_ln_qkv(const void* x, int bf16, int rows, int C, const int8_t* w, cons
               : launch_ln_qkv<float, false>(x, rows, w, sw, bias, eps, q, kv, s);
 }
 
-int ct_k9_attnout_mlp(const void* a, const void* x, int bf16, int rows, int C, int H,
-                      const int8_t* wo, const float* so, const float* bo, const int8_t* w1,
-                      const float* s1, const float* b1, const int8_t* w2, const float* s2,
-                      const float* b2, float eps, int bf16_ln, int gelu_fold, void* out,
-                      void* stream) {
+// K9 in float32 (bf16 takes ct_k9_tail in int8_time_block.cu).
+int ct_k9_attnout_mlp(const float* a, const float* x, int rows, int C, int H, const int8_t* wo,
+                      const float* so, const float* bo, const int8_t* w1, const float* s1,
+                      const float* b1, const int8_t* w2, const float* s2, const float* b2,
+                      float eps, int bf16_ln, int gelu_fold, float* out, void* stream) {
   if (rows < 1 || C != KC || H != KH) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_attnout_mlp_mode<__nv_bfloat16>(bf16_ln, gelu_fold, a, x, rows, wo, so, bo,
-                                                       w1, s1, b1, w2, s2, b2, eps, out, s)
-              : launch_attnout_mlp_mode<float>(bf16_ln, gelu_fold, a, x, rows, wo, so, bo, w1, s1,
-                                               b1, w2, s2, b2, eps, out, s);
+  return launch_attnout_mlp_mode<float>(bf16_ln, gelu_fold, a, x, rows, wo, so, bo, w1, s1, b1,
+                                        w2, s2, b2, eps, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,24 @@
-// K1 on Hopper: the whole W8A8 time block in two launches (sm_90a).
+// K1 on Hopper: the whole W8A8 time block in two launches, and K9 on K1's
+// tail (sm_90a).
 //
-// Replaces, on the H100, the Pallas body
-//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel
-// (wrapper fused_time_block_int8) for bfloat16 tokens, driven from
-// ops/kernels/mlp_int8_cuda.py (the plan: k1_plan). float32 tokens keep
-// the launch chain of int8_blocks.cu.
+// Replaces, on the H100, the Pallas bodies
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel  (K1)
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel     (K9)
+// (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8) for
+// bfloat16 tokens, driven from ops/kernels/mlp_int8_cuda.py (the plan:
+// k1_plan; K9's body: k9_route). float32 tokens keep the launch chain and
+// the 64-row K9 body of int8_blocks.cu.
+//
+// K9 (ct_k9_tail) is K1's tail with another front door: its prologue reads
+// the attention output a in bf16 and quantizes each row in the tile (K1's
+// reads the front's codes), and its last residual is r + (y + b2) (K1's
+// (r + y) + b2), the order of each JAX body; one template flag (kK9) on one
+// body (tail_body), two kernel names (k1_tail_kernel, k9_tail_kernel). So
+// K9 streams its weights as K1's tail does, one GELU a row, fc2 per fc1
+// tile in registers: 6.96 ms at 2,048 tracks x 250 frames (19.56 for the
+// first body, whose products waited on every K step's plain weight loads
+// and whose 1,536-wide GELU codes were staged in full; bound 0.69 ms by
+// int8 operations), 13.6 ns a row as K1's tail.
 //
 //   ct_k1_time_block  (a) k1_front_kernel, per block whole tracks: LN + row
 //                     quant of x into shared memory; per head (pair) the
@@ -75,13 +89,6 @@
 #include "int8_tile.cuh"
 
 namespace ct {
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
 
 // One warp's products over BK bytes of K: acc[MI][NI] += the warp's A rows
 // (a: this K slice of its first row's ldmatrix address, row stride lda) x
@@ -479,23 +486,28 @@ struct StreamTile {
   }
 };
 
-// Block: 64 rows of the (M * T) rows. a's codes arrive by cp.async; then
+// Block: 64 rows of the (M * T) rows. The prologue fills A with a's codes
+// and sa with their row scales: K1 (kK9 false) reads the front's codes and
+// scales by cp.async; K9 (kK9 true) reads a in bf16 and quantizes each row
+// in the tile (rint(v * (1/scale)), scale = max(absmax, 1e-20) / 127, as
+// _quant_rows). Then
 //   r = (x + a . wo^T * (sa * so)) + bo           (f32, shared memory)
 //   h = codes of LN(r)                             (shared memory)
 //   pass 1: the rows' max of fc1(h) (one GELU a row; pass 1b: |gelu| max)
 //   pass 2: per 128-wide fc1 tile, its GELU codes -> fc2 accumulated in s32
-//   out = (r + fc2 * (su * s2)) + b2
+//   out = (r + fc2 * (su * s2)) + b2              (K1's _time_block_kernel)
+//   out = r + (fc2 * (su * s2) + b2)              (K9's _out_mlp_kernel)
 // Warps 0-15 consume (warp tiles 32 x 48 of the 384-wide products, 32 x 16
 // of an fc1 tile); warp 16 produces the weight stream.
-template <bool kBf16Ln, bool kGeluFold>
-__global__ void __launch_bounds__(K1T_THREADS, 1)
-k1_tail_kernel(const int8_t* __restrict__ acode, const float* __restrict__ ascale,
-               const bf16* __restrict__ x, int nrows, const int8_t* __restrict__ wo,
-               const float* __restrict__ so, const float* __restrict__ bo,
-               const int8_t* __restrict__ w1, const float* __restrict__ s1,
-               const float* __restrict__ b1, const int8_t* __restrict__ w2,
-               const float* __restrict__ s2, const float* __restrict__ b2, float eps,
-               bf16* __restrict__ out) {
+template <bool kBf16Ln, bool kGeluFold, bool kK9>
+__device__ __forceinline__ void
+tail_body(const int8_t* __restrict__ acode, const float* __restrict__ ascale,
+          const bf16* __restrict__ a, const bf16* __restrict__ x, int nrows,
+          const int8_t* __restrict__ wo, const float* __restrict__ so,
+          const float* __restrict__ bo, const int8_t* __restrict__ w1,
+          const float* __restrict__ s1, const float* __restrict__ b1,
+          const int8_t* __restrict__ w2, const float* __restrict__ s2,
+          const float* __restrict__ b2, float eps, bf16* __restrict__ out) {
   using WT = StreamTile<2, 6>;  // 64 x 384: to_out, fc2
   using FTl = StreamTile<2, 2>;  // 64 x 128: an fc1 tile
   constexpr int BM = 64, FT = KH / 128, NT = K1T_CONSUMERS, NWARP = NT / 32;  // FT fc1 tiles
@@ -540,18 +552,31 @@ k1_tail_kernel(const int8_t* __restrict__ acode, const float* __restrict__ ascal
     return;
   }
 
-  for (int i = tid; i < BM * (KC / 16); i += NT) {
-    const int r = i / (KC / 16), c = i - r * (KC / 16);
-    const bool ok = r < n;
-    cp_async16(A + r * LDA_C + 16 * c, acode + static_cast<size_t>(m0 + (ok ? r : 0)) * KC + 16 * c,
-               ok);
+  if constexpr (kK9) {
+    for (int r = warp; r < BM; r += NWARP) {
+      float sc = 0.f;
+      if (r < n)
+        sc = ln_quant_row<bf16, KC / 32>(a + static_cast<size_t>(m0 + r) * KC, lane, nullptr,
+                                         nullptr, 0.f, 0, A + r * LDA_C);
+      else
+        for (int i = lane; i < KC; i += 32) A[r * LDA_C + i] = 0;
+      if (lane == 0) sa[r] = sc;
+    }
+    if (tid < BM) amax[tid] = 0u;
+  } else {
+    for (int i = tid; i < BM * (KC / 16); i += NT) {
+      const int r = i / (KC / 16), c = i - r * (KC / 16);
+      const bool ok = r < n;
+      cp_async16(A + r * LDA_C + 16 * c,
+                 acode + static_cast<size_t>(m0 + (ok ? r : 0)) * KC + 16 * c, ok);
+    }
+    cp_async_commit();
+    if (tid < BM) {
+      sa[tid] = tid < n ? ascale[m0 + tid] : 0.f;
+      amax[tid] = 0u;
+    }
+    cp_async_wait<0>();
   }
-  cp_async_commit();
-  if (tid < BM) {
-    sa[tid] = tid < n ? ascale[m0 + tid] : 0.f;
-    amax[tid] = 0u;
-  }
-  cp_async_wait<0>();
   consumer_sync();
 
   // to_out + residual
@@ -705,11 +730,33 @@ k1_tail_kernel(const int8_t* __restrict__ acode, const float* __restrict__ ascal
         const float2 rr = *reinterpret_cast<const float2*>(R + r * K1_RST + c);
         const float y0 = dequant(acc2[mi][ni][2 * h], sr, s2[c]);
         const float y1 = dequant(acc2[mi][ni][2 * h + 1], sr, s2[c + 1]);
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(m0 + r) * KC + c) =
-            pack_bf16(__fadd_rn(__fadd_rn(rr.x, y0), b2[c]), __fadd_rn(__fadd_rn(rr.y, y1), b2[c + 1]));
+        const float o0 = kK9 ? __fadd_rn(rr.x, __fadd_rn(y0, b2[c]))
+                             : __fadd_rn(__fadd_rn(rr.x, y0), b2[c]);
+        const float o1 = kK9 ? __fadd_rn(rr.y, __fadd_rn(y1, b2[c + 1]))
+                             : __fadd_rn(__fadd_rn(rr.y, y1), b2[c + 1]);
+        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(m0 + r) * KC + c) = pack_bf16(o0, o1);
       }
     }
 }
+
+#define CT_TAIL_PARAMS                                                                         \
+  const int8_t *__restrict__ acode, const float *__restrict__ ascale, const bf16 *__restrict__ a, \
+      const bf16 *__restrict__ x, int nrows, const int8_t *__restrict__ wo,                      \
+      const float *__restrict__ so, const float *__restrict__ bo, const int8_t *__restrict__ w1,  \
+      const float *__restrict__ s1, const float *__restrict__ b1, const int8_t *__restrict__ w2, \
+      const float *__restrict__ s2, const float *__restrict__ b2, float eps, bf16 *__restrict__ out
+// K1's tail and K9: the same body, two names for the profiler's records.
+template <bool kBf16Ln, bool kGeluFold>
+__global__ void __launch_bounds__(K1T_THREADS, 1) k1_tail_kernel(CT_TAIL_PARAMS) {
+  tail_body<kBf16Ln, kGeluFold, false>(acode, ascale, a, x, nrows, wo, so, bo, w1, s1, b1, w2, s2,
+                                       b2, eps, out);
+}
+template <bool kBf16Ln, bool kGeluFold>
+__global__ void __launch_bounds__(K1T_THREADS, 1) k9_tail_kernel(CT_TAIL_PARAMS) {
+  tail_body<kBf16Ln, kGeluFold, true>(acode, ascale, a, x, nrows, wo, so, bo, w1, s1, b1, w2, s2,
+                                      b2, eps, out);
+}
+#undef CT_TAIL_PARAMS
 
 // The two properties the tail's one-GELU-a-row scale rests on, over every
 // f32: gelu_tanh non-decreasing on x >= 0 (`bad` counts the steps where it
@@ -727,6 +774,19 @@ __global__ void gelu_scale_check_kernel(unsigned long long* bad, unsigned* negma
   }
   atomicAdd(bad, nb);
   atomicMax(negmax, __float_as_uint(nm));
+}
+
+template <bool kBf16Ln, bool kGeluFold, bool kK9>
+cudaError_t launch_tail(const int8_t* acode, const float* ascale, const bf16* a, const bf16* x,
+                        int nrows, const int8_t* wo, const float* so, const float* bo,
+                        const int8_t* w1, const float* s1, const float* b1, const int8_t* w2,
+                        const float* s2, const float* b2, float eps, bf16* out, cudaStream_t s) {
+  auto tail = kK9 ? k9_tail_kernel<kBf16Ln, kGeluFold> : k1_tail_kernel<kBf16Ln, kGeluFold>;
+  const cudaError_t e = set_smem(tail, K1_TAIL_SMEM);
+  if (e != cudaSuccess) return e;
+  tail<<<(nrows + 63) / 64, K1T_THREADS, K1_TAIL_SMEM, s>>>(acode, ascale, a, x, nrows, wo, so, bo,
+                                                           w1, s1, b1, w2, s2, b2, eps, out);
+  return cudaGetLastError();
 }
 
 template <bool kBf16Ln, bool kGeluFold>
@@ -747,13 +807,8 @@ cudaError_t launch_k1(const bf16* x, int M, int Tn, int nc, int tracks, int rows
                                                       bqkv, eps, scale, acode, ascale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto tail = k1_tail_kernel<kBf16Ln, kGeluFold>;
-  e = set_smem(tail, K1_TAIL_SMEM);
-  if (e != cudaSuccess) return e;
-  const int nrows = M * Tn;
-  tail<<<(nrows + 63) / 64, K1T_THREADS, K1_TAIL_SMEM, s>>>(acode, ascale, x, nrows, wo, so, bo, w1, s1,
-                                                     b1, w2, s2, b2, eps, out);
-  return cudaGetLastError();
+  return launch_tail<kBf16Ln, kGeluFold, false>(acode, ascale, nullptr, x, M * Tn, wo, so, bo, w1,
+                                                s1, b1, w2, s2, b2, eps, out, s);
 }
 
 }  // namespace ct
@@ -793,6 +848,28 @@ int ct_k1_time_block(const void* x, int M, int T, int C, int H, int D, int nc, i
     return launch_k1<decltype(ln)::value, decltype(fold)::value>(
         xp, M, T, nc, tracks, rows_pad, wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2,
         eps, scale, acode, ascale, op, s);
+  };
+  using T_ = std::true_type;
+  using F_ = std::false_type;
+  if (bf16_ln) return gelu_fold ? go(T_{}, T_{}) : go(T_{}, F_{});
+  return gelu_fold ? go(F_{}, T_{}) : go(F_{}, F_{});
+}
+
+// K9 in bfloat16 (mlp_int8_pallas.py::_out_mlp_kernel): a, x (rows, 384)
+// bf16 -> out (rows, 384) bf16 through the tail with K9's prologue and last
+// residual; one launch.
+int ct_k9_tail(const void* a, const void* x, int rows, int C, int H, const int8_t* wo,
+               const float* so, const float* bo, const int8_t* w1, const float* s1,
+               const float* b1, const int8_t* w2, const float* s2, const float* b2, float eps,
+               int bf16_ln, int gelu_fold, void* out, void* stream) {
+  if (rows < 1 || C != KC || H != KH) return cudaErrorInvalidValue;
+  const bf16* ap = static_cast<const bf16*>(a);
+  const bf16* xp = static_cast<const bf16*>(x);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto ln, auto fold) {
+    return launch_tail<decltype(ln)::value, decltype(fold)::value, true>(
+        nullptr, nullptr, ap, xp, rows, wo, so, bo, w1, s1, b1, w2, s2, b2, eps, op, s);
   };
   using T_ = std::true_type;
   using F_ = std::false_type;

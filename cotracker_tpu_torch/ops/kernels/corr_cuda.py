@@ -5,8 +5,9 @@ K4 is the inference fast path (quant_int8 + fuse_combine:
 `_corr_level_plan.hidden` and `fused_corr_tokens_pallas`):
 
 Per pyramid level and chunk of points, `corr_volume_int8` (the kernel,
-csrc/corr_window.cu) emits each point's bilinearly combined correlation
-volume as int8 codes with one f32 scale per point; the epilogue here applies
+csrc/corr_window.cu, on `k4_plan`'s tiling: a thread-block cluster a point)
+emits each point's bilinearly combined correlation volume as int8 codes
+with one f32 scale per point; the epilogue here applies
 the first correlation-MLP layer as an s8 x s8 -> s32 product with a
 zero-padded, per-output-channel int8 W1 (`torch._int_mm`: exact integer
 results, as XLA's s8 dot in the JAX package), dequantizes, adds the bias and
@@ -39,7 +40,7 @@ work: the port pads (and quantizes) each level once per forward.
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -214,35 +215,67 @@ def _check_operands(fm, sup, starts, dtypes, what):
         raise ValueError(f"{what}: support {tuple(sup.shape)}, starts {tuple(starts.shape)}")
 
 
-def _corr_volume_cuda(fmq, supq, starts, wxy, combine: bool):
-    _check_operands(fmq, supq, starts, (torch.int8,), "K4/K4r")
-    if combine and wxy.device.type != "cuda":
+class K4Plan(NamedTuple):
+    """K4's tiling (csrc/corr_window.cu) for NP points of Tp frames: each
+    point's frames split over a thread-block cluster of `cluster` blocks
+    (block k takes k4_frames(Tp, cluster, k), at most `frames`); `hold`
+    keeps the combined volume of every frame on chip (one pass over the
+    windows), else two passes (the absmax, then the codes); shared memory
+    of a block in bytes; blocks in the grid."""
+
+    hold: bool
+    cluster: int
+    frames: int
+    smem: int
+    blocks: int
+
+
+K4_REGIONS = 8  # a block's 12,800-byte frame regions: the frames it can hold
+K4_MAX_CLUSTER = 8  # the portable cluster size
+# support (56 x 128), the regions (64 rows x 50 f32), the maxima (8 f32)
+K4_SMEM = 56 * 128 + K4_REGIONS * 64 * 50 * 4 + 32
+
+
+def k4_frames(Tp: int, cluster: int, rank: int) -> range:
+    """The frames block `rank` of a point's cluster takes."""
+    return range(rank * Tp // cluster, (rank + 1) * Tp // cluster)
+
+
+def k4_plan(NP: int, Tp: int) -> K4Plan:
+    """K4's tiling (the arithmetic of corr_volume_kernel / ct_corr_volume):
+    clusters of ceil(Tp / 8) blocks hold every frame up to 64 frames; past
+    that 8 blocks take two passes."""
+    if NP < 1 or Tp < 1:
+        raise ValueError(f"K4 takes at least one point and one frame, got NP={NP}, Tp={Tp}")
+    cluster = min(K4_MAX_CLUSTER, -(-Tp // K4_REGIONS))
+    frames = -(-Tp // cluster)
+    return K4Plan(frames <= K4_REGIONS, cluster, frames, K4_SMEM, NP * cluster)
+
+
+def corr_volume_int8(fmq, supq, starts, wxy):
+    """K4: per point, the bilinearly combined int8 correlation volume over
+    all frames and its scale; see corr_volume_plain for the layouts. One
+    launch on k4_plan's tiling."""
+    if fmq.device.type == "cpu":
+        return corr_volume_plain(fmq, supq, starts, wxy)
+    _check_operands(fmq, supq, starts, (torch.int8,), "K4")
+    if wxy.device.type != "cuda":
         raise ValueError("kernel inputs must all be CUDA tensors")
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _bound("ct_corr_volume", P, P, P, P, P, P, I, I, I, I, I, P)
+    fn = _bound("ct_corr_volume", P, P, P, P, P, P, I, I, I, I, I, I, P)
     NP, Tp, _ = starts.shape
     _, Hp, Wp, _ = fmq.shape
-    starts = starts.to(torch.int32).contiguous()
-    if combine:
-        wxy = wxy.to(F32).contiguous()
+    plan = k4_plan(NP, Tp)
+    starts, wxy = starts.to(torch.int32).contiguous(), wxy.to(F32).contiguous()
     fmq, supq = fmq.contiguous(), supq.contiguous()
     vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
     scale = torch.empty((NP,), dtype=F32, device=fmq.device)
     _build.check(fn(
         _build.ptr(fmq), _build.ptr(supq), _build.ptr(starts), _build.ptr(wxy),
-        _build.ptr(vol), _build.ptr(scale), NP, Tp, Hp, Wp, int(combine),
+        _build.ptr(vol), _build.ptr(scale), NP, Tp, Hp, Wp, plan.cluster, int(plan.hold),
         _build.stream_ptr(fmq)), "ct_corr_volume")
-    return vol, scale
-
-
-def corr_volume_int8(fmq, supq, starts, wxy):
-    """K4: per point, the bilinearly combined int8 correlation volume over
-    all frames and its scale; see corr_volume_plain for the layouts."""
-    if fmq.device.type == "cpu":
-        return corr_volume_plain(fmq, supq, starts, wxy)
-    out = _corr_volume_cuda(fmq, supq, starts, wxy, combine=True)
     corr_volume_int8.launches += 1
-    return out
+    return vol, scale
 
 
 corr_volume_int8.launches = 0
@@ -285,9 +318,20 @@ def corr_volume_raw_int8(fmq, supq, starts):
     its scale; see corr_volume_raw_plain."""
     if fmq.device.type == "cpu":
         return corr_volume_raw_plain(fmq, supq, starts)
-    out = _corr_volume_cuda(fmq, supq, starts, None, combine=False)
+    _check_operands(fmq, supq, starts, (torch.int8,), "K4r")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bound("ct_corr_volume_raw", P, P, P, P, P, I, I, I, I, P)
+    NP, Tp, _ = starts.shape
+    _, Hp, Wp, _ = fmq.shape
+    starts = starts.to(torch.int32).contiguous()
+    fmq, supq = fmq.contiguous(), supq.contiguous()
+    vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
+    scale = torch.empty((NP,), dtype=F32, device=fmq.device)
+    _build.check(fn(_build.ptr(fmq), _build.ptr(supq), _build.ptr(starts), _build.ptr(vol),
+                    _build.ptr(scale), NP, Tp, Hp, Wp, _build.stream_ptr(fmq)),
+                 "ct_corr_volume_raw")
     corr_volume_raw_int8.launches += 1
-    return out
+    return vol, scale
 
 
 corr_volume_raw_int8.launches = 0

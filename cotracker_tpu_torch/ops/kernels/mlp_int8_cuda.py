@@ -15,7 +15,8 @@ launches of csrc/int8_blocks.cu (LN + row quant, tensor-core s8 GEMMs with
 fused dequant/bias/GELU/residual epilogues, the attention core). K8
 replaces ::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel
 (wrapper fused_attnout_res_mlp_int8), one launch each: a row tile's
-activations, its f32 residual and its GELU codes stay in shared memory. See
+activations, its f32 residual and its GELU codes stay in shared memory; K9
+in bfloat16 is K1's streamed tail with its own prologue (k9_route). See
 the sources for what bounds them and what the designs do about it. K10
 replaces ::_dense_kernel (fused_ln_dense_int8), K11
 ::_space_block_allt_kernel (the `space_allt` route of
@@ -276,13 +277,15 @@ def _lib():
                                         _I, _I, _I, _F, _P)
         _fns["k8"] = _build.bind(lib, "ct_k8_ln_qkv", _P, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P,
                                  _P)
-        _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+        _fns["k9"] = _build.bind(lib, "ct_k9_attnout_mlp", _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _F, _I, _I, _P, _P)
         k1 = _build.load("int8_time_block")
         _fns["k1"] = _build.bind(k1, "ct_k1_time_block", _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                  *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
         _fns["k1_smem"] = _build.bind(k1, "ct_k1_smem", _I, _I, _I)
         _fns["k1_gelu_check"] = _build.bind(k1, "ct_k1_gelu_check", _P, _P, _P)
+        _fns["k9_tail"] = _build.bind(k1, "ct_k9_tail", _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _F, _I, _I, _P, _P)
         fused = _build.load("int8_fused")
         _fns["k10"] = _build.bind(fused, "ct_k10_ln_dense", _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                   _P, _F, _I, _I, _I, _P, _P)
@@ -569,6 +572,18 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
 fused_ln_qkv_int8.launches = 0
 
 
+def k9_route(dtype) -> str:
+    """Which body K9 runs for tokens of `dtype` on the card: "tail" (bfloat16:
+    K1's streamed tail in csrc/int8_time_block.cu with K9's prologue, which
+    quantizes a in the tile, and K9's last residual r + (y + b2)) or "tile"
+    (float32: the 64-row tile body of csrc/int8_blocks.cu)."""
+    if dtype == torch.bfloat16:
+        return "tail"
+    if dtype == torch.float32:
+        return "tile"
+    raise TypeError(f"K9 takes float32 or bfloat16 tokens, got {dtype}")
+
+
 def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6, bf16_ln=False,
                                gelu_fold=False):
     """K9: the post-attention half of a pre-norm block:
@@ -577,7 +592,8 @@ def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6, bf16_ln=Fals
 
     a (..., C) the attention-core output and x (..., C) the residual stream,
     both in the token dtype (float32 or bfloat16); w the block's pack (its
-    out, fc1, fc2). Returns (..., C) in x.dtype."""
+    out, fc1, fc2). Returns (..., C) in x.dtype. One launch; the body is
+    k9_route(x.dtype)'s."""
     if x.device.type == "cpu":
         return attnout_mlp_plain(a, x, w, eps, bf16_ln, gelu_fold)
     C = x.shape[-1]
@@ -591,10 +607,11 @@ def fused_attnout_res_mlp_int8(a, x, w: TimeBlockWeights, eps=1e-6, bf16_ln=Fals
     a2d, x2d = a.contiguous().reshape(-1, C), x.contiguous().reshape(-1, C)
     out = torch.empty_like(x2d)
     ptrs = [_build.ptr(t) for lin in (w.out, w.fc1, w.fc2) for t in lin]
-    _build.check(_lib()["k9"](
-        _build.ptr(a2d), _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], C, SPLIT_H, *ptrs, eps,
-        int(bf16_ln), int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)),
-        "ct_k9_attnout_mlp")
+    key, name = {"tail": ("k9_tail", "ct_k9_tail"),
+                 "tile": ("k9", "ct_k9_attnout_mlp")}[k9_route(x.dtype)]
+    _build.check(_lib()[key](
+        _build.ptr(a2d), _build.ptr(x2d), x2d.shape[0], C, SPLIT_H, *ptrs, eps, int(bf16_ln),
+        int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)), name)
     fused_attnout_res_mlp_int8.launches += 1
     return out.reshape(x.shape)
 

@@ -72,7 +72,7 @@ GROUPS = (  # first match wins, on the device kernel's name
     ("K4m corr_mlp1_kernel", ("corr_mlp1_kernel",)),
     ("K11 space_block_allt_kernel", ("space_block_allt_kernel",)),
     ("K8 ln_qkv_kernel", ("ln_qkv_kernel",)),
-    ("K9 attnout_mlp_kernel", ("attnout_mlp_kernel",)),
+    ("K9 k9_tail_kernel (f32: attnout_mlp_kernel)", ("k9_tail_kernel", "attnout_mlp_kernel")),
     ("K1 front (bf16) k1_front_kernel", ("k1_front_kernel",)),
     ("K1 tail (bf16) k1_tail_kernel", ("k1_tail_kernel",)),
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
@@ -90,7 +90,7 @@ GROUPS = (  # first match wins, on the device kernel's name
 
 
 TRAIN_GROUPS = (
-    ("K4r corr_volume_kernel", ("corr_volume_kernel",)),
+    ("K4r corr_volume_raw_kernel", ("corr_volume_raw_kernel",)),
     ("K4f corr_volume_float_kernel", ("corr_volume_float_kernel",)),
     ("gathers and scatters (window gathers, their backward)", ("index", "gather", "scatter")),
     ("convolutions (fnet, forward and backward)",

@@ -15,10 +15,23 @@ captured from one call); then, from 8 to 256 frames, the share of K1's
 elements past the W8A8 band's tight bound, its two launches beside the
 launch chain.
 
+Then K4 (the int8 correlation volume with the bilinear combine) at the
+shapes the forwards launch it with (2,048-point chunks: level 0 of the
+offline window and of a streaming window, levels 1-3 of the offline window,
+level 0 of the long forward's 250 frames), its codes and scales against
+corr_volume_plain (bit for bit), and K9 (the split time block's out + MLP
+half) at the long forward's row counts (2,048, 2,560 and 64 tracks x 250
+frames) against attnout_mlp_plain, each with its bound.
+
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
                                                 # count, K5's register and
                                                 # two-pass routes side by side
+    python3 scripts/torch_cores.py --only k4 k9 # some sections
+    python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
+                                                # the same sections on
+                                                # another checkout's package
+                                                # (its kernels built there)
 
 One JSON line per measurement. Needs a CUDA card; bf16, random operands
 from seed 0.
@@ -34,13 +47,22 @@ import sys
 import torch
 from torch.nn.functional import scaled_dot_product_attention as sdpa  # yardstick only
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, mlp_int8_cuda  # noqa: E402
+def _root() -> str:
+    """The checkout whose package this run imports: --root, else this one."""
+    if "--root" in sys.argv:
+        return os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+sys.path.insert(0, _root())
+
+from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda  # noqa: E402
+from cotracker_tpu_torch.ops.kernels import mlp_int8_cuda  # noqa: E402
 from cotracker_tpu_torch.utils.profiling import device_launches, kernel_ms  # noqa: E402
 
 C, H, D, V, HID = 384, 8, 48, 64, 1536
-HBM_BPS, INT8_OPS, BF16_OPS = 3.35e12, 1979e12, 989e12  # H100 SXM, dense, 700 W
+HBM_BPS, INT8_OPS, BF16_OPS, F32_OPS = 3.35e12, 1979e12, 989e12, 67e12  # H100 SXM, dense, 700 W
 # K5 at the default paths' shapes: streaming (b) and evaluation (10,240 x 16),
 # the offline window (x 60), the long forward's point and virtual tokens
 # (2,560 / 64 x 250), the 600-frame video (512 x 600, the long route) and
@@ -137,20 +159,112 @@ def k1_bands(dev):
                         x, w, H, D, 1e-6, var, var), ref))
 
 
+# K4's shapes: (name, level size, points, frames); the level sizes are the
+# 384x512 input's pyramid (stride 4, then 2x pooling)
+K4_SHAPES = (("l0_t60", (96, 128), 2048, 60), ("l0_t16", (96, 128), 2048, 16),
+             ("l1_t60", (48, 64), 2048, 60), ("l2_t60", (24, 32), 2048, 60),
+             ("l3_t60", (12, 16), 2048, 60), ("l0_t250", (96, 128), 2048, 250))
+K9_SHAPES = ((2048, 250), (2560, 250), (64, 250))
+PLAIN_POINTS = 256  # points a plain K4 call takes at once (its f32 gather grows with T)
+
+
+def k4_operands(g, dev, hw, n, T):
+    """K4's operands at one pyramid level, as chip_smoke makes them: unit
+    features, a unit support, coordinates uniform over the level."""
+    bf = torch.bfloat16
+    Hh, W = hw
+    fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g), dim=-1)
+    fmq = corr_cuda.build_int8_level(fm.to(dev, bf), 3)
+    del fm
+    sup = torch.nn.functional.normalize(torch.randn(1, 49, n, 128, generator=g), dim=-1)
+    supq, _ = corr_cuda.quantize_support(sup.to(dev, bf), bf)
+    coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev, bf)
+    starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+    return fmq, supq.reshape(n, 49, 128), starts, wxy
+
+
+def k4_plain_chunked(fmq, supq, starts, wxy):
+    """corr_volume_plain over PLAIN_POINTS points at a time (per point
+    independent, so the same function)."""
+    parts = [corr_cuda.corr_volume_plain(fmq, supq[i:i + PLAIN_POINTS], starts[i:i + PLAIN_POINTS],
+                                         wxy[i:i + PLAIN_POINTS])
+             for i in range(0, supq.shape[0], PLAIN_POINTS)]
+    return torch.cat([v for v, _ in parts]), torch.cat([s for _, s in parts])
+
+
+def k4_section(dev, g):
+    for name, hw, n, T in K4_SHAPES:
+        fmq, supq, starts, wxy = k4_operands(g, dev, hw, n, T)
+        vol, scale = corr_cuda.corr_volume_int8(fmq, supq, starts, wxy)
+        rvol, rscale = k4_plain_chunked(fmq, supq, starts, wxy)
+        Tp = starts.shape[1]
+        plan = corr_cuda.k4_plan(n, Tp)._asdict() if hasattr(corr_cuda, "k4_plan") else None
+        emit(kernel="K4", shape=name, points=n, frames=T, level_hw=list(hw), plan=plan,
+             code_mismatches=int((vol != rvol).sum().item()),
+             scale_mismatches=int((scale != rscale).sum().item()),
+             ms=time_ms(lambda: corr_cuda.corr_volume_int8(fmq, supq, starts, wxy), reps=10),
+             bound_ms=bound_ms(nbytes(fmq, supq, starts, wxy, vol, scale),
+                               n * Tp * 64 * 49 * 128 * 2 / INT8_OPS
+                               + n * Tp * 64 * 49 * 10 / F32_OPS))
+        del fmq, supq, starts, wxy, vol, rvol
+
+
+def k9_section(dev, g):
+    M = mlp_int8_cuda
+    w = M.TimeBlockWeights(*(lin(g, dev, o, i) for o, i in ((3 * C, C), (C, C), (HID, C), (C, HID))))
+    wbytes = nbytes(*[t for q in w for t in q])
+    for N, T in K9_SHAPES:
+        rows = N * T
+        x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+        a = (0.5 * torch.randn(N, T, C, generator=g)).to(dev, torch.bfloat16)
+        out, ref = M.fused_attnout_res_mlp_int8(a, x, w), M.attnout_mlp_plain(a, x, w)
+        err = (out.float() - ref.float()).abs()
+        emit(kernel="K9", tracks=N, frames=T,
+             route=M.k9_route(x.dtype) if hasattr(M, "k9_route") else "tile",
+             max_abs_err=err.max().item(), median_abs_err=err.median().item(),
+             mean_abs_ref=ref.float().abs().mean().item(), max_abs_ref=ref.float().abs().max().item(),
+             ms=time_ms(lambda: M.fused_attnout_res_mlp_int8(a, x, w), reps=10),
+             device_launches=device_launches(lambda: M.fused_attnout_res_mlp_int8(a, x, w)),
+             bound_ms=bound_ms(3 * nbytes(x) + wbytes, rows * 2 * (C * C + 2 * C * HID) / INT8_OPS))
+        del x, a, out, ref
+
+
+SECTIONS = ("k4", "k9", "cores", "k1", "chains")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
                     help="K7 at 1-16 key ranges; K5's register routes against two passes")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS, default=SECTIONS,
+                    help="the sections to run (default all)")
+    ap.add_argument("--root", default=None,
+                    help="import the package (and build its kernels) from this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_cores: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    emit(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+    emit(device=torch.cuda.get_device_name(0), nvidia_smi=smi, root=_root(),
          build_s=round(_build.build_all()[0], 1))
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator().manual_seed(0)
-    A, M = attention_cuda, mlp_int8_cuda
+    dev = torch.device("cuda")
+    # each section draws its operands from its own seed, so --only repeats them
+    seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
+    run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
+               k1=k1_section, chains=chains_section)
+    for name in SECTIONS:
+        if name in args.only:
+            run[name](dev, torch.Generator().manual_seed(seeds[name]))
+
+
+def lin(g, dev, o, i):
+    w = torch.randn(o, i, generator=g) / math.sqrt(i)
+    return mlp_int8_cuda.quantize_linear(w.to(dev), (0.05 * torch.randn(o, generator=g)).to(dev))
+
+
+def cores_section(dev, g, sweep):
+    bf = torch.bfloat16
+    A = attention_cuda
 
     for N, T in ((10240, 16), (10240, 60)):
         x = torch.randn(N, T, C, generator=g).to(dev, bf)
@@ -172,7 +286,7 @@ def main():
              sdpa_ms=time_ms(lambda: sdpa(hm(q), hm(k7t[..., :C]), hm(k7t[..., C:]),
                                           attn_mask=mask)),
              bound_ms=1e3 * nbytes(kv7) / HBM_BPS)
-        if args.sweep:
+        if sweep:
             emit(core="K7", tracks=N, frames=T, ms_by_splits={
                 s: time_ms(lambda: k7_with_splits(q, kv7, bias, s)) for s in (1, 2, 3, 4, 6, 8,
                                                                               12, 16)})
@@ -190,11 +304,11 @@ def main():
                                    reps=10),
                    bound_ms=bound_ms(nbytes(x, kv5, x), M5 * T5 * H * 4 * T5 * D / BF16_OPS),
                    first_version_ms=first_version_ms(x, kv5))
-        if args.sweep and plan.route == "tc" and plan.nc > 1:  # registers against two passes
+        if sweep and plan.route == "tc" and plan.nc > 1:  # registers against two passes
             rec["ms_two_pass"] = time_ms(lambda: A._k5_launch(x, kv5, H, D, plan._replace(nc=0)))
         emit(**rec)
         del x, kv5
-    if args.sweep:
+    if sweep:
         x = torch.randn(2048, 128, C, generator=g).to(dev, bf)
         kv5 = torch.randn(2048, 128, 2 * C, generator=g).to(dev, bf)
         plan = A.k5_plan(128, H, True)
@@ -203,11 +317,11 @@ def main():
                                                                       plan._replace(nc=0))))
         del x, kv5
 
-    def lin(o, i):
-        w = torch.randn(o, i, generator=g) / math.sqrt(i)
-        return M.quantize_linear(w.to(dev), (0.05 * torch.randn(o, generator=g)).to(dev))
 
-    tw = M.TimeBlockWeights(lin(3 * C, C), lin(C, C), lin(HID, C), lin(C, HID))
+def k1_section(dev, g):
+    bf = torch.bfloat16
+    M = mlp_int8_cuda
+    tw = M.TimeBlockWeights(*(lin(g, dev, o, i) for o, i in ((3 * C, C), (C, C), (HID, C), (C, HID))))
     for N, T in K1_SHAPES:
         x = torch.randn(N, T, C, generator=g).to(dev, bf)
         rows = N * T
@@ -238,8 +352,12 @@ def main():
         del x, a8, u8, q, kv
     k1_bands(dev)
 
-    sw = M.SpaceBlockWeights(lin(C, C), lin(C, C), lin(4 * C, C), lin(C, 4 * C))
-    wkv = lin(2 * C, C)
+
+def chains_section(dev, g):
+    bf = torch.bfloat16
+    A, M = attention_cuda, mlp_int8_cuda
+    sw = M.SpaceBlockWeights(*(lin(g, dev, o, i) for o, i in ((C, C), (C, C), (4 * C, C), (C, 4 * C))))
+    wkv = lin(g, dev, 2 * C, C)
     gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
     beta = (0.05 * torch.randn(C, generator=g)).to(dev)
     for N, T in ((10240, 16), (10240, 60)):

@@ -18,7 +18,8 @@ arithmetic is identical on both sides, so its codes and scales must match
 exactly. The attention cores K5-K7 have no int8 step: float32 within 1e-5
 of the output scale (summation order, expf against torch.exp), bfloat16
 within the rounding of the output and of the probabilities (two bf16 ulps,
-2^-7 relative to the largest output). K4r's integer products are exact
+2^-7 relative to the largest output). K4 is held so on every route of its plan (one pass in a
+cluster, two passes past 64 frames). K4r's integer products are exact
 and its arithmetic the plain version's: codes and scales match exactly.
 K4f sums float32 products in another order: 1e-5 of the largest output in
 float32, one bf16 ulp (2^-8) of it in bfloat16. K4m's arithmetic is its
@@ -116,6 +117,35 @@ def test_attnout_mlp(dev, dtype, M, T):
     _close(out, mlp_int8_cuda.attnout_mlp_plain(a, x, w), dtype)
 
 
+@pytest.mark.parametrize("mode", ["off", "bf16_ln", "gelu_fold"])
+@pytest.mark.parametrize("M,T", [(37, 5), (3, 250), (64, 250)])
+def test_attnout_mlp_tail(dev, M, T, mode):
+    """K9 in bf16 is K1's tail with K9's prologue (a quantized in the tile)
+    and last residual r + (y + b2): one launch; rows not a multiple of the
+    64-row tile (185, 750), each variant mode; the band of test_attnout_mlp."""
+    assert mlp_int8_cuda.k9_route(torch.bfloat16) == "tail"
+    g = torch.Generator().manual_seed(M + T)
+    w = _fold_pack(g, dev) if mode == "gelu_fold" else _time_pack(g, dev)
+    a, x = (torch.randn(M, T, C, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    kw = {} if mode == "off" else {mode: True}
+    n = mlp_int8_cuda.fused_attnout_res_mlp_int8.launches
+    out = mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w, **kw)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_attnout_res_mlp_int8.launches == n + 1
+    _close(out, mlp_int8_cuda.attnout_mlp_plain(a, x, w, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,T", [(37, 5), (64, 250)])
+def test_attnout_mlp_negative_gelu(dev, M, T):
+    """K9 in bf16 with every pre-GELU value negative and the fold off: every
+    row takes the tail's full |gelu| max (pass 1b)."""
+    g = torch.Generator().manual_seed(7)
+    w = _fold_pack(g, dev)
+    a, x = (torch.randn(M, T, C, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    _close(mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w),
+           mlp_int8_cuda.attnout_mlp_plain(a, x, w), torch.bfloat16)
+
+
 def test_split_kernels_raise_instead_of_falling_back(dev):
     g = torch.Generator().manual_seed(0)
     w = _time_pack(g, dev)
@@ -170,6 +200,55 @@ def test_corr_volume(dev, T):
     rvol, rscale = corr_cuda.corr_volume_plain(fmq, supq.reshape(NP, 49, 128), starts, wxy)
     assert torch.equal(scale, rscale)
     assert torch.equal(vol, rvol)
+
+
+def _corr_operands(g, dev, B, T, Hh, W, NP, edge=3.0):
+    """K4's operands: unit features and support, coordinates uniform over the
+    level widened by `edge` pixels on each side (windows at the map's edge)."""
+    fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
+    fmq = corr_cuda.build_int8_level(fm.to(dev, torch.bfloat16), 3)
+    sup = torch.nn.functional.normalize(torch.randn(B, 49, NP // B, 128, generator=g), dim=-1)
+    supq, _ = corr_cuda.quantize_support(sup.to(dev, torch.bfloat16), torch.bfloat16)
+    coords = (torch.rand(B, T, NP // B, 2, generator=g) * torch.tensor([W + 2 * edge, Hh + 2 * edge])
+              - edge)
+    starts, wxy = corr_cuda.level_operands(coords.to(dev, torch.bfloat16), B, T, Hh, W, 3)
+    return fmq, supq.reshape(NP, 49, 128), starts, wxy
+
+
+@pytest.mark.parametrize("NP", [37, 256])
+@pytest.mark.parametrize("T", [2, 3, 16, 60, 250])
+def test_corr_volume_frames(dev, T, NP):
+    """K4 on every route of k4_plan, codes and scales bit-identical to the
+    plain version: one pass with the volume held on chip (T=2 and the odd
+    T=3, padded to 4 frames, in one block a point; 16 in a cluster of 2; 60
+    in a cluster of 8, whose blocks take 7 or 8 frames) and two passes (250
+    frames, a cluster of 8); 37 points fill no cluster of the grid's point
+    tiles, and a quarter of the windows touch the map's edge. The plan's
+    shared-memory bytes are the kernel's."""
+    g = torch.Generator().manual_seed(T + NP)
+    fmq, supq, starts, wxy = _corr_operands(g, dev, 1, T, 24, 32, NP, edge=4.0)
+    Tp = starts.shape[1]
+    plan = corr_cuda.k4_plan(NP, Tp)
+    assert plan.hold == (Tp <= 64) and plan.smem == corr_cuda._bound("ct_k4_smem")()
+    n = corr_cuda.corr_volume_int8.launches
+    vol, scale = corr_cuda.corr_volume_int8(fmq, supq, starts, wxy)
+    torch.cuda.synchronize()
+    assert corr_cuda.corr_volume_int8.launches == n + 1
+    rvol, rscale = corr_cuda.corr_volume_plain(fmq, supq, starts, wxy)
+    assert torch.equal(scale, rscale)
+    assert torch.equal(vol, rvol)
+    assert vol.abs().amax(dim=(1, 2, 3)).eq(127).all()
+
+
+def test_corr_volume_raises_instead_of_falling_back(dev):
+    g = torch.Generator().manual_seed(0)
+    fmq, supq, starts, wxy = _corr_operands(g, dev, 1, 4, 24, 32, 8)
+    n = corr_cuda.corr_volume_int8.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        corr_cuda.corr_volume_int8(fmq, supq, starts, wxy.cpu())
+    with pytest.raises(TypeError, match="K4"):
+        corr_cuda.corr_volume_int8(fmq.float(), supq.float(), starts, wxy)
+    assert corr_cuda.corr_volume_int8.launches == n
 
 
 def _raw_operands(g, dev, B, T, Hh, W, NP):

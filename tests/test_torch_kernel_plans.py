@@ -1,17 +1,20 @@
 """The tilings the kernel wrappers compute in Python before a launch, pure
 Python (no kernel, no JAX): K1's two-launch plan (`mlp_int8_cuda.k1_plan`)
 for every (tracks, frames) the frame gate sends to the whole time block,
-and K5's route for every frame count (`attention_cuda.k5_plan`). On the
-card, `tests/test_torch_cuda.py` holds the kernels to these plans (K1's
-shared-memory arithmetic against `ct_k1_smem`) and each route to the plain
-version.
+K5's route for every frame count (`attention_cuda.k5_plan`), K4's cluster
+tiling (`corr_cuda.k4_plan`) and K9's body by token dtype
+(`mlp_int8_cuda.k9_route`). On the card, `tests/test_torch_cuda.py` holds
+the kernels to these plans (K1's and K4's shared-memory arithmetic against
+`ct_k1_smem` and `ct_k4_smem`) and each route to the plain version.
 """
 
 import re
 
 import pytest
 
-from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, gates, mlp_int8_cuda
+import torch
+
+from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda, gates, mlp_int8_cuda
 
 # track counts: the gate's tile divides some and not others (odd, prime,
 # the predictors' padded grids and the quasi-dense count, the 64 virtual tracks)
@@ -67,3 +70,37 @@ def test_k5_routes_cover_every_frame_count():
     assert attention_cuda.k5_plan(60, H, True).smem <= attention_cuda.K5_BLOCK_BYTES
     with pytest.raises(ValueError):
         attention_cuda.k5_plan(0, H, True)
+
+
+@pytest.mark.parametrize("Tp", [2, 16, 60, 250, 600])
+def test_k4_plan_covers_every_frame_once(Tp):
+    """K4's cluster splits a point's frames into disjoint ranges that cover
+    them all, one range a block; up to 64 frames every block holds its
+    frames' volume (at most 8, one region each: one pass), past that a
+    cluster of 8 takes two passes; a block fits the card's shared memory.
+    The plan's constants are corr_window.cu's."""
+    p = corr_cuda.k4_plan(37, Tp)
+    frames = [t for k in range(p.cluster) for t in corr_cuda.k4_frames(Tp, p.cluster, k)]
+    assert frames == list(range(Tp))
+    assert max(len(corr_cuda.k4_frames(Tp, p.cluster, k)) for k in range(p.cluster)) == p.frames
+    assert min(len(corr_cuda.k4_frames(Tp, p.cluster, k)) for k in range(p.cluster)) >= 1
+    assert p.smem <= mlp_int8_cuda.SMEM_LIMIT and p.blocks == 37 * p.cluster
+    assert 1 <= p.cluster <= corr_cuda.K4_MAX_CLUSTER
+    if Tp <= 64:
+        assert p.hold and p.frames <= corr_cuda.K4_REGIONS and p.cluster == -(-Tp // 8)
+    else:
+        assert not p.hold and p.cluster == corr_cuda.K4_MAX_CLUSTER
+    src = (_build.CSRC / "corr_window.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kK4\w+) = (\d+);", src))
+    assert int(consts["kK4Regions"]) == corr_cuda.K4_REGIONS
+    assert int(consts["kK4MaxCluster"]) == corr_cuda.K4_MAX_CLUSTER
+    assert int(consts["kK4Ld"]) * 64 * 4 * corr_cuda.K4_REGIONS + 56 * 128 + 32 == p.smem
+
+
+def test_k9_route_by_dtype():
+    """K9 in bfloat16 runs K1's streamed tail with K9's prologue; float32
+    keeps the 64-row tile body; other dtypes raise."""
+    assert mlp_int8_cuda.k9_route(torch.bfloat16) == "tail"
+    assert mlp_int8_cuda.k9_route(torch.float32) == "tile"
+    with pytest.raises(TypeError):
+        mlp_int8_cuda.k9_route(torch.float16)
