@@ -20,7 +20,13 @@ Phases, each raising on failure:
      (scaled_dot_product_attention: a yardstick, never called by the port);
      K1 in bf16 is two launches (counted from a captured CUDA graph) and
      the launch chain it replaced (nine launches, kept as the f32 route) is
-     timed beside it; K5 in bf16 is the tensor-core time core (k5_plan's route);
+     timed beside it; so are K2 in bf16 (the fused front, then K1's tail:
+     two launches; its chain nine) and K3 in bf16 (one fused kernel and the
+     merge of its key ranges; its chain four), each also beside its library
+     chain (the block's products through torch._int_mm plus one
+     scaled_dot_product_attention, on codes of the same shapes: a
+     yardstick, never called by the port), and K3 at 70,656 points x 16
+     frames too; K5 in bf16 is the tensor-core time core (k5_plan's route);
      then the training kernels K4r (raw int8 volume) and K4f (raw float
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames): K4r's codes and
@@ -90,7 +96,7 @@ Phases, each raising on failure:
      per-point quantization + MLP1) at level 0, 2,048 points x 16 and x 60
      frames (rows bit-identical), with the K4 + int8-MLP1 chain timed
      beside it; K11 (the all-frames points<-virtual block) at 10,240 and
-     70,656 tracks x 16 frames, the K2 chain timed beside it; K10 in each
+     70,656 tracks x 16 frames, K2 timed beside it; K10 in each
      flag combination and K12 with the LN on and off at 604,800 rows; then
      every W8A8 body (K1, K2, K8-K12) in each variant mode (bf16 LayerNorm,
      GELU-quant fold) at 2,048 tracks x 16 frames;
@@ -193,8 +199,37 @@ def lin(g, o, i, dev):
     return mlp_int8_cuda.quantize_linear(w.to(dev), (0.05 * torch.randn(o, generator=g)).to(dev))
 
 
+def library_chain(gd, dev, rows, widths, attn):
+    """ms of a W8A8 block's products through torch._int_mm on int8 codes of
+    their shapes ((K, N) each, `rows` rows) and of one SDPA call `attn`:
+    the library yardstick of a fused block (no quantization or epilogue),
+    never called by the port. Returns (sum, parts)."""
+    parts = []
+    for k, n in widths:
+        a8 = torch.randint(-127, 128, (rows, k), dtype=torch.int8, device=dev, generator=gd)
+        w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=gd)
+        parts.append(time_ms(lambda: torch._int_mm(a8, w8.t())))
+        del a8, w8
+    parts.append(time_ms(attn))
+    return sum(parts), parts
+
+
+def k3_library_chain(gd, dev, q, x, bias):
+    """K3's library chain: the k|v product of x's rows through torch._int_mm,
+    then SDPA of the frames' queries over the point keys|values (bf16, the
+    key bias as the mask)."""
+    T, N = q.shape[0], x.shape[0]
+    kv = torch.randn(N, T, 2 * C, device=dev, generator=gd).to(torch.bfloat16).transpose(0, 1)
+    mask = bias.to(torch.bfloat16)[None, None, None, :]
+    out = library_chain(gd, dev, N * T, ((C, 2 * C),),
+                        lambda: sdpa(hm(q), hm(kv[..., :C]), hm(kv[..., C:]), attn_mask=mask))
+    del kv
+    return out
+
+
 SRC_BLOCKS = "cotracker_tpu_torch/csrc/int8_blocks.cu"
-SRC_K1 = "cotracker_tpu_torch/csrc/int8_time_block.cu"
+SRC_K1 = "cotracker_tpu_torch/csrc/int8_time_block.cu"  # K1, K9 and K2 in bf16
+SRC_K3 = "cotracker_tpu_torch/csrc/int8_v2p_proj.cu"
 SRC_CORR = "cotracker_tpu_torch/csrc/corr_window.cu"
 SRC_CORES = "cotracker_tpu_torch/csrc/attention_cores.cu"
 T_STREAM = 16  # the streaming window; T_FRAMES is the offline window
@@ -304,6 +339,19 @@ def kernel_phase(dev):
         log(f"  {name} T={T}: {ms:.3f} ms (plain {plain_ms:.3f} ms{lib}, bound {bnd[0]:.3f} ms "
             f"by {bnd[1]})")
 
+    def fused_extras(name, T, lib_parts, chain, fused):
+        """A redesigned block's launch chain (its earlier body, kept as its f32
+        route) on the same inputs and its device launches a call."""
+        sfx = "" if T == T_FRAMES else f"_t{T}"
+        e = results[name]
+        e.update({"chain_ms" + sfx: time_ms(chain, reps=2),
+                  "device_launches" + sfx: device_launches(fused),
+                  "library_chain_parts_ms" + sfx: lib_parts})
+        log(f"  {name} T={T}: the launch chain it replaced {e['chain_ms' + sfx]:.3f} ms; "
+            f"{e['device_launches' + sfx]} device launches a call; library chain "
+            f"{sum(lib_parts):.3f} ms ({', '.join(f'{t:.3f}' for t in lib_parts)})")
+
+    gd = torch.Generator(device=dev).manual_seed(0)  # the library chains' int8 codes
     tw = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
                                         lin(g, HID, C, dev), lin(g, C, HID, dev))
     sw = mlp_int8_cuda.SpaceBlockWeights(lin(g, C, C, dev), lin(g, C, C, dev),
@@ -340,33 +388,48 @@ def kernel_phase(dev):
         log(f"  K1 T={T}: the launch chain it replaced {results['K1_time_block']['chain_ms' + sfx]:.3f} ms; "
             f"{results['K1_time_block']['device_launches' + sfx]} device launches a call")
 
-        # K2: points <- virtual block
+        # K2: points <- virtual block; beside it the launch chain it replaced (kept
+        # as the f32 route) and its library chain
         kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
         out = mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH)
         ref = mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH)
         err = check_close(f"K2 space block T={T}", out, ref, 0.01, 0.05)
         del out, ref
-        entry("K2_space_block", SRC_BLOCKS, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:418",
+        q6 = hm(x.transpose(0, 1))  # (T, H, N, D)
+        lib_ms, lib_parts = library_chain(
+            gd, dev, rows, ((C, C), (C, C), (C, HID), (HID, C)),
+            lambda: sdpa(q6, hm(kv[..., :C]), hm(kv[..., C:])))
+        entry("K2_space_block", SRC_K1, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:418",
               T, T_FRAMES, err,
               time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH)),
               time_ms(lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH), reps=2),
               bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in sw for t in q]),
                     [(rows * 2 * C * (2 * C + 2 * HID), INT8_OPS),
-                     (rows * HEADS * 4 * V * DH, BF16_OPS)]))
+                     (rows * HEADS * 4 * V * DH, BF16_OPS)]), lib_ms)
+        fused_extras("K2_space_block", T, lib_parts,
+                     lambda: mlp_int8_cuda._space_block_chain(x, kv, sw, HEADS, DH, 1e-6, False,
+                                                              False),
+                     lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH))
+        del q6
 
-        # K3: virtual <- points with the projection
+        # K3: virtual <- points with the projection; beside it the chain it replaced
+        # (kept as the f32 route) and its library chain
         q = (0.3 * torch.randn(T, V, C, generator=g)).to(dev, bf)
         args = (q, x, wkv, gamma, beta, HEADS, DH, kbias)
         out = attention_cuda.fused_virtual_from_points_proj(*args)
         ref = attention_cuda.v2p_proj_plain(*args)
         err = check_close(f"K3 virtual<-points T={T}", out, ref, 0.01, 0.05)
-        entry("K3_virtual_from_points_proj", SRC_BLOCKS,
+        lib_ms, lib_parts = k3_library_chain(gd, dev, q, x, kbias)
+        entry("K3_virtual_from_points_proj", SRC_K3,
               "cotracker_tpu/ops/kernels/attention_pallas.py:279", T, T_FRAMES, err,
               time_ms(lambda: attention_cuda.fused_virtual_from_points_proj(*args)),
               time_ms(lambda: attention_cuda.v2p_proj_plain(*args), reps=2),
               bound(nbytes(q, x, wkv.w, kbias, out),
                     [(rows * 2 * C * 2 * C, INT8_OPS),
-                     (T * HEADS * V * N_TRACKS * 4 * DH, BF16_OPS)]))
+                     (T * HEADS * V * N_TRACKS * 4 * DH, BF16_OPS)]), lib_ms)
+        fused_extras("K3_virtual_from_points_proj", T, lib_parts,
+                     lambda: attention_cuda._v2p_proj_chain(*args, 1e-5),
+                     lambda: attention_cuda.fused_virtual_from_points_proj(*args))
         del out, ref
 
         # K5: time attention core; the library call is SDPA on head-major views
@@ -477,7 +540,32 @@ def kernel_phase(dev):
                                                attn_mask=mask)))
     log(f"  K7 {N} tracks x {T}: {e['ms_n70656']:.3f} ms ({e['splits_n70656']} key ranges; "
         f"library call {e['library_ms_n70656']:.3f} ms, bound {e['bound_ms_n70656']:.3f} ms)")
-    del q, kv7, k7t, out, dead
+    del kv7, k7t, out, dead
+
+    # K3 at the quasi-dense point count: the fused kernel's key ranges merged
+    x = torch.randn(N, T, C, generator=g).to(dev, bf)
+    args = (q, x, wkv, gamma, beta, HEADS, DH, qbias)
+    out = attention_cuda.fused_virtual_from_points_proj(*args)
+    err = check_close(f"K3 virtual<-points {N} tracks x {T}", out,
+                      attention_cuda.v2p_proj_plain(*args), 0.01, 0.05)
+    e = results["K3_virtual_from_points_proj"]
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    lib_ms, lib_parts = k3_library_chain(gd, dev, q, x, qbias)
+    bnd = bound(nbytes(q, x, wkv.w, qbias, out),
+                [(N * T * 2 * C * 2 * C, INT8_OPS), (T * HEADS * V * N * 4 * DH, BF16_OPS)])
+    plan = attention_cuda.k3_plan(N, T, V, bf,
+                                  sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    e.update(plan_n70656=plan._asdict(),
+             ms_n70656=time_ms(lambda: attention_cuda.fused_virtual_from_points_proj(*args)),
+             chain_ms_n70656=time_ms(lambda: attention_cuda._v2p_proj_chain(*args, 1e-5), reps=2),
+             bound_ms_n70656=bnd[0], bound_by_n70656=bnd[1], library_ms_n70656=lib_ms,
+             library_chain_parts_ms_n70656=lib_parts,
+             device_launches_n70656=device_launches(
+                 lambda: attention_cuda.fused_virtual_from_points_proj(*args)))
+    log(f"  K3 {N} tracks x {T}: {e['ms_n70656']:.3f} ms (the launch chain it replaced "
+        f"{e['chain_ms_n70656']:.3f} ms, library chain {lib_ms:.3f} ms, bound {bnd[0]:.3f} ms "
+        f"by {bnd[1]}; {e['device_launches_n70656']} device launches)")
+    del q, x, out
 
     # K5 on its other bf16 routes, each pinned to k5_plan's choice
     e = results["K5_time_attention"]
@@ -1331,7 +1419,7 @@ def mode_phase(dev):
 
 def variant_kernel_phase(dev):
     """K4m, K11, K10 and K12 against their plain versions on the card (see
-    the module docstring), with the K4 and K2 chains timed beside K4m and
+    the module docstring), with the K4 chain and K2 timed beside K4m and
     K11 at the same shapes."""
     g = torch.Generator().manual_seed(11)
     bf = torch.bfloat16
@@ -1390,7 +1478,7 @@ def variant_kernel_phase(dev):
     out.append(e)
     torch.cuda.empty_cache()
 
-    # K11: 10,240 and 70,656 tracks x 16 frames, the K2 chain beside it
+    # K11: 10,240 and 70,656 tracks x 16 frames, K2 (which K11 stands in for) beside it
     tw = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
                                         lin(g, HID, C, dev), lin(g, C, HID, dev))
     sw = space_pack(tw)
@@ -1410,15 +1498,15 @@ def variant_kernel_phase(dev):
         vals = dict(ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)),
                     plain_ms=time_ms(lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH),
                                      reps=2),
-                    k2_chain_ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(
+                    k2_ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(
                         x, kv, sw, HEADS, DH)))
         log(f"  K11 {N}x{T}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f}, bound "
-            f"{bnd[0]:.3f} by {bnd[1]}); the K2 chain {vals['k2_chain_ms']:.3f} ms")
+            f"{bnd[0]:.3f} by {bnd[1]}); K2 {vals['k2_ms']:.3f} ms")
         if e is None:
             e = variant_entry("K11_space_block_allt", SRC_FUSED,
                               "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:471",
                               f"{N} tracks x {T} frames, bf16", err, vals["ms"], vals["plain_ms"],
-                              bnd, k2_chain_ms=vals["k2_chain_ms"])
+                              bnd, k2_ms=vals["k2_ms"])
         else:
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e.update({f"{k}_n{N}": v for k, v in vals.items()},

@@ -6,8 +6,9 @@
 //   K3 cotracker_tpu/ops/kernels/attention_pallas.py::_v2p_proj_kernel
 //   K8 cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_qkv_kernel
 //   K9 cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel
-// K1 (f32 tokens; bf16 takes csrc/int8_time_block.cu), K2 and K3 are each
-// a short chain of the launches below, driven from
+// K1 and K2 (f32 tokens, K2 also past 64 virtual tokens; bf16 takes
+// csrc/int8_time_block.cu) and K3 (f32; bf16 takes csrc/int8_v2p_proj.cu)
+// are each a short chain of the launches below, driven from
 // ops/kernels/{mlp_int8,attention}_cuda.py:
 //   ct_ln_quant       LayerNorm (optionally affine) + per-row absmax int8
 //   ct_gemm_s8        s8 x s8 -> s32 GEMM on tensor cores (mma.sync) with a
@@ -43,9 +44,10 @@
 // runs here: csrc/int8_time_block.cu takes it in two launches with those
 // activations on chip (24.2 -> 11.7 ms at the bench shape on an H100; its
 // note says what bounds it now); its f32 route is the K1 chain below
-// (ct_time_attention with the first-version time core). K2's chain keeps
-// its tail (_mlp_tail_cuda); moving it onto K1's is queued. K8 moves 3,072
-// bytes a bf16 row for 0.88 M int8 operations (~290 a byte, under the
+// (ct_time_attention with the first-version time core). K2 and K3 in bf16
+// left too: K2 is a fused front and K1's tail (int8_time_block.cu), K3 one
+// kernel that projects each key tile on chip (int8_v2p_proj.cu). K8 moves
+// 3,072 bytes a bf16 row for 0.88 M int8 operations (~290 a byte, under the
 // card's int8 balance of ~590: bytes-bound), K9 2,304 bytes for 2.65 M
 // (compute-bound); both re-read the weights from L2 for every row tile (128
 // rows for K8, 64 for K9's f32 body, whose tile is bounded by the 227 KB of

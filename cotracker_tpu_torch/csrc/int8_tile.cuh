@@ -363,4 +363,169 @@ __device__ __forceinline__ void stage_mlp_tail(const TileSmem<32 * MT, BK>& s,
   stage_fc2_out<MT, BK, T>(s.U, w2, s2, b2, s.su, s.R, rows, out, s.Bs);
 }
 
+// ------------------------------------------ streamed products and barriers
+// The weight-streaming GEMM of the fused W8A8 kernels (K1's front,
+// int8_time_block.cu; K2's front; K3, int8_v2p_proj.cu) and the mbarrier
+// helpers of K1's tail stream and of the fronts' bulk row copies.
+
+// One warp's products over BK bytes of K: acc[MI][NI] += the warp's A rows
+// (a: this K slice of its first row's ldmatrix address, row stride lda) x
+// the stage's B rows (b: the stage's base; b_pair / b_last the lane's
+// ldmatrix offsets of the column-tile pairs and of an odd last tile).
+template <int MI, int NI, int BK, int LDB>
+__device__ __forceinline__ void warp_mma(int (&acc)[MI][NI][4], const int8_t* a, int lda,
+                                         const int8_t* b, int b_pair, int b_last) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 32) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) ldsm_x4(af[mi], a + mi * 16 * lda + kk);
+#pragma unroll
+    for (int ni = 0; ni + 1 < NI; ni += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + b_pair + ni * 8 * LDB + kk);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        mma_s8_16832(acc[mi][ni], af[mi], bf);
+        mma_s8_16832(acc[mi][ni + 1], af[mi], bf + 2);
+      }
+    }
+    if constexpr (NI % 2 == 1) {
+      uint32_t bf[2];
+      ldsm_x2(bf, b + b_last + kk);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) mma_s8_16832(acc[mi][NI - 1], af[mi], bf);
+    }
+  }
+}
+
+// ------------------------------------------------------------- RingGemm
+// acc[MI][NI][4] (+)= A[rows, 0:K) . W[col(n), 0:K)^T over a block tile of
+// (MW * 16 * MI) rows x BN = NW * 8 * NI columns; the block's MW x NW warps,
+// warp tiles (16 * MI) x (8 * NI) of mma.sync m16n8k32. A: int8 codes in shared
+// memory, row stride lda (lda % 128 == 16: the 8 rows of an ldmatrix hit 8
+// different 16-byte bank groups). W: K-contiguous int8 rows in device
+// memory, wrow(n) the row of output column n, streamed BK bytes of K at a
+// time through STAGES ring buffers of BN x (BK + 16) bytes by cp.async.
+// prefetch() issues the first STAGES - 1 stages (no other cp.async group
+// may be committed between it and run()); run() waits for them, keeps
+// STAGES - 1 stages in flight, and ends with the ring free (every copy
+// landed, every warp past its last read).
+template <int MW, int NW, int MI, int NI, int BK, int STAGES>
+struct RingGemm {
+  static_assert(BK % 32 == 0 && STAGES >= 2, "k32 steps");
+  static constexpr int kThreads = 32 * MW * NW;
+  static constexpr int BM = MW * 16 * MI, BN = NW * NI * 8, LDB = BK + 16, STAGE = BN * LDB;
+  static constexpr int CH = BK / 16, kMI = MI, kNI = NI, kRingBytes = STAGES * STAGE;
+
+  template <typename WRow>
+  __device__ static void load(WRow wrow, int kt, int8_t* buf) {
+    for (int i = threadIdx.x; i < BN * CH; i += kThreads) {
+      const int n = i / CH, c = i - n * CH;
+      cp_async16(buf + n * LDB + 16 * c, wrow(n) + kt * BK + 16 * c, true);
+    }
+  }
+
+  template <typename WRow>
+  __device__ static void prefetch(WRow wrow, int K, int8_t* ring) {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < K / BK) load(wrow, s, ring + s * STAGE);
+      cp_async_commit();
+    }
+  }
+
+  template <bool kZero, typename WRow>
+  __device__ static void run(const int8_t* A, int lda, int K, WRow wrow, int8_t* ring,
+                             int (&acc)[MI][NI][4]) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp / NW, wn = warp % NW;
+    if constexpr (kZero) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+    }
+    const int8_t* a_base = A + (wm * 16 * MI + (lane & 15)) * lda + (lane >> 4) * 16;
+    const int b_off = (wn * 8 * NI + (lane >> 4) * 8 + (lane & 7)) * LDB + ((lane >> 3) & 1) * 16;
+    const int b_last = (wn * 8 * NI + 8 * (NI - 1) + (lane & 7)) * LDB + ((lane >> 3) & 1) * 16;
+    const int KT = K / BK;
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int nx = kt + STAGES - 1;
+      if (nx < KT) load(wrow, nx, ring + (nx % STAGES) * STAGE);
+      cp_async_commit();
+      warp_mma<MI, NI, BK, LDB>(acc, a_base + kt * BK, lda, ring + (kt % STAGES) * STAGE, b_off,
+                                b_last);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // Position of accumulator (mi, ni, k) in the block tile.
+  __device__ static int row(int mi, int k) {
+    const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) / NW;
+    return wm * 16 * MI + mi * 16 + (lane >> 2) + (k >> 1) * 8;
+  }
+  __device__ static int col(int ni, int k) {
+    const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % NW;
+    return wn * 8 * NI + ni * 8 + (lane & 3) * 2 + (k & 1);
+  }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
+}
+// Waits for the phase of parity `parity` to complete; a wait that never ends
+// (a lost arrival) traps, so a fault fails the launch instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  for (long long spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 24)) __trap();
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+// arrives on b once every cp.async this thread issued before has landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+// One bulk copy (the Tensor Memory Accelerator's 1D form) of `bytes` (a
+// multiple of 16, both addresses 16-byte aligned) from device memory to
+// this block's shared memory; its bytes complete the transaction count of
+// mbarrier b, whose phase the caller armed with mbar_expect_tx.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+// arrives on b (count 1) expecting `bytes` of bulk copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// orders this thread's shared-memory accesses before later bulk copies
+// (the async proxy) and makes an initialized mbarrier visible to them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 }  // namespace ct

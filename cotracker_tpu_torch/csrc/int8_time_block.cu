@@ -1,13 +1,40 @@
-// K1 on Hopper: the whole W8A8 time block in two launches, and K9 on K1's
-// tail (sm_90a).
+// K1 on Hopper: the whole W8A8 time block in two launches, and K9 and K2
+// on K1's tail (sm_90a).
 //
 // Replaces, on the H100, the Pallas bodies
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel  (K1)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel     (K9)
-// (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8) for
-// bfloat16 tokens, driven from ops/kernels/mlp_int8_cuda.py (the plan:
-// k1_plan; K9's body: k9_route). float32 tokens keep the launch chain and
-// the 64-row K9 body of int8_blocks.cu.
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_kernel (K2)
+// (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8,
+// fused_space_block_int8) for bfloat16 tokens, driven from
+// ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan; K9's body:
+// k9_route). float32 tokens keep the launch chains and the 64-row K9 body
+// of int8_blocks.cu (K2 also past the 64 virtual tokens its front stages).
+//
+// K2 (ct_k2_space_block) is a front of its own (k2_front_kernel, below)
+// and then K1's tail unchanged, since the block's second half is K1's
+// operation for operation: a quantized from f32 by its row absmax, r = (x +
+// to_out(a)) + bo, LN + quant, fc1 + GELU + quant, (r + y) + b2. The front
+// hands the tail a's int8 codes and row scales, 388 bytes a row, as K1's
+// front does. Contract of the front (space_block_plain): LN (affine-free,
+// eps 1e-6, or the bf16_ln variant) + row quant, q = dequant + bias
+// rounded to bf16, the frame's V <= 64 keys and values, softmax of the f32
+// logits normalized before its rounding to bf16 (K6's), P.V in f32. What
+// bounds K2: int8 operations, 1.81 T at 10,240 tracks x 60 frames (0.92 ms
+// at 1,979 TOP/s; with the attention's 0.06 T of bf16, 0.98 ms); the launch
+// chain it replaced (nine launches, kept for f32) moved q, a, r and the
+// 1,536-wide u through device memory, ~13-15 GB, and its products waited
+// on each K step's plain weight loads. Here only
+// a's codes cross between the two launches; the tail's weight stream and
+// products are K1's. Shared memory is the front's constraint: a frame's
+// keys and values (96 KB), a 64-row tile's x rows (48 KB, by bulk copies a
+// tile ahead), codes (25 KB), a head pair's q (12 KB) and the q ring (30
+// KB) leave no room for a in f32 (99 KB), so each warp keeps its four
+// (16 rows, head) outputs in registers (96 floats) until the rows' absmax.
+// How far it got (scripts/torch_cores.py, one NVIDIA H100 80GB HBM3 at 700
+// W): 10.13-10.16 ms at 10,240 x 60 (the chain 14.45-14.46 in the same
+// call; the front 1.92-1.94, the tail 8.24-8.30) and 2.82-2.84 at x 16
+// (3.97-3.98); the tail, as K1's, is what bounds it now.
 //
 // K9 (ct_k9_tail) is K1's tail with another front door: its prologue reads
 // the attention output a in bf16 and quantizes each row in the tile (K1's
@@ -89,112 +116,6 @@
 #include "int8_tile.cuh"
 
 namespace ct {
-
-// One warp's products over BK bytes of K: acc[MI][NI] += the warp's A rows
-// (a: this K slice of its first row's ldmatrix address, row stride lda) x
-// the stage's B rows (b: the stage's base; b_pair / b_last the lane's
-// ldmatrix offsets of the column-tile pairs and of an odd last tile).
-template <int MI, int NI, int BK, int LDB>
-__device__ __forceinline__ void warp_mma(int (&acc)[MI][NI][4], const int8_t* a, int lda,
-                                         const int8_t* b, int b_pair, int b_last) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 32) {
-    uint32_t af[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) ldsm_x4(af[mi], a + mi * 16 * lda + kk);
-#pragma unroll
-    for (int ni = 0; ni + 1 < NI; ni += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + b_pair + ni * 8 * LDB + kk);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma_s8_16832(acc[mi][ni], af[mi], bf);
-        mma_s8_16832(acc[mi][ni + 1], af[mi], bf + 2);
-      }
-    }
-    if constexpr (NI % 2 == 1) {
-      uint32_t bf[2];
-      ldsm_x2(bf, b + b_last + kk);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma_s8_16832(acc[mi][NI - 1], af[mi], bf);
-    }
-  }
-}
-
-// ------------------------------------------------------------- RingGemm
-// acc[MI][NI][4] (+)= A[rows, 0:K) . W[col(n), 0:K)^T over a block tile of
-// (MW * 16 * MI) rows x BN = NW * 8 * NI columns; the block's MW x NW warps,
-// warp tiles (16 * MI) x (8 * NI) of mma.sync m16n8k32. A: int8 codes in shared
-// memory, row stride lda (lda % 128 == 16: the 8 rows of an ldmatrix hit 8
-// different 16-byte bank groups). W: K-contiguous int8 rows in device
-// memory, wrow(n) the row of output column n, streamed BK bytes of K at a
-// time through STAGES ring buffers of BN x (BK + 16) bytes by cp.async.
-// prefetch() issues the first STAGES - 1 stages (no other cp.async group
-// may be committed between it and run()); run() waits for them, keeps
-// STAGES - 1 stages in flight, and ends with the ring free (every copy
-// landed, every warp past its last read).
-template <int MW, int NW, int MI, int NI, int BK, int STAGES>
-struct RingGemm {
-  static_assert(BK % 32 == 0 && STAGES >= 2, "k32 steps");
-  static constexpr int kThreads = 32 * MW * NW;
-  static constexpr int BM = MW * 16 * MI, BN = NW * NI * 8, LDB = BK + 16, STAGE = BN * LDB;
-  static constexpr int CH = BK / 16, kMI = MI, kNI = NI, kRingBytes = STAGES * STAGE;
-
-  template <typename WRow>
-  __device__ static void load(WRow wrow, int kt, int8_t* buf) {
-    for (int i = threadIdx.x; i < BN * CH; i += kThreads) {
-      const int n = i / CH, c = i - n * CH;
-      cp_async16(buf + n * LDB + 16 * c, wrow(n) + kt * BK + 16 * c, true);
-    }
-  }
-
-  template <typename WRow>
-  __device__ static void prefetch(WRow wrow, int K, int8_t* ring) {
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < K / BK) load(wrow, s, ring + s * STAGE);
-      cp_async_commit();
-    }
-  }
-
-  template <bool kZero, typename WRow>
-  __device__ static void run(const int8_t* A, int lda, int K, WRow wrow, int8_t* ring,
-                             int (&acc)[MI][NI][4]) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp / NW, wn = warp % NW;
-    if constexpr (kZero) {
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-    }
-    const int8_t* a_base = A + (wm * 16 * MI + (lane & 15)) * lda + (lane >> 4) * 16;
-    const int b_off = (wn * 8 * NI + (lane >> 4) * 8 + (lane & 7)) * LDB + ((lane >> 3) & 1) * 16;
-    const int b_last = (wn * 8 * NI + 8 * (NI - 1) + (lane & 7)) * LDB + ((lane >> 3) & 1) * 16;
-    const int KT = K / BK;
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int nx = kt + STAGES - 1;
-      if (nx < KT) load(wrow, nx, ring + (nx % STAGES) * STAGE);
-      cp_async_commit();
-      warp_mma<MI, NI, BK, LDB>(acc, a_base + kt * BK, lda, ring + (kt % STAGES) * STAGE, b_off,
-                                b_last);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-
-  // Position of accumulator (mi, ni, k) in the block tile.
-  __device__ static int row(int mi, int k) {
-    const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) / NW;
-    return wm * 16 * MI + mi * 16 + (lane >> 2) + (k >> 1) * 8;
-  }
-  __device__ static int col(int ni, int k) {
-    const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) % NW;
-    return wn * 8 * NI + ni * 8 + (lane & 3) * 2 + (k & 1);
-  }
-};
 
 constexpr int K1_HEADS = KC / kDimHead;  // 8
 constexpr int K1_AST = KC + 4;           // row stride (floats) of the f32 attention output
@@ -378,6 +299,200 @@ k1_front_kernel(const bf16* __restrict__ x, int M, int Tn, int tracks, int rows_
   }
 }
 
+// ------------------------------------------------------------ K2's front
+// K2 (ct_k2_space_block) is this front, then K1's tail (k1_tail_kernel,
+// unchanged). The front takes 64-track tiles of one frame t: rows (n, t),
+// 768-byte bf16 rows at a stride of T x 384 in x. A block walks a run of the
+// flat (frame-major) list of tiles, one block an SM, and stages a frame's
+// projected keys and values (V <= 64 tokens, 96 KB, K6's interleaved layout)
+// whenever its run enters that frame. Per tile: the x rows arrive by bulk
+// copies (the next tile's issued while this one computes), LN + row quant
+// into shared memory, then per head pair the q columns through the int8
+// tensor cores (K2QGemm, the weights streamed through a cp.async ring),
+// dequant + bias rounded to bf16, and the points<-virtual core on mma.sync
+// for the pair: warp w takes rows 16 (w % 4).. of head 2p + w / 4, the
+// softmax normalized before its rounding to bf16 (K6's p2v_tc_kernel at one
+// 64-key chunk). Each warp keeps its four (16 rows, head) outputs in f32
+// registers, so after the last pair the rows' absmax over all 384 channels
+// crosses the two warps of a row group through shared memory, and the codes
+// and scales go to device memory: 388 bytes a row, the hand-off K1's front
+// makes to the tail.
+constexpr int K2_TILE = 64;   // tracks (rows) a tile
+constexpr int K2_MAX_V = 64;  // virtual tokens the front stages: one key chunk
+using K2QGemm = RingGemm<2, 4, 2, 3, 64, 4>;  // 64 rows x two heads' q columns (96)
+constexpr int K2_KV = 2 * K1_HEADS * K2_MAX_V * kDimHead * 2;  // keys + values, bytes
+constexpr int K2_QPAIR = 2 * K2_TILE * kDimHead * 2;           // q of a head pair, bytes
+constexpr int K2_FRONT_SMEM = K2_KV + K2_TILE * KC * 2 + K2_TILE * LDA_C + K2_QPAIR +
+                              K2QGemm::kRingBytes + 3 * K2_TILE * 4 + 16;
+static_assert(K2_FRONT_SMEM <= 232448, "K2's front fits one block an SM");
+
+template <bool kBf16Ln>
+__global__ void __launch_bounds__(256, 1)
+k2_front_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, int N, int Tn, int V,
+                const int8_t* __restrict__ wq, const float* __restrict__ sq,
+                const float* __restrict__ bq, float eps, float scale,
+                int8_t* __restrict__ acode, float* __restrict__ ascale) {
+  using G = K2QGemm;
+  constexpr int D = kDimHead, HSZ = K2_TILE * D, PAIRS = K1_HEADS / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);            // [head][64 keys x 48] (ilv)
+  bf16* vs = ks + K1_HEADS * K2_MAX_V * D;             // the same for the values
+  bf16* xs = vs + K1_HEADS * K2_MAX_V * D;             // the tile's x rows (64 x 384)
+  int8_t* A = reinterpret_cast<int8_t*>(xs + K2_TILE * KC);  // LN codes, then a's codes
+  bf16* qs = reinterpret_cast<bf16*>(A + K2_TILE * LDA_C);   // [2][64 rows x 48] (ilv)
+  int8_t* ring = reinterpret_cast<int8_t*>(qs + 2 * HSZ);
+  float* sr = reinterpret_cast<float*>(ring + G::kRingBytes);
+  unsigned* amax = reinterpret_cast<unsigned*>(sr + K2_TILE);
+  float* inv = sr + 2 * K2_TILE;
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(inv + K2_TILE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int tpf = (N + K2_TILE - 1) / K2_TILE;  // tiles a frame
+  const long long total = static_cast<long long>(tpf) * Tn;
+  const long long begin = total * blockIdx.x / gridDim.x, end = total * (blockIdx.x + 1) / gridDim.x;
+  const int C2 = 2 * KC;
+  auto wrow_of = [&](int p) {  // q column n of head pair p is weight row 96p + n
+    return [=](int n) { return wq + static_cast<size_t>(p * 2 * D + n) * KC; };
+  };
+  // the x rows of tile i by bulk copies (warp 0), completing xbar's phase
+  auto load_x = [&](long long i) {
+    const int t = static_cast<int>(i / tpf), n0 = static_cast<int>(i % tpf) * K2_TILE;
+    const int rows = min(K2_TILE, N - n0);
+    if (lane == 0) mbar_expect_tx(xbar, rows * KC * 2);
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32)
+      bulk_g2s(xs + r * KC, x + (static_cast<size_t>(n0 + r) * Tn + t) * KC, KC * 2, xbar);
+  };
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (warp == 0) load_x(begin);
+  G::prefetch(wrow_of(0), KC, ring);
+
+  int frame = -1;
+  unsigned phase = 0;
+  for (long long i = begin; i < end; ++i) {
+    const int t = static_cast<int>(i / tpf), n0 = static_cast<int>(i % tpf) * K2_TILE;
+    const int rows = min(K2_TILE, N - n0);
+    if (t != frame) {  // the frame's keys and values, zero past V
+      const bf16* kvt = kv + static_cast<size_t>(t) * V * C2;
+      for (int c = tid; c < K1_HEADS * K2_MAX_V * 6; c += 256) {
+        const int ch = c % 6, key = (c / 6) % K2_MAX_V, h = c / (6 * K2_MAX_V);
+        const bool ok = key < V;
+        const bf16* src = kvt + static_cast<size_t>(ok ? key : 0) * C2 + h * D + 8 * ch;
+        cp_async16(ks + h * K2_MAX_V * D + ilv(key, ch), src, ok);
+        cp_async16(vs + h * K2_MAX_V * D + ilv(key, ch), src + KC, ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();  // also lands the ring's prefetched stages: run() counts none
+      __syncthreads();
+      frame = t;
+    }
+    mbar_wait(xbar, phase);
+    phase ^= 1u;
+    for (int r = warp; r < K2_TILE; r += 8) {
+      float sc = 0.f;
+      if (r < rows)
+        sc = ln_quant_row<bf16, KC / 32, kBf16Ln>(xs + r * KC, lane, nullptr, nullptr, eps, 1,
+                                                  A + r * LDA_C);
+      else
+        for (int c = lane; c < KC; c += 32) A[r * LDA_C + c] = 0;
+      if (lane == 0) sr[r] = sc;
+    }
+    if (tid < K2_TILE) amax[tid] = 0u;
+    __syncthreads();
+    if (warp == 0 && i + 1 < end) {
+      fence_async_smem();
+      load_x(i + 1);
+    }
+
+    // per head pair: q rounded to bf16 into qs, then the pair's attention
+    float o[PAIRS][6][4];
+    const int rg = warp & 3, hh = warp >> 2;
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      int acc[G::kMI][G::kNI][4];
+      G::template run<true>(A, LDA_C, KC, wrow_of(p), ring, acc);
+      if (p + 1 < PAIRS || i + 1 < end) G::prefetch(wrow_of((p + 1) % PAIRS), KC, ring);
+#pragma unroll
+      for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < G::kNI; ++ni)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int r = G::row(mi, 2 * h2), n = G::col(ni, 2 * h2);
+            const int wr = p * 2 * D + n, d = n % D;
+            const float v0 = __fadd_rn(dequant(acc[mi][ni][2 * h2], sr[r], sq[wr]), bq[wr]);
+            const float v1 = __fadd_rn(dequant(acc[mi][ni][2 * h2 + 1], sr[r], sq[wr + 1]), bq[wr + 1]);
+            *reinterpret_cast<uint32_t*>(qs + (n / D) * HSZ + ilv(r, d >> 3) + (d & 7)) =
+                pack_bf16(v0, v1);
+          }
+      __syncthreads();
+      const int h = 2 * p + hh;
+      uint32_t qa[3][4];
+      load_q_ilv(qa, qs + hh * HSZ, rg * 16);
+      float S[8][4];
+      chunk_scores_ilv(S, qa, ks + h * K2_MAX_V * D);
+      if (V == K2_MAX_V) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) S[j][e] = __fmul_rn(S[j][e], scale);
+      } else {
+        scale_mask(S, scale, V);
+      }
+      softmax_chunk(S);
+#pragma unroll
+      for (int mm = 0; mm < 6; ++mm) o[p][mm][0] = o[p][mm][1] = o[p][mm][2] = o[p][mm][3] = 0.f;
+      chunk_pv_ilv(o[p], S, vs + h * K2_MAX_V * D);
+    }
+
+    // a's row absmax over the 384 channels, then its codes and scales
+    const int ra = rg * 16 + g, rb = ra + 8;
+    float m[2] = {0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p)
+#pragma unroll
+      for (int mm = 0; mm < 6; ++mm) {
+        m[0] = fmaxf(m[0], fmaxf(fabsf(o[p][mm][0]), fabsf(o[p][mm][1])));
+        m[1] = fmaxf(m[1], fmaxf(fabsf(o[p][mm][2]), fabsf(o[p][mm][3])));
+      }
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+    if (t4 == 0) {
+      atomicMax(amax + ra, __float_as_uint(m[0]));
+      atomicMax(amax + rb, __float_as_uint(m[1]));
+    }
+    __syncthreads();
+    if (tid < K2_TILE) {
+      const float sc = __fmul_rn(fmaxf(__uint_as_float(amax[tid]), 1e-20f), 1.0f / 127.0f);
+      inv[tid] = 1.0f / sc;
+      if (tid < rows) ascale[static_cast<size_t>(n0 + tid) * Tn + t] = sc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p)
+#pragma unroll
+      for (int mm = 0; mm < 6; ++mm) {
+        const int c = (2 * p + hh) * D + 8 * mm + 2 * t4;
+        *reinterpret_cast<char2*>(A + ra * LDA_C + c) =
+            make_char2(quant8(o[p][mm][0], inv[ra]), quant8(o[p][mm][1], inv[ra]));
+        *reinterpret_cast<char2*>(A + rb * LDA_C + c) =
+            make_char2(quant8(o[p][mm][2], inv[rb]), quant8(o[p][mm][3], inv[rb]));
+      }
+    __syncthreads();
+    for (int c = tid; c < rows * (KC / 16); c += 256) {
+      const int r = c / (KC / 16), ch = c % (KC / 16);
+      *reinterpret_cast<uint4*>(acode + (static_cast<size_t>(n0 + r) * Tn + t) * KC + 16 * ch) =
+          *reinterpret_cast<const uint4*>(A + r * LDA_C + 16 * ch);
+    }
+    __syncthreads();  // A and the scales are the next tile's
+  }
+  cp_async_wait<0>();
+}
+
 // ------------------------------------------------------------- (b) tail
 // The weight stream. One producer warp walks the tail's whole sequence of
 // weight stages (to_out; fc1 pass 1; pass 1b where a row needs it; then per
@@ -390,34 +505,7 @@ k1_front_kernel(const bf16* __restrict__ x, int M, int Tn, int tracks, int rows_
 // and fc2 stream 384 columns x 32 bytes of K (rows padded to 48 bytes), fc1
 // 128 columns x 128 bytes (rows padded to 144): ldmatrix's 8 rows always
 // hit 8 different 16-byte bank groups.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
-}
-// Waits for the phase of parity `parity` to complete; a wait that never ends
-// (a lost arrival) traps, so a fault fails the launch instead of hanging it.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  for (long long spins = 0;; ++spins) {
-    unsigned done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1ll << 24)) __trap();
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-// arrives on b once every cp.async this thread issued before has landed
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* b) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
+
 // a barrier of the 16 consumer warps alone (named barrier 1)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(K1T_CONSUMERS) : "memory");
@@ -811,6 +899,24 @@ cudaError_t launch_k1(const bf16* x, int M, int Tn, int nc, int tracks, int rows
                                                 s1, b1, w2, s2, b2, eps, out, s);
 }
 
+// K2: the front on `blocks` blocks, then K1's tail over the N * T rows.
+template <bool kBf16Ln, bool kGeluFold>
+cudaError_t launch_k2(const bf16* x, const bf16* kv, int N, int Tn, int V, int blocks,
+                      const int8_t* wq, const float* sq, const float* bq, const int8_t* wo,
+                      const float* so, const float* bo, const int8_t* w1, const float* s1,
+                      const float* b1, const int8_t* w2, const float* s2, const float* b2,
+                      float eps, float scale, int8_t* acode, float* ascale, bf16* out,
+                      cudaStream_t s) {
+  auto front = k2_front_kernel<kBf16Ln>;
+  cudaError_t e = set_smem(front, K2_FRONT_SMEM);
+  if (e != cudaSuccess) return e;
+  front<<<blocks, 256, K2_FRONT_SMEM, s>>>(x, kv, N, Tn, V, wq, sq, bq, eps, scale, acode, ascale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_tail<kBf16Ln, kGeluFold, false>(acode, ascale, nullptr, x, N * Tn, wo, so, bo, w1,
+                                                s1, b1, w2, s2, b2, eps, out, s);
+}
+
 }  // namespace ct
 
 using namespace ct;
@@ -848,6 +954,40 @@ int ct_k1_time_block(const void* x, int M, int T, int C, int H, int D, int nc, i
     return launch_k1<decltype(ln)::value, decltype(fold)::value>(
         xp, M, T, nc, tracks, rows_pad, wqkv, sqkv, bqkv, wo, so, bo, w1, s1, b1, w2, s2, b2,
         eps, scale, acode, ascale, op, s);
+  };
+  using T_ = std::true_type;
+  using F_ = std::false_type;
+  if (bf16_ln) return gelu_fold ? go(T_{}, T_{}) : go(T_{}, F_{});
+  return gelu_fold ? go(F_{}, T_{}) : go(F_{}, F_{});
+}
+
+// K2's front's and the tail's shared-memory bytes (mlp_int8_cuda.k2_plan
+// checks its arithmetic against them).
+int ct_k2_smem(int tail) { return tail ? K1_TAIL_SMEM : K2_FRONT_SMEM; }
+
+// K2 in bfloat16 (mlp_int8_pallas.py::_space_block_kernel): x (N, T, 384)
+// point tokens, kv (T, V <= 64, 768) the frames' projected virtual
+// keys|values -> out (N, T, 384), two launches (the front on `blocks`
+// blocks, k2_plan's count, at most one per 64-track tile, then K1's tail).
+// acode (N*T, 384) int8 and ascale (N*T,) f32: the scratch between them.
+int ct_k2_space_block(const void* x, const void* kv, int N, int T, int V, int C, int H, int D,
+                      int blocks, const int8_t* wq, const float* sq, const float* bq,
+                      const int8_t* wo, const float* so, const float* bo, const int8_t* w1,
+                      const float* s1, const float* b1, const int8_t* w2, const float* s2,
+                      const float* b2, float eps, float scale, int bf16_ln, int gelu_fold,
+                      int8_t* acode, float* ascale, void* out, void* stream) {
+  const long long tiles = static_cast<long long>((N + K2_TILE - 1) / K2_TILE) * T;
+  if (N < 1 || T < 1 || V < 1 || V > K2_MAX_V || C != KC || H != K1_HEADS || D != kDimHead ||
+      blocks < 1 || blocks > tiles || static_cast<long long>(N) * T > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* kp = static_cast<const bf16*>(kv);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto ln, auto fold) {
+    return launch_k2<decltype(ln)::value, decltype(fold)::value>(
+        xp, kp, N, T, V, blocks, wq, sq, bq, wo, so, bo, w1, s1, b1, w2, s2, b2, eps, scale,
+        acode, ascale, op, s);
   };
   using T_ = std::true_type;
   using F_ = std::false_type;

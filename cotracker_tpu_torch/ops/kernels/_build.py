@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("int8_blocks", "int8_time_block", "int8_fused", "corr_window", "attention_cores")
+SOURCES = ("int8_blocks", "int8_time_block", "int8_v2p_proj", "int8_fused", "corr_window",
+           "attention_cores")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -11,13 +11,15 @@ dtype, with an online (flash) softmax over the keys: running max from
 -0.7 * finfo(f32).max, f32 row sums of the unrounded probabilities, P.V with
 probabilities rounded to the value dtype and f32 accumulation.
 
-On the H100 the chain is csrc/int8_blocks.cu: ct_ln_quant (affine) ->
-ct_gemm_s8 (kv) -> ct_v2p_flash. What bounds it at the bench shape
-(N=10,240, T=60): the s8 projection is ~0.36 TOP (~0.18 ms at 1,979 TOP/s)
-and the point tokens are ~0.47 GB in bf16 (~0.14 ms at 3.35 TB/s), so
-compute and bytes are of the same order; this first version writes the
-projected kv (~0.94 GB) to device memory and reads it back in the flash
-pass, which the fused form would avoid.
+On the H100, K3 in bfloat16 is one kernel of csrc/int8_v2p_proj.cu (a
+block per frame, key range and head group: each 64-point tile's LN + quant
+and k|v product on chip, then K7's flash step; the projected kv never
+reaches device memory) and, where `k3_plan` keeps several key ranges, K7's
+merge; in float32 the chain of csrc/int8_blocks.cu: ct_ln_quant (affine)
+-> ct_gemm_s8 (kv to device memory) -> ct_v2p_flash. At the bench shape
+(N=10,240, T=60) the s8 projection is ~0.36 TOP (~0.18 ms at 1,979 TOP/s)
+and the point tokens are ~0.47 GB in bf16 (~0.14 ms at 3.35 TB/s); see the
+kernel's note for what bounds it.
 
 K5, K6 and K7 replace attention_pallas.py::_kernel, ::_p2v_kernel and
 ::_v2p_kernel (wrappers fused_time_attention, fused_points_from_virtual,
@@ -55,6 +57,7 @@ from cotracker_tpu_torch.ops.kernels.mlp_int8_cuda import (
 )
 
 NEG_BIG = -0.7 * torch.finfo(torch.float32).max
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def v2p_proj_plain(q, x, wkv: QLinear, gamma, beta, num_heads, dim_head, key_bias, eps=1e-5):
@@ -68,11 +71,11 @@ def v2p_proj_plain(q, x, wkv: QLinear, gamma, beta, num_heads, dim_head, key_bia
     return v2p_plain(q, kv, num_heads, dim_head, key_bias)
 
 
-def _v2p_proj_cuda(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps):
+def _v2p_proj_chain(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps):
+    """K3 as the launch chain of csrc/int8_blocks.cu: the route of float32
+    tokens (LN + quant, the kv product to device memory, the flash core)."""
     T, V, C = q.shape
     N = x.shape[0]
-    if x.device.type != "cuda" or wkv.w.device.type != "cuda":
-        raise ValueError("kernel inputs must all be CUDA tensors")
     x2d = x.contiguous().reshape(N * T, C)
     g = gamma.detach().to(F32).contiguous()
     b = beta.detach().to(F32).contiguous()
@@ -82,14 +85,140 @@ def _v2p_proj_cuda(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps):
                      key_bias.to(F32).contiguous(), N, num_heads, dim_head)
 
 
+class K3Plan(NamedTuple):
+    """K3's route for N points x T frames and V virtual queries: "fused"
+    (bfloat16 queries and tokens: csrc/int8_v2p_proj.cu, a block per
+    (frame x 64-query group, key range, group of `heads` heads), `splits`
+    ranges of `split_keys` points, merged by a second launch where splits >
+    1; `smem` bytes a block) or "chain" (float32: the launch chain)."""
+
+    route: str
+    splits: int = 1
+    split_keys: int = 0
+    heads: int = 0
+    blocks: int = 0
+    smem: int = 0
+
+
+K3_KEYS = 64  # points a tile of the fused kernel
+# int8_v2p_proj.cu's K3KvGemm = RingGemm<2, 4, 2, 6, 128, 3> (the plan test
+# reads it back from the source)
+K3_KV_RING = mlp_int8_cuda._ring_bytes(NW=4, NI=6, BK=128, STAGES=3)
+# The plan's cost of one 64-point tile of a block, in units of its work at
+# eight heads: the block's heads' share plus the tile's LN, row quantization
+# and row reads, which every head group repeats (an estimate; it picks 8
+# heads at 10,240 x 60 and 4 at x 16, the faster of the two on an H100 at
+# both: scripts/torch_k3_parts.py)
+K3_TILE_OVERHEAD = 0.3
+
+
+def k3_smem(heads: int) -> int:
+    """Shared-memory bytes of a fused K3 block of `heads` heads (k3_smem in
+    csrc/int8_v2p_proj.cu): the queries, the tile's x rows and codes, a head
+    pair's key and value tiles, the weight ring, two row vectors and the x
+    rows' mbarrier."""
+    return (heads * 64 * 48 * 2 + K3_KEYS * 384 * 2 + K3_KEYS * (384 + 16) + 4 * K3_KEYS * 48 * 2
+            + K3_KV_RING + 2 * K3_KEYS * 4 + 16)
+
+
+def k3_split_keys(N: int, splits: int) -> int:
+    """Points a key range takes when N are split into `splits` ranges of
+    whole 64-point tiles (launch_v2p_flash's split, so the chain's and the
+    fused kernel's ranges are the same for the same count)."""
+    tiles = -(-N // K3_KEYS)
+    return -(-tiles // splits) * K3_KEYS
+
+
+def k3_ranges(N: int, split_keys: int):
+    """The key ranges [begin, end) of `split_keys` points each (the last
+    one shorter)."""
+    return [(b, min(N, b + split_keys)) for b in range(0, N, split_keys)]
+
+
+def k3_plan(N: int, T: int, V: int, dtype, x_dtype=None, sms: int = 132) -> K3Plan:
+    """K3's route, key ranges and head groups on a card of `sms` SMs (one
+    fused block an SM). Ranges take at least V2P_RANGE_KEYS points, as K7's
+    (each rounds its probabilities against its own running max); among the
+    counts and the head groups (8 or 4 heads a block) that allows, the one
+    whose waves of blocks times the tiles of a range, at K3_TILE_OVERHEAD,
+    cost least; of equals, 8 heads and fewer ranges."""
+    if N < 1 or T < 1 or V < 1:
+        raise ValueError(f"K3 takes N, T, V >= 1, got N={N}, T={T}, V={V}")
+    if dtype not in (F32, torch.bfloat16):
+        raise TypeError(f"K3 takes float32 or bfloat16 queries, got {dtype}")
+    if dtype != torch.bfloat16 or (x_dtype or dtype) != dtype:
+        return K3Plan("chain")
+    qg = -(-V // 64)  # 64-query groups
+    best = None
+    for heads in (8, 4):
+        for s in range(1, max(1, min(16, N // V2P_RANGE_KEYS)) + 1):
+            split_keys = k3_split_keys(N, s)
+            if len(k3_ranges(N, split_keys)) != s:  # fewer ranges hold keys: a smaller count
+                continue
+            blocks = T * qg * s * (8 // heads)
+            cost = -(-blocks // sms) * (split_keys // K3_KEYS) * (heads / 8 + K3_TILE_OVERHEAD)
+            key = (cost, heads != 8, s)
+            if best is None or key < best[0]:
+                best = (key, K3Plan("fused", s, split_keys, heads, blocks, k3_smem(heads)))
+    return best[1]
+
+
+_proj_fns = {}
+
+
+def _proj_lib():
+    """ctypes functions of csrc/int8_v2p_proj.cu."""
+    if not _proj_fns:
+        lib = _build.load("int8_v2p_proj")
+        _proj_fns["k3"] = _build.bind(lib, "ct_k3_v2p_proj", *([_P] * 8), *([_I] * 9), _F, _F, _P,
+                                      _P, _P)
+        _proj_fns["k3_smem"] = _build.bind(lib, "ct_k3_smem", _I)
+    return _proj_fns
+
+
+def _v2p_proj_fused(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps, plan: K3Plan):
+    """K3 in bfloat16: ct_k3_v2p_proj on `plan` (one launch, or two with
+    the merge of the key ranges' f32 partials, allocated here)."""
+    T, V, C = q.shape
+    N = x.shape[0]
+    if C != 384 or num_heads * dim_head != C or tuple(x.shape) != (N, T, C) \
+            or tuple(wkv.w.shape) != (2 * C, C):
+        raise ValueError(f"K3 takes C=384 and to_kv (2C, C); got q {tuple(q.shape)}, x "
+                         f"{tuple(x.shape)}, wkv {tuple(wkv.w.shape)}")
+    q, x = q.contiguous(), x.contiguous()
+    g = gamma.detach().to(F32).contiguous()
+    b = beta.detach().to(F32).contiguous()
+    bias = key_bias.to(F32).contiguous()
+    part = (torch.empty((plan.splits * T * V * (C + 2 * num_heads),), dtype=F32, device=q.device)
+            if plan.splits > 1 else None)
+    out = torch.empty_like(q)
+    _build.check(_proj_lib()["k3"](
+        _build.ptr(q), _build.ptr(x), _build.ptr(bias), _build.ptr(g), _build.ptr(b),
+        _build.ptr(wkv.w), _build.ptr(wkv.s), _build.ptr(wkv.b), N, T, V, C, num_heads, dim_head,
+        plan.splits, plan.split_keys, plan.heads, eps, dim_head**-0.5, _build.ptr(out),
+        _build.ptr(part), _build.stream_ptr(q)), "ct_k3_v2p_proj")
+    return out
+
+
 def fused_virtual_from_points_proj(q, x, wkv: QLinear, gamma, beta, num_heads, dim_head,
                                    key_bias, eps=1e-5):
     """K3. q (T, V, C); x (N, T, C); wkv the quantized to_kv; gamma/beta the
     context norm; key_bias (N,) (0 = valid key, -0.7 * finfo.max = masked).
-    Returns (T, V, C) in q.dtype."""
+    Returns (T, V, C) in q.dtype. On the card, k3_plan's route: bfloat16
+    the fused kernel (the projected kv never exists), float32 the chain."""
     if q.device.type == "cpu":
         return v2p_proj_plain(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps)
-    out = _v2p_proj_cuda(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps)
+    T, V, _ = q.shape
+    N = x.shape[0]
+    for t in (q, x, wkv.w, key_bias):
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel inputs must all be CUDA tensors, got {t.device}")
+    plan = k3_plan(N, T, V, q.dtype, x.dtype,
+                   torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if plan.route == "fused":
+        out = _v2p_proj_fused(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps, plan)
+    else:
+        out = _v2p_proj_chain(q, x, wkv, gamma, beta, num_heads, dim_head, key_bias, eps)
     fused_virtual_from_points_proj.launches += 1
     return out
 
@@ -99,7 +228,6 @@ fused_virtual_from_points_proj.launches = 0
 
 # ------------------------------------------------------------ K5, K6, K7
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _fns = {}
 
 

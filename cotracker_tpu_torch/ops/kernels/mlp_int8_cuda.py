@@ -10,9 +10,13 @@ fused_space_block_int8). On the H100, K1 in bfloat16 is two launches of
 csrc/int8_time_block.cu (a front per block of whole tracks: LN + quant, the
 q|k|v products, the bf16 time core, a's row codes; a tail per 64-row tile:
 to_out + residual, LN + quant, fc1 + GELU + quant, fc2 + residual), whose
-tiling `k1_plan` computes; K1 in float32 and K2 are chains of hand-written
-launches of csrc/int8_blocks.cu (LN + row quant, tensor-core s8 GEMMs with
-fused dequant/bias/GELU/residual epilogues, the attention core). K8
+tiling `k1_plan` computes; K2 in bfloat16 is two launches of the same file
+(its own front per run of 64-track tiles of one frame: LN + quant, the q
+product, the points<-virtual core, a's row codes; then K1's tail), routed
+by `k2_plan`; K1 and K2 in float32 (K2 also past 64 virtual tokens) are
+chains of hand-written launches of csrc/int8_blocks.cu (LN + row quant,
+tensor-core s8 GEMMs with fused dequant/bias/GELU/residual epilogues, the
+attention core). K8
 replaces ::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel
 (wrapper fused_attnout_res_mlp_int8), one launch each: a row tile's
 activations, its f32 residual and its GELU codes stay in shared memory; K9
@@ -284,6 +288,9 @@ def _lib():
                                  *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
         _fns["k1_smem"] = _build.bind(k1, "ct_k1_smem", _I, _I, _I)
         _fns["k1_gelu_check"] = _build.bind(k1, "ct_k1_gelu_check", _P, _P, _P)
+        _fns["k2"] = _build.bind(k1, "ct_k2_space_block", _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
+        _fns["k2_smem"] = _build.bind(k1, "ct_k2_smem", _I)
         _fns["k9_tail"] = _build.bind(k1, "ct_k9_tail", _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _F, _I, _I, _P, _P)
         fused = _build.load("int8_fused")
@@ -452,7 +459,52 @@ def _time_block_fused(x, w: TimeBlockWeights, num_heads, dim_head, eps, bf16_ln,
     return out
 
 
-def _space_block_cuda(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln, gelu_fold):
+class K2Plan(NamedTuple):
+    """K2's route for N tracks x T frames over V virtual tokens: "fused"
+    (bfloat16 tokens and keys, V <= K2_MAX_V: csrc/int8_time_block.cu's
+    front on `blocks` blocks, each a run of the `tiles` 64-track tiles of
+    one frame after another, then K1's tail on `tail_blocks` 64-row tiles)
+    or "chain" (float32, or more virtual tokens than the front stages: the
+    launch chain of csrc/int8_blocks.cu); shared memory of the front and
+    the tail in bytes (0 on the chain)."""
+
+    route: str
+    tiles: int = 0
+    blocks: int = 0
+    front_smem: int = 0
+    tail_smem: int = 0
+    tail_blocks: int = 0
+
+
+K2_MAX_V = 64  # virtual tokens K2's front stages per frame (one key chunk)
+# int8_time_block.cu's K2QGemm = RingGemm<2, 4, 2, 3, 64, 4> (the plan test
+# reads it back from the source) and K2's front's shared memory: the frame's
+# keys and values, the tile's x rows, its codes, a head pair's q, the ring,
+# three row vectors and the x rows' mbarrier
+K2_Q_RING = _ring_bytes(NW=4, NI=3, BK=64, STAGES=4)
+K2_FRONT_SMEM = (2 * 8 * K2_MAX_V * 48 * 2 + 64 * 384 * 2 + 64 * _LDA_C + 2 * 64 * 48 * 2
+                 + K2_Q_RING + 3 * 64 * 4 + 16)
+
+
+def k2_plan(N: int, T: int, V: int, dtype, kv_dtype=None, sms: int = 132) -> K2Plan:
+    """K2's route and tiling on a card of `sms` SMs (one front block an SM;
+    the arithmetic of K2_FRONT_SMEM / K1_TAIL_SMEM in
+    csrc/int8_time_block.cu)."""
+    if N < 1 or T < 1 or V < 1:
+        raise ValueError(f"K2 takes N, T, V >= 1, got N={N}, T={T}, V={V}")
+    if dtype not in (F32, torch.bfloat16):
+        raise TypeError(f"K2 takes float32 or bfloat16 tokens, got {dtype}")
+    if dtype != torch.bfloat16 or (kv_dtype or dtype) != dtype or V > K2_MAX_V:
+        return K2Plan("chain")
+    tiles = -(-N // 64) * T
+    return K2Plan("fused", tiles, min(tiles, sms), K2_FRONT_SMEM, k1_plan(1, 1).tail_smem,
+                  -(-N * T // 64))
+
+
+def _space_block_chain(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln,
+                       gelu_fold):
+    """K2 as the launch chain of csrc/int8_blocks.cu: the route of float32
+    tokens and of more virtual tokens than the fused front stages."""
     N, T, C = x.shape
     V = kv.shape[1]
     _check_cuda(x, kv, w.q.w, keys=V)
@@ -465,6 +517,28 @@ def _space_block_cuda(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf1
         _build.ptr(q), _build.ptr(kv), _is_bf16(kv), _build.ptr(a), N, T, V, num_heads,
         dim_head, dim_head**-0.5, _build.stream_ptr(x)), "ct_p2v_attention")
     return _mlp_tail_cuda(a, x2d, w, eps, x.dtype, bf16_ln, gelu_fold).reshape(N, T, C)
+
+
+def _space_block_fused(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln,
+                       gelu_fold, plan: K2Plan):
+    """K2 in bfloat16: the two launches of ct_k2_space_block on `plan`; a's
+    int8 codes and row scales pass between them through device memory."""
+    N, T, C = x.shape
+    V = kv.shape[1]
+    if C != SPLIT_C or num_heads * dim_head != C or tuple(kv.shape) != (T, V, 2 * C) \
+            or tuple(w.fc1.w.shape) != (SPLIT_H, C):
+        raise ValueError(f"K2 takes C={SPLIT_C}, hidden {SPLIT_H}, kv (T, V, 2C); got x "
+                         f"{tuple(x.shape)}, kv {tuple(kv.shape)}, fc1 {tuple(w.fc1.w.shape)}")
+    x, kv = x.contiguous(), kv.contiguous()
+    acode = torch.empty((N * T, C), dtype=torch.int8, device=x.device)
+    ascale = torch.empty((N * T,), dtype=F32, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = [_build.ptr(t) for lin in w for t in lin]
+    _build.check(_lib()["k2"](
+        _build.ptr(x), _build.ptr(kv), N, T, V, C, num_heads, dim_head, plan.blocks, *ptrs, eps,
+        dim_head**-0.5, int(bf16_ln), int(gelu_fold), _build.ptr(acode), _build.ptr(ascale),
+        _build.ptr(out), _build.stream_ptr(x)), "ct_k2_space_block")
+    return out
 
 
 def fused_time_block_int8(x, w: TimeBlockWeights, num_heads, dim_head, eps=1e-6, bf16_ln=False,
@@ -498,10 +572,19 @@ def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps
         q = to_q(ln(x)); a = attention over that frame's V virtual keys|values
         r = x + to_out(a); return r + fc2(gelu(fc1(ln(r))))
 
-    x (N, T, C) point tokens; kv (T, V, 2C) -> (N, T, C) in x.dtype."""
+    x (N, T, C) point tokens; kv (T, V, 2C) -> (N, T, C) in x.dtype. On the
+    card, k2_plan's route: bfloat16 with up to K2_MAX_V virtual tokens the
+    two launches of ct_k2_space_block, else the launch chain."""
     if x.device.type == "cpu":
         return space_block_plain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
-    out = _space_block_cuda(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
+    N, T, _ = x.shape
+    _check_cuda(x, kv, w.q.w, keys=kv.shape[1])
+    plan = k2_plan(N, T, kv.shape[1], x.dtype, kv.dtype,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan.route == "fused":
+        out = _space_block_fused(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold, plan)
+    else:
+        out = _space_block_chain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     fused_space_block_int8.launches += 1
     return out
 

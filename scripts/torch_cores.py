@@ -1,7 +1,6 @@
 """The attention cores of the port on the card, alone: K5 (time, its long
-route past 512 frames too), K6 (points <- virtual), K7 (virtual <- points)
-and the K2 / K3 chains whose attention stages share K6's and K7's device
-code, each against its plain version (max |err| / max |ref|) and timed with
+route past 512 frames too), K6 (points <- virtual), K7 (virtual <- points),
+each against its plain version (max |err| / max |ref|) and timed with
 CUDA events beside one scaled_dot_product_attention call on the same
 operands (a yardstick; the port never calls it) and its byte bound. Then
 K1, the whole W8A8 time block whose attention stage is K5's time core: its
@@ -21,13 +20,21 @@ offline window and of a streaming window, levels 1-3 of the offline window,
 level 0 of the long forward's 250 frames), its codes and scales against
 corr_volume_plain (bit for bit), and K9 (the split time block's out + MLP
 half) at the long forward's row counts (2,048, 2,560 and 64 tracks x 250
-frames) against attnout_mlp_plain, each with its bound.
+frames) against attnout_mlp_plain, each with its bound. Then K2 (the whole
+points<-virtual block: in bf16 a fused front and K1's tail) and
+K3 (virtual <- points with the norm and the k|v projection: in bf16 one
+fused kernel and the merge of its key ranges) at 10,240 tracks x 60 and x
+16 frames (K3 also at 70,656 x 16), each against its plain version, with
+its kernels' device time from the profiler's records, its device launches,
+the launch chain it replaced (kept as the f32 route) and its bound; on an
+earlier checkout (--root) the same records time that checkout's body.
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
                                                 # count, K5's register and
                                                 # two-pass routes side by side
     python3 scripts/torch_cores.py --only k4 k9 # some sections
+    python3 scripts/torch_cores.py --only k2 k3 --root build/parent
     python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
                                                 # the same sections on
                                                 # another checkout's package
@@ -229,7 +236,7 @@ def k9_section(dev, g):
         del x, a, out, ref
 
 
-SECTIONS = ("k4", "k9", "cores", "k1", "chains")
+SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3")
 
 
 def main():
@@ -251,7 +258,7 @@ def main():
     # each section draws its operands from its own seed, so --only repeats them
     seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
     run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
-               k1=k1_section, chains=chains_section)
+               k1=k1_section, k2=k2_section, k3=k3_section)
     for name in SECTIONS:
         if name in args.only:
             run[name](dev, torch.Generator().manual_seed(seeds[name]))
@@ -353,26 +360,82 @@ def k1_section(dev, g):
     k1_bands(dev)
 
 
-def chains_section(dev, g):
-    bf = torch.bfloat16
-    A, M = attention_cuda, mlp_int8_cuda
-    sw = M.SpaceBlockWeights(*(lin(g, dev, o, i) for o, i in ((C, C), (C, C), (4 * C, C), (C, 4 * C))))
+K2_SHAPES = ((10240, 60), (10240, 16))
+K3_SHAPES = ((10240, 60), (10240, 16), (70656, 16))
+
+
+def _emit_block(kernel, fn, ref, parts, chain, rec, bound):
+    """One record of a whole W8A8 block: the wrapper's body against its plain
+    version, its time, the device time of its kernels by name (`parts`:
+    record key -> substring of the kernel names), its device launches a
+    call, the launch chain where the checkout keeps one, and its bound."""
+    out = fn()
+    err = (out.float() - ref.float()).abs()
+    by_kernel = kernel_ms(fn)
+    rec.update(
+        kernel=kernel, max_abs_err=err.max().item(), median_abs_err=err.median().item(),
+        mean_abs_ref=ref.float().abs().mean().item(), max_abs_ref=ref.float().abs().max().item(),
+        beyond_tight=beyond_tight(out, ref), ms=time_ms(fn, reps=10),
+        **{k: sum(t for n, t in by_kernel.items() if sub in n) for k, sub in parts.items()},
+        kernels_ms={n[:60]: round(t, 4) for n, t in by_kernel.items()},
+        device_launches=device_launches(fn),
+        chain_ms=None if chain is None else time_ms(chain, reps=5), bound_ms=bound)
+    emit(**rec)
+
+
+def k2_section(dev, g):
+    """K2, the whole points<-virtual block, at the main paths' shapes: the
+    wrapper's body (in bf16 the fused front then K1's tail; on
+    an earlier checkout its launch chain) with the front's and the tail's
+    device time, beside the launch chain where the checkout keeps it."""
+    M = mlp_int8_cuda
+    sw = M.SpaceBlockWeights(*(lin(g, dev, o, i) for o, i in ((C, C), (C, C), (HID, C), (C, HID))))
+    wbytes = nbytes(*[t for q in sw for t in q])
+    chain = getattr(M, "_space_block_chain", None)
+    for N, T in K2_SHAPES:
+        x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, torch.bfloat16)
+        rows = N * T
+        plan = M.k2_plan(N, T, V, x.dtype, sms=torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)._asdict() if hasattr(M, "k2_plan") else None
+        _emit_block("K2", lambda: M.fused_space_block_int8(x, kv, sw, H, D),
+                    M.space_block_plain(x, kv, sw, H, D),
+                    dict(front_ms="k2_front_kernel", tail_ms="k1_tail_kernel"),
+                    None if chain is None else lambda: chain(x, kv, sw, H, D, 1e-6, False, False),
+                    dict(tracks=N, frames=T, plan=plan),
+                    bound_ms(2 * nbytes(x) + nbytes(kv) + wbytes,
+                             rows * 2 * C * (2 * C + 2 * HID) / INT8_OPS
+                             + rows * H * 4 * V * D / BF16_OPS))
+        del x, kv
+
+
+def k3_section(dev, g):
+    """K3, virtual<-points with the context norm and the k|v projection, at
+    the main paths' shapes and the quasi-dense point count (the last eighth
+    of the keys masked): the wrapper's body (in bf16 one fused kernel and
+    the merge of its key ranges; on an earlier checkout its
+    launch chain) with the kernel's and the merge's device time, beside the
+    launch chain where the checkout keeps it."""
+    A = attention_cuda
     wkv = lin(g, dev, 2 * C, C)
     gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
     beta = (0.05 * torch.randn(C, generator=g)).to(dev)
-    for N, T in ((10240, 16), (10240, 60)):
-        x = torch.randn(N, T, C, generator=g).to(dev, bf)
-        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
-        emit(chain="K2", tracks=N, frames=T,
-             err=rel_err(M.fused_space_block_int8(x, kv, sw, H, D),
-                         M.space_block_plain(x, kv, sw, H, D)),
-             ms=time_ms(lambda: M.fused_space_block_int8(x, kv, sw, H, D)))
-        q = (0.3 * torch.randn(T, V, C, generator=g)).to(dev, bf)
+    chain = getattr(A, "_v2p_proj_chain", None)
+    for N, T in K3_SHAPES:
+        q = (0.3 * torch.randn(T, V, C, generator=g)).to(dev, torch.bfloat16)
+        x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
         bias = torch.zeros(N, device=dev)
-        a = (q, x, wkv, gamma, beta, H, D, bias)
-        emit(chain="K3", tracks=N, frames=T,
-             err=rel_err(A.fused_virtual_from_points_proj(*a), A.v2p_proj_plain(*a)),
-             ms=time_ms(lambda: A.fused_virtual_from_points_proj(*a)))
+        bias[N - N // 8:] = A.NEG_BIG
+        args = (q, x, wkv, gamma, beta, H, D, bias)
+        plan = A.k3_plan(N, T, V, q.dtype, sms=torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)._asdict() if hasattr(A, "k3_plan") else None
+        _emit_block("K3", lambda: A.fused_virtual_from_points_proj(*args), A.v2p_proj_plain(*args),
+                    dict(fused_ms="k3_proj_flash_kernel", merge_ms="v2p_merge_kernel"),
+                    None if chain is None else lambda: chain(*args, 1e-5),
+                    dict(tracks=N, frames=T, plan=plan),
+                    bound_ms(nbytes(q, x, wkv.w, bias, q),
+                             N * T * 2 * C * 2 * C / INT8_OPS + T * H * V * N * 4 * D / BF16_OPS))
+        del q, x
 
 
 if __name__ == "__main__":

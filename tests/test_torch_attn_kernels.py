@@ -19,6 +19,16 @@ from cotracker_tpu.ops.kernels import attention_pallas
 from cotracker_tpu_torch.ops.kernels import attention_cuda
 
 torch.set_num_threads(2)
+# torch.exp on float32 CPU tensors calls MKL's VML exp. When a process's
+# first such call comes from two threads at once, one thread's chunk can
+# come out of a coarse exp (1.5e-4 relative: 8 of 330 fresh processes on
+# one 8-core CPU, 30 at a time), which puts a few elements of the float32
+# flash cases past their 1e-5 bound. One call on one thread first, here at
+# import, before any test of the process, leaves every later call the
+# accurate one (0 of 360 processes).
+torch.set_num_threads(1)
+torch.exp(torch.zeros(64))
+torch.set_num_threads(2)
 
 C, HEADS, DH, V = 384, 8, 48, 64
 NEG_BIG = -0.7 * np.finfo(np.float32).max

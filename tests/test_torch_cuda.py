@@ -6,8 +6,11 @@ gradients against plain autograd (marker `cuda`; skips without a GPU).
 K6 and K7 also at ragged shapes and, K7, at the quasi-dense key count
 (several blocks per key range, merged); K5 past 512 frames and at the
 edges of every route of k5_plan; K1 in bf16 (two launches) at every route
-of k1_plan the frame gate reaches; the K2 and K3 chains at the streaming
-width; the wrapper with corr_fuse_mlp1 (K4m).
+of k1_plan the frame gate reaches; K2 in bf16 (the fused front, then K1's
+tail: two launches) and K3 in bf16 (one fused kernel, and the merge of its
+key ranges) from 1 to 250 frames at ragged track counts; the K2 and K3
+chains (the f32 routes) at the streaming width; the wrapper with
+corr_fuse_mlp1 (K4m).
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -33,6 +36,7 @@ import torch
 
 from cotracker_tpu_torch.ops.corr import fused_corr_embs
 from cotracker_tpu_torch.ops.kernels import attention_cuda, corr_cuda, mlp_int8_cuda
+from cotracker_tpu_torch.utils.profiling import device_launches
 
 pytestmark = pytest.mark.cuda
 C, HID, H, D = 384, 1536, 8, 48
@@ -567,16 +571,18 @@ def test_time_block_negative_gelu(dev, T):
 
 
 def test_chain_cores_at_width(dev):
-    """The K2 and K3 chains, whose attention stages are K6's and K7's
-    tensor-core bodies (K2's writing f32 for its next quantization), at the
-    streaming width: 10,000 tracks x 16 frames, bf16, in the W8A8 band."""
+    """The K2 and K3 chains (float32's routes; K2's also past the 64 virtual
+    tokens its fused front stages), whose attention stages are K6's and
+    K7's tensor-core bodies in bf16 (K2's writing f32 for its next
+    quantization), at the streaming width: 10,000 tracks x 16 frames, bf16,
+    in the W8A8 band."""
     g = torch.Generator().manual_seed(4)
     N, T, V = 10000, 16, 64
     w = mlp_int8_cuda.SpaceBlockWeights(_lin(g, C, C, dev), _lin(g, C, C, dev),
                                         _lin(g, HID, C, dev), _lin(g, C, HID, dev))
     x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
     kv = torch.randn(T, V, 2 * C, generator=g).to(dev, torch.bfloat16)
-    _close(mlp_int8_cuda.fused_space_block_int8(x, kv, w, H, D),
+    _close(mlp_int8_cuda._space_block_chain(x, kv, w, H, D, 1e-6, False, False),
            mlp_int8_cuda.space_block_plain(x, kv, w, H, D), torch.bfloat16)
     wkv = _lin(g, 2 * C, C, dev)
     q = (torch.randn(T, V, C, generator=g) * 0.3).to(dev, torch.bfloat16)
@@ -585,8 +591,125 @@ def test_chain_cores_at_width(dev):
     bias = torch.zeros(N, device=dev)
     bias[9000:] = attention_cuda.NEG_BIG
     args = (q, x, wkv, gamma, beta, H, D, bias)
-    _close(attention_cuda.fused_virtual_from_points_proj(*args),
-           attention_cuda.v2p_proj_plain(*args), torch.bfloat16)
+    _close(attention_cuda._v2p_proj_chain(*args, 1e-5), attention_cuda.v2p_proj_plain(*args),
+           torch.bfloat16)
+
+
+def _chain_bands(out, ref, chain):
+    """A fused W8A8 body in bf16 against its plain version: chip_smoke's band
+    (_k1_close) and the W8A8 band (_close), whose share of elements past its
+    tight bound may reach the launch chain's on the same inputs plus 0.5
+    points (see _k1_bands)."""
+    _k1_close(out, ref)
+    _close(out, ref, torch.bfloat16,
+           share=max(0.02, _beyond_tight(chain, ref, torch.bfloat16) + 0.005))
+
+
+def _space_pack(g, dev, fold=False):
+    """K2's weights: to_q as the time pack's q rows; with `fold` the fc1
+    that leaves every pre-GELU value negative (_fold_pack)."""
+    w = _fold_pack(g, dev) if fold else _time_pack(g, dev)
+    q = mlp_int8_cuda.QLinear(w.qkv.w[:C].contiguous(), w.qkv.s[:C].contiguous(),
+                              w.qkv.b[:C].contiguous())
+    return mlp_int8_cuda.SpaceBlockWeights(q, w.out, w.fc1, w.fc2)
+
+
+# K2 and K3: ragged track counts (37: one partial tile; 300: four whole
+# tiles and one partial) at every frame count from one frame to the long
+# forward's 250, and the main paths' 10,240 tracks
+K2_SHAPES = [(N, T) for T in (1, 5, 16, 60, 250) for N in (37, 300)] + [(10240, 16), (10240, 60)]
+
+
+@pytest.mark.parametrize("mode", ["off", "bf16_ln", "gelu_fold", "negative_gelu"])
+@pytest.mark.parametrize("N,T", K2_SHAPES)
+def test_space_block_frames(dev, N, T, mode):
+    """K2 in bf16 is two device launches of ct_k2_space_block: the front
+    (a block walks a run of 64-track tiles frame after frame, staging each
+    frame's keys and values as it enters it), then K1's tail. Each variant
+    mode, and the fold's weights with the fold off (every row's GELU-code
+    scale from the full |gelu| max); the plan's route and shared memory
+    are the kernel's."""
+    g = torch.Generator().manual_seed(N + T)
+    w = _space_pack(g, dev, fold=mode in ("gelu_fold", "negative_gelu"))
+    x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+    kv = torch.randn(T, 64, 2 * C, generator=g).to(dev, torch.bfloat16)
+    kw = {mode: True} if mode in ("bf16_ln", "gelu_fold") else {}
+    plan = mlp_int8_cuda.k2_plan(N, T, 64, torch.bfloat16,
+                                 sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    smem = mlp_int8_cuda._lib()["k2_smem"]
+    assert plan.route == "fused" and (plan.front_smem, plan.tail_smem) == (smem(0), smem(1))
+    fn = lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, w, H, D, **kw)  # noqa: E731
+    n = mlp_int8_cuda.fused_space_block_int8.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_space_block_int8.launches == n + 1
+    assert device_launches(fn) == 2
+    chain = mlp_int8_cuda._space_block_chain(x, kv, w, H, D, 1e-6, kw.get("bf16_ln", False),
+                                             kw.get("gelu_fold", False))
+    _chain_bands(out, mlp_int8_cuda.space_block_plain(x, kv, w, H, D, **kw), chain)
+
+
+@pytest.mark.parametrize("mask", ["tail", "all"])
+@pytest.mark.parametrize("N,T", [(37, 1), (37, 16), (1000, 1), (1000, 16), (1000, 60),
+                                 (10240, 1), (10240, 16), (10240, 60)])
+def test_v2p_proj_frames(dev, N, T, mask):
+    """K3 in bf16 is ct_k3_v2p_proj: LN + the k|v product + the flash step
+    in one kernel (the (N*T, 768) kv never in device memory), and K7's merge
+    where k3_plan keeps several key ranges: at most two device launches.
+    Ragged key tiles (37, 1,000 points), the last eighth of the keys masked,
+    and every key masked (finite: the plain average of the values); the
+    bands of test_space_block_frames against the chain."""
+    g = torch.Generator().manual_seed(7 * N + T)
+    wkv = _lin(g, 2 * C, C, dev)
+    q = (torch.randn(T, 64, C, generator=g) * 0.3).to(dev, torch.bfloat16)
+    x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+    gamma = (1 + 0.2 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(C, generator=g)).to(dev)
+    bias = torch.zeros(N, device=dev)
+    bias[(N - N // 8 if mask == "tail" else 0):] = attention_cuda.NEG_BIG
+    args = (q, x, wkv, gamma, beta, H, D, bias)
+    plan = attention_cuda.k3_plan(N, T, 64, torch.bfloat16,
+                                  sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.route == "fused"
+    assert plan.smem == attention_cuda._proj_lib()["k3_smem"](plan.heads)
+    fn = lambda: attention_cuda.fused_virtual_from_points_proj(*args)  # noqa: E731
+    n = attention_cuda.fused_virtual_from_points_proj.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_virtual_from_points_proj.launches == n + 1
+    assert device_launches(fn) == (1 if plan.splits == 1 else 2)
+    assert torch.isfinite(out.float()).all()
+    _chain_bands(out, attention_cuda.v2p_proj_plain(*args),
+                 attention_cuda._v2p_proj_chain(*args, 1e-5))
+
+
+def test_float32_space_and_proj_keep_the_chains(dev):
+    """float32 tokens (and K2 past the 64 virtual tokens its front stages)
+    take the launch chains, chosen up front by k2_plan / k3_plan: the chain's
+    device launches and its numbers, bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    N, T = 300, 5
+    w = _space_pack(g, dev)
+    wkv = _lin(g, 2 * C, C, dev)
+    gamma = (1 + 0.2 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(C, generator=g)).to(dev)
+    bias = torch.zeros(N, device=dev)
+    for dtype, V in ((torch.float32, 64), (torch.bfloat16, 65)):
+        x = torch.randn(N, T, C, generator=g).to(dev, dtype)
+        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, dtype)
+        assert mlp_int8_cuda.k2_plan(N, T, V, dtype).route == "chain"
+        fn = lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, w, H, D)  # noqa: E731
+        chain = lambda: mlp_int8_cuda._space_block_chain(x, kv, w, H, D, 1e-6, False, False)  # noqa: E731
+        assert torch.equal(fn(), chain())
+        assert device_launches(fn) == device_launches(chain) > 2
+    x = torch.randn(N, T, C, generator=g).to(dev)
+    q = (torch.randn(T, 64, C, generator=g) * 0.3).to(dev)
+    args = (q, x, wkv, gamma, beta, H, D, bias)
+    assert attention_cuda.k3_plan(N, T, 64, torch.float32).route == "chain"
+    fn = lambda: attention_cuda.fused_virtual_from_points_proj(*args)  # noqa: E731
+    chain = lambda: attention_cuda._v2p_proj_chain(*args, 1e-5)  # noqa: E731
+    assert torch.equal(fn(), chain())
+    assert device_launches(fn) == device_launches(chain) > 2
 
 
 def test_trainable_fuse_mlp1_on_card(dev):
