@@ -39,7 +39,9 @@ Phases, each raising on failure:
      passes over the staged keys); then K8 (LN + W8A8
      q|kv) and K9 (W8A8 out + MLP), the two halves of the
      time block's split, in bf16 at the long path's point tokens (2,048
-     and 2,560 tracks x 250 frames) and virtual tokens (64 x 250); K9 in
+     and 2,560 tracks x 250 frames) and virtual tokens (64 x 250); K8 in
+     bf16 is the streamed body (persistent blocks on a weight stream),
+     held bit for bit to its PR 4 body, which is timed beside it; K9 in
      bf16 is K1's streamed tail with K9's prologue;
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
      (384x512, 4 levels, 3+3 blocks, iters=6) on a synthetic
@@ -93,10 +95,13 @@ Phases, each raising on failure:
      written; then the single-point protocol on three of B's queries;
  11. the kernels of the four variant switches (ops/kernels/variants.py)
      against their plain versions in bf16: K4m (correlation + combine +
-     per-point quantization + MLP1) at level 0, 2,048 points x 16 and x 60
-     frames (rows bit-identical), with the K4 + int8-MLP1 chain timed
-     beside it; K11 (the all-frames points<-virtual block) at 10,240 and
-     70,656 tracks x 16 frames, K2 timed beside it; K10 in each
+     per-point quantization + MLP1; two launches: the code rows on K4's
+     cluster tiling, then MLP1 on 128-row tiles) at level 0, 2,048 points x
+     16 and x 60 frames and 256 points x 80 frames (two passes), its code
+     rows, scales and rows bit-identical to its plain version, with its
+     first body (PR 5) and the K4 + int8-MLP1 chain timed beside it; K11
+     (the all-frames points<-virtual block) at 10,240 and 70,656 tracks x
+     16 frames, K2 timed beside it; K10 in each
      flag combination and K12 with the LN on and off at 604,800 rows; then
      every W8A8 body (K1, K2, K8-K12) in each variant mode (bf16 LayerNorm,
      GELU-quant fold) at 2,048 tracks x 16 frames;
@@ -699,14 +704,23 @@ def split_kernel_phase(dev):
         log(f"    elements further than one bf16 ulp: {frac:.2e} (bound 1e-2)")
         if frac > 1e-2:
             raise AssertionError("K8: kernel disagrees with its plain version")
-        del q, kv, rq, rkv, o, r
+        # the streamed body against the PR 4 body (ct_k8_ln_qkv): bit for bit
+        x2d = x.reshape(-1, C)
+        fq, fkv = mlp_int8_cuda._ln_qkv_tile(x2d, w.qkv, 1e-6, False)
+        diff = int((q.reshape(-1, C) != fq).sum().item() + (kv.reshape(-1, 2 * C) != fkv).sum().item())
+        log(f"    against the PR 4 body: {diff} elements differ (bound 0)")
+        if diff:
+            raise AssertionError("K8: the streamed body differs from the PR 4 body")
+        del q, kv, rq, rkv, o, r, fq, fkv
         e = out.setdefault("K8_ln_qkv", dict(
-            name="K8_ln_qkv", route="cuda", source=SRC_BLOCKS,
+            name="K8_ln_qkv", route="cuda", source=SRC_K1,
             replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:269", launches=0,
             max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
         e["max_abs_err"] = max(e["max_abs_err"], err)
         bnd = bound(nbytes(x) * 4 + wbytes, [(rows * 2 * C * 3 * C, INT8_OPS)])
         e.update({"ms" + sfx: time_ms(lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)),
+                  "first_ms" + sfx: time_ms(
+                      lambda: mlp_int8_cuda._ln_qkv_tile(x2d, w.qkv, 1e-6, False)),
                   "plain_ms" + sfx: time_ms(lambda: mlp_int8_cuda.ln_qkv_plain(x, w.qkv), reps=2),
                   "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
 
@@ -725,9 +739,10 @@ def split_kernel_phase(dev):
                                             reps=2),
                   "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
         for k in out.values():
+            first = f", PR 4 body {k['first_ms' + sfx]:.3f} ms" if "first_ms" + sfx in k else ""
             log(f"  {k['name']} {M}x{LONG_T}: {k['ms' + sfx]:.3f} ms (plain "
                 f"{k['plain_ms' + sfx]:.3f} ms, bound {k['bound_ms' + sfx]:.3f} ms by "
-                f"{k['bound_by' + sfx]})")
+                f"{k['bound_by' + sfx]}{first})")
         del x, a
     return [out[k] for k in sorted(out)]
 
@@ -1348,6 +1363,7 @@ QD_PAD = -(-QD_GRID**2 // 512) * 512
 UB_ROWS, UB_REPS = 604_800, 8  # scripts/torch_ubench.py int8pallas rows; launches = 1 + reps
 MODE_SHAPE = (2048, T_STREAM)  # each W8A8 body in both modes
 K8_TOL = (2.0**-9, 2.0**-7)  # K8's band (split_kernel_phase), for K10
+K4M_PAST_HOLD = 80  # frames past the 64 that K4m's code rows hold on chip: two passes
 K9_TOL = (0.01, 0.05)  # K1/K2/K9's band, for K11 and K12
 
 
@@ -1432,25 +1448,34 @@ def variant_kernel_phase(dev):
     w1c, w1s = corr_cuda.quantize_w1_mlp1(w1)
     w1q, w1amax = corr_cuda.quantize_w1(w1, bf)
     e = None
-    for T in (T_STREAM, T_FRAMES):
+    for T, npts in ((T_STREAM, CHUNK), (T_FRAMES, CHUNK), (K4M_PAST_HOLD, 256)):
+        # the check past the hold draws from its own seed: the later phases' inputs stay
+        g_ = g if T != K4M_PAST_HOLD else torch.Generator().manual_seed(12)
         fm = torch.nn.functional.normalize(
-            torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1).to(bf)
+            torch.randn(1, T, Hh, W, 128, generator=g_).to(dev), dim=-1).to(bf)
         fmq = corr_cuda.build_int8_level(fm, 3)
         sup = torch.nn.functional.normalize(
-            torch.randn(1, 49, CHUNK, 128, generator=g).to(dev), dim=-1).to(bf)
+            torch.randn(1, 49, npts, 128, generator=g_).to(dev), dim=-1).to(bf)
         supq, sscale = corr_cuda.quantize_support(sup, bf)
-        coords = (torch.rand(1, T, CHUNK, 2, generator=g) * torch.tensor([W, Hh])).to(dev).to(bf)
+        coords = (torch.rand(1, T, npts, 2, generator=g_) * torch.tensor([W, Hh])).to(dev).to(bf)
         starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
-        args = (fmq, supq.reshape(CHUNK, 49, 128), starts, wxy, w1c, w1s, b1,
-                sscale.reshape(CHUNK), bf)
-        h = corr_cuda.corr_mlp1_int8(*args)
+        args = (fmq, supq.reshape(npts, 49, 128), starts, wxy, w1c, w1s, b1,
+                sscale.reshape(npts), bf)
+        h, codes, gscale = corr_cuda._k4m_launch(*args)
         ref = corr_cuda.corr_mlp1_plain(*args)
-        rows = (h != ref).any(-1).float().mean().item()
+        rcodes, rscale = corr_cuda._mlp1_codes_plain(*args[:4])
+        rows = int((h != ref).any(-1).sum().item())
+        diff = int((codes != rcodes).sum().item()) + int((gscale != rscale).sum().item())
         err = (h.float() - ref.float()).abs().max().item()
-        log(f"  K4m corr + MLP1 {CHUNK} points x {T} frames: rows differing {rows:.2e} (bound "
-            f"1e-4), max_abs_err {err:.3e}")
-        if rows > 1e-4 or not math.isfinite(err):
+        log(f"  K4m corr + MLP1 {npts} points x {T} frames (plan "
+            f"{corr_cuda.k4m_plan(npts, starts.shape[1])}): rows differing {rows}, codes and "
+            f"scales differing {diff} (bound 0 each), max_abs_err {err:.3e}")
+        if rows or diff:
             raise AssertionError("K4m: kernel disagrees with its plain version")
+        del codes, gscale, rcodes, rscale
+        if T == K4M_PAST_HOLD:  # a correctness check only: the main paths stay under 64 frames
+            del fm, fmq, sup, supq, h, ref
+            continue
         Tp = starts.shape[1]
         bnd = bound(nbytes(*args[:-1], h), [(CHUNK * Tp * (64 * 49 * 128 + 2401 * 384) * 2, INT8_OPS),
                                            (CHUNK * Tp * 2401 * 6, F32_OPS)])
@@ -1458,17 +1483,18 @@ def variant_kernel_phase(dev):
             fmq, supq, sscale, coords, w1q, w1amax, b1, Hh, W, 3, bf,
             (w1c, w1s) if mlp1 else None)
         vals = dict(ms=time_ms(lambda: corr_cuda.corr_mlp1_int8(*args)),
+                    first_ms=time_ms(lambda: corr_cuda._corr_mlp1_first(*args)),
                     plain_ms=time_ms(lambda: corr_cuda.corr_mlp1_plain(*args), reps=2),
                     k4_chain_ms=time_ms(lambda: chain(False)),
                     k4m_chain_ms=time_ms(lambda: chain(True)))
-        log(f"  K4m T={T}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f}, bound {bnd[0]:.3f} "
-            f"by {bnd[1]}); per level-chunk with GELU: K4 + int8 MLP1 {vals['k4_chain_ms']:.3f} ms, "
-            f"K4m {vals['k4m_chain_ms']:.3f} ms")
+        log(f"  K4m T={T}: {vals['ms']:.3f} ms (first body {vals['first_ms']:.3f}, plain "
+            f"{vals['plain_ms']:.3f}, bound {bnd[0]:.3f} by {bnd[1]}); per level-chunk with GELU: "
+            f"K4 + int8 MLP1 {vals['k4_chain_ms']:.3f} ms, K4m {vals['k4m_chain_ms']:.3f} ms")
         if e is None:
             e = variant_entry("K4m_corr_mlp1", SRC_CORR,
                               "cotracker_tpu/ops/kernels/corr_pallas.py:244",
                               f"level 0 (96x128), {CHUNK} points x {T_STREAM} frames, bf16", err,
-                              vals["ms"], vals["plain_ms"], bnd,
+                              vals["ms"], vals["plain_ms"], bnd, first_ms=vals["first_ms"],
                               k4_chain_ms=vals["k4_chain_ms"], k4m_chain_ms=vals["k4m_chain_ms"])
         else:
             e["max_abs_err"] = max(e["max_abs_err"], err)

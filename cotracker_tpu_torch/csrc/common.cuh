@@ -90,4 +90,35 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
                : "r"(a));
 }
 
+// One warp's products over BK bytes of K: acc[MI][NI] += the warp's A rows
+// (a: this K slice of its first row's ldmatrix address, row stride lda) x
+// the stage's B rows (b: the stage's base; b_pair / b_last the lane's
+// ldmatrix offsets of the column-tile pairs and of an odd last tile).
+template <int MI, int NI, int BK, int LDB>
+__device__ __forceinline__ void warp_mma(int (&acc)[MI][NI][4], const int8_t* a, int lda,
+                                         const int8_t* b, int b_pair, int b_last) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 32) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) ldsm_x4(af[mi], a + mi * 16 * lda + kk);
+#pragma unroll
+    for (int ni = 0; ni + 1 < NI; ni += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + b_pair + ni * 8 * LDB + kk);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        mma_s8_16832(acc[mi][ni], af[mi], bf);
+        mma_s8_16832(acc[mi][ni + 1], af[mi], bf + 2);
+      }
+    }
+    if constexpr (NI % 2 == 1) {
+      uint32_t bf[2];
+      ldsm_x2(bf, b + b_last + kk);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) mma_s8_16832(acc[mi][NI - 1], af[mi], bf);
+    }
+  }
+}
+
 }  // namespace ct

@@ -4,8 +4,8 @@
 // All four replace cotracker_tpu/ops/kernels/corr_pallas.py::_kernel, one
 // mode each. Per point and frame t, the 8x8x128 window at (frame, wsy, wsx)
 // of the edge-padded level map is contracted with the point's 49x128
-// support: g (64 window taps x 49). Every output is (NP, Tp, 64, 49),
-// flatten order (t, y, x, s).
+// support: g (64 window taps x 49). K4, K4r and K4f output (NP, Tp, 64,
+// 49), flatten order (t, y, x, s); K4m MLP1's rows (NP, Tp, 384).
 //
 // K4 (fuse_combine + g_int8; driven there by _corr_level_plan.hidden and
 // fused_corr_tokens_pallas), the inference fast path:
@@ -38,28 +38,43 @@
 // written in the input dtype. One pass, no scale.
 //
 // K4m (fuse_mlp1, corr_pallas.py:244-333 with the plan :509-560 and the
-// epilogue :706-712): the whole correlation epilogue up to MLP1 in one
-// launch, per point:
-//   1. pass A: the raw s32 volume of every frame (K4r's device code) and
-//      its absmax over ALL 64 taps x 49 x Tp rows, junk taps x==7 / y==7
-//      and the padded frame included: s = max(absmax, 1e-20) / 127 (from
-//      the raw volume, before the combine: a convex combine never exceeds
-//      it);
-//   2. pass B, frames in groups of 16: the raw volume again, the separable
-//      lerps gx = a + wx*(b - a) (b the x+1 tap), c = gx0 + wy*(gx8 - gx0)
-//      (gx8 the y+1 row) for the 7 x 7 x 49 = 2,401 real taps only (their
-//      taps never leave the frame; the zero MLP1 rows of the JAX layout
-//      kill every other tap), codes rint(c * (1/s)) into shared memory;
-//   3. the s8 MLP1 product of the group's 16 code rows against the
-//      per-output-channel W1 codes (384 x 2,432, zero past 2,401), staged
-//      through shared memory 64 bytes of K at a time, on tensor cores;
+// epilogue :706-712): the whole correlation epilogue up to MLP1, per point:
+//   1. s = max(absmax, 1e-20) / 127 from the RAW s32 volume over ALL 64 taps
+//      x 49 x Tp rows, junk taps x==7 / y==7 and the padded frame included
+//      (before the combine: a convex combine never exceeds it);
+//   2. the separable lerps gx = a + wx*(b - a) (b the x+1 tap), c = gx0 +
+//      wy*(gx8 - gx0) (gx8 the y+1 row) for the 7 x 7 x 49 = 2,401 real taps
+//      only (their taps never leave the frame; the zero MLP1 rows of the JAX
+//      layout kill every other tap), codes rint(c * (1/s));
+//   3. the s8 MLP1 product of each frame's code row against the
+//      per-output-channel W1 codes (384 x 2,432, zero past 2,401);
 //   4. out = (h32 * w1scale) * (s * support scale) + b1 in f32, in that
-//      order, stored in the compute dtype: pre-GELU hidden rows
-//      (NP, Tp, 384).
-// At the quasi-dense chunk (2,048 points x 16 frames) the MLP1 product is
-// 60 s8 GOP (0.03 ms at the int8 peak) against ~0.6 GB of window reads:
-// bytes bound it, and this first version adds a second contraction pass
-// and re-reads the 0.9 MB W1 from L2 for every 16 frames of a point.
+//      order, stored in the compute dtype: pre-GELU hidden rows (NP, Tp, 384).
+// Its design (ct_corr_mlp1, two launches on corr_cuda.k4m_plan):
+//   (a) K4's cluster kernel in its K4m mode (corr_volume_kernel<hold, true>):
+//       the volume runs once, the raw absmax taken on the product fragments,
+//       the combined c of every frame held on chip up to 64 frames until the
+//       cluster's scale is known (two passes past that), then each frame's
+//       2,432-byte code row to device memory;
+//   (b) mlp1_gemm_kernel (below): 128 code rows a block, several points'
+//       frames, W1 streamed through a cp.async ring once per 128 rows, the
+//       epilogue staged in shared memory and stored in 16-byte pieces.
+// The code rows cross device memory between the two (2,432 bytes a frame,
+// 80 MB at 2,048 points x 16 frames); the first body (corr_mlp1_kernel, kept
+// as ct_corr_mlp1_first: the yardstick) kept them on chip but ran every
+// window's products twice, combined from shared memory with two integer
+// divisions an element, and re-read the 0.93 MB W1 from L2 for every 16 rows
+// (~1.9 GB at that shape) on synchronous 64-byte stages.
+// What bounds K4m: operations. At 2,048 points x 16 frames the window
+// products are 26 G and MLP1 61 G s8 operations (0.044 ms at 1,979 TOP/s)
+// and the combine 0.47 G f32 ones (0.007 ms at 67 TFLOP/s): 0.051 ms,
+// against ~72 MB of bytes (the level's codes 33 MB, the support 13 MB, W1,
+// the bf16 rows 25 MB: 0.021 ms at 3.35 TB/s); x 60 frames 0.191 ms. How
+// far it got (scripts/torch_cores.py, one NVIDIA H100 80GB HBM3 at 700 W):
+// 0.35 ms at 2,048 x 16 (first body 1.69-1.96) and 1.36-1.43 at x 60
+// (6.37-8.79), of which the code rows 0.21 / 0.87-0.94 (K4's own
+// instruction-bound pipeline) and MLP1 0.125 / 0.48 (~480 T s8 operations
+// a second on mma.sync).
 //
 // What bounds them (one NVIDIA H100 80GB HBM3, 700 W; PERF.md): K4 at level
 // 0 of the inference shape (a 2,048-point chunk, T=60) must write ~385 MB of
@@ -237,9 +252,12 @@ int launch_float(const T* fm, const T* sup, const int* starts, T* vol, int NP, i
   return cudaGetLastError();
 }
 
-// K4m. 128 threads; shared memory 99,728 bytes (two blocks per SM): the
-// window and support as K4, one frame's s32 volume, the 16 code rows of a
-// frame group (2,448-byte rows) and a 384 x 80 W1 slice.
+// K4m's first body (PR 5; ct_corr_mlp1_first, the yardstick of the two
+// launches of ct_corr_mlp1 below). 128 threads; shared memory 99,728 bytes
+// (two blocks per SM): the window and support as K4r, one frame's s32
+// volume, the 16 code rows of a frame group (2,448-byte rows) and a 384 x 80
+// W1 slice; pass A the raw absmax, pass B the volume again, the combine and
+// MLP1 per 16 frames.
 constexpr int kTaps = 7 * 7 * kS, kKm = 2432, kLdm = kKm + 16, kDh = 384, kFG = 16;
 constexpr int kBKm = 64, kLdb = kBKm + 16;
 constexpr size_t kMlp1Smem = static_cast<size_t>(kR) * kLds + kSp * kLds + kR * kS * 4 +
@@ -412,12 +430,15 @@ __device__ __forceinline__ float cluster_ld(const float* p, int rank) {
   return v;
 }
 
-template <bool kHold>
+template <bool kHold, bool kMlp1>
 __global__ void __launch_bounds__(kK4Threads, 2)
 corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,
                    const int* __restrict__ starts, const float* __restrict__ wxy,
                    int8_t* __restrict__ vol, float* __restrict__ scale_out, int Tp, int Hp,
                    int Wp, int cs) {
+  // K4m: codes rows of the 2,401 real taps (kKm bytes), the window's own 64
+  // taps only (its combine never leaves the frame); K4: rows of all 64 taps
+  constexpr int kRow = kMlp1 ? kKm : kR * kS, kWinRows = kMlp1 ? kR : kK4WinRows;
   extern __shared__ __align__(128) unsigned char k4_smem[];
   int8_t* sup_s = reinterpret_cast<int8_t*>(k4_smem);
   unsigned char* regions = k4_smem + kSp * kC;
@@ -427,7 +448,7 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   const int f0 = rank * Tp / cs, nf = (rank + 1) * Tp / cs - f0;
   const int* st = starts + static_cast<size_t>(p) * Tp * 3;
   const float* wp = wxy + static_cast<size_t>(p) * Tp * 2;
-  int8_t* outp = vol + static_cast<size_t>(p) * Tp * (kR * kS);
+  int8_t* outp = vol + static_cast<size_t>(p) * Tp * kRow;
   const int nwf = nf > warp ? (nf - warp + kK4Warps - 1) / kK4Warps : 0;  // this warp's frames
   const int njobs = (kHold ? 1 : 2) * nwf;
 
@@ -452,7 +473,7 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
       const int fa = s0[0], ya = s0[1], xa = s0[2], fb = s1[0], yb = s1[1], xb = s1[2];
       int8_t* win = reinterpret_cast<int8_t*>(region(q)) + kK4WinOff;
 #pragma unroll 4
-      for (int i = lane; i < kK4WinRows * 8; i += 32) {
+      for (int i = lane; i < kWinRows * 8; i += 32) {
         const int row = i >> 3, c = i & 7, tap = row & (kR - 1), y = tap >> 3, x = tap & 7;
         const bool cur = row < kR;
         const size_t pix = (static_cast<size_t>(cur ? fa : fb) * Hp + (cur ? ya : yb) + y) * Wp +
@@ -487,6 +508,8 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   float amax = 0.f, inv = 0.f;
   // Runs job q: products and combine; emit(y, nt, c0, c1) takes c of row y
   // (taps 8y .. 8y + 7, this lane's x = g) at columns 8nt + 2t4 + {0, 1}.
+  // K4m tracks the RAW products' absmax here (the frame's 64 taps x 49) and
+  // runs no product for the fifth m-tile: its rows y = 7 are junk it drops.
   auto run = [&](int q, auto emit) {
     cp_async_wait<1>();
     __syncwarp();
@@ -499,12 +522,20 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
       int acc[7][4];
 #pragma unroll
       for (int nt = 0; nt < 7; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
+      if (!kMlp1 || m < 4) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        ldsm_x4(af, win + k4_swz(16 * m + (lane & 15), 2 * kk + (lane >> 4)));
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4];
+          ldsm_x4(af, win + k4_swz(16 * m + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
-        for (int nt = 0; nt < 7; ++nt) mma_s8_16832(acc[nt], af, bfr[nt][kk]);
+          for (int nt = 0; nt < 7; ++nt) mma_s8_16832(acc[nt], af, bfr[nt][kk]);
+        }
+      }
+      if (kMlp1 && m < 4) {  // columns past 48 are zero support rows: |g| = 0
+#pragma unroll
+        for (int nt = 0; nt < 7; ++nt)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) amax = fmaxf(amax, fabsf(static_cast<float>(acc[nt][k])));
       }
       __syncwarp();  // every lane's reads of this m-tile are done before rows land below it
 #pragma unroll
@@ -543,13 +574,15 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
     if constexpr (kHold) {
       float* cs_ = reinterpret_cast<float*>(region(q));
       run(q, [&](int y, int nt, float c0, float c1) {
-        track_max(y, nt, c0, c1);
+        if (!kMlp1) track_max(y, nt, c0, c1);
         float* cr = cs_ + (8 * y + g) * kK4Ld + 8 * nt + 2 * t4;
         if (nt < 6)
           *reinterpret_cast<float2*>(cr) = make_float2(c0, c1);
         else if (t4 == 0)
           cr[0] = c0;
       });
+    } else if constexpr (kMlp1) {
+      run(q, [](int, int, float, float) {});
     } else {
       run(q, track_max);
     }
@@ -574,7 +607,33 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   cluster_arrive();  // this block has read the others' maxima
   inv = red[5];
 
-  if constexpr (kHold) {
+  if constexpr (kHold && kMlp1) {
+    // K4m's code rows of every held frame: 16 consecutive bytes of the
+    // (y, x, s) flatten of the 7 x 7 real taps a thread, zero past 2,401
+    constexpr int kPieces = kKm / 16;  // 152 a frame
+    for (int i = tid; i < nf * kPieces; i += kK4Threads) {
+      const int j = i / kPieces, e0 = (i - j * kPieces) * 16;
+      const float* cf = reinterpret_cast<const float*>(regions + j * kK4Region);
+      int w = e0 / kS, s = e0 - w * kS, y = w / 7, x = w - y * 7;
+      uint32_t wd[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (e0 + k < kTaps)
+          wd[k >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                             quant8(cf[(8 * y + x) * kK4Ld + s], inv)))
+                         << (8 * (k & 3));
+        if (++s == kS) {
+          s = 0;
+          if (++x == 7) {
+            x = 0;
+            ++y;
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(outp + static_cast<size_t>(f0 + j) * kRow + e0) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  } else if constexpr (kHold) {
     // codes of every held frame: a thread takes 16 consecutive bytes of the
     // frame's (r, s) flatten and stores them at once
     constexpr int kPieces = kR * kS / 16;  // 196 a frame
@@ -600,13 +659,16 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
       int8_t* qs = reinterpret_cast<int8_t*>(region(q));
       run(q, [&](int y, int nt, float c0, float c1) {
         const int s = 8 * nt + 2 * t4;
-        int8_t* qr = qs + (8 * y + g) * kS + s;
+        if (kMlp1 && (y == 7 || g == 7)) return;  // K4m keeps the 7 x 7 real taps
+        int8_t* qr = qs + (kMlp1 ? (7 * y + g) : (8 * y + g)) * kS + s;
         if (s < kS) qr[0] = quant8(c0, inv);
         if (s + 1 < kS) qr[1] = quant8(c1, inv);
       });
+      if (kMlp1 && lane < kKm - kTaps) qs[kTaps + lane] = 0;
+      __syncwarp();
       const int4* src = reinterpret_cast<const int4*>(qs);
-      int4* dst = reinterpret_cast<int4*>(outp + static_cast<size_t>(frame(q)) * (kR * kS));
-      for (int k = lane; k < kR * kS / 16; k += 32) dst[k] = src[k];
+      int4* dst = reinterpret_cast<int4*>(outp + static_cast<size_t>(frame(q)) * kRow);
+      for (int k = lane; k < kRow / 16; k += 32) dst[k] = src[k];
       __syncwarp();
       load_job(q + 2);
     }
@@ -614,10 +676,10 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   cluster_wait();  // no block leaves while another may still read its maximum
 }
 
-template <bool kHold>
+template <bool kHold, bool kMlp1 = false>
 int launch_k4(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
               int8_t* vol, float* scale, int NP, int Tp, int Hp, int Wp, int cs, void* stream) {
-  auto kern = corr_volume_kernel<kHold>;
+  auto kern = corr_volume_kernel<kHold, kMlp1>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kK4Smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -637,15 +699,138 @@ int launch_k4(const int8_t* fm, const int8_t* sup, const int* starts, const floa
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- K4m's MLP1
+// The s8 MLP1 of K4m's code rows (NP * Tp rows of 2,432 bytes, from
+// corr_volume_kernel<hold, true>) against W1 (384 x 2,432 codes): a block
+// takes 128 rows, several points' frames, so W1 streams from L2 once per
+// 128 rows; each K step of 64 bytes brings the rows' codes and W1's 384 rows
+// through a kMlpStages-deep cp.async ring; 16 warps as 4 x 4, warp tiles 32
+// x 96 on mma.sync m16n8k32. The epilogue (h32 * w1s) * (s * sup_scale) +
+// b1, in that order (the point's s and sup_scale multiplied once a row),
+// is staged in the ring's shared memory and stored in 16-byte pieces.
+constexpr int kMlpBM = 128, kMlpBK = 64, kMlpLd = kMlpBK + 16, kMlpStages = 5;
+constexpr int kMlpThreads = 512, kMlpNW = 4, kMlpNI = kDh / (8 * kMlpNW);  // 12
+constexpr int kMlpStageA = kMlpBM * kMlpLd, kMlpStage = kMlpStageA + kDh * kMlpLd;
+constexpr int kMlpOut = kDh + 8;  // row stride (elements) of the staged output
+constexpr int kMlpSmem = kMlpStages * kMlpStage + kMlpBM * 4;
+static_assert(kMlpBM * kMlpOut * 4 <= kMlpStages * kMlpStage, "f32 output staged in the ring");
+static_assert(kMlpSmem <= 232448, "one block an SM");
+
+template <typename OutT>
+__global__ void __launch_bounds__(kMlpThreads, 1)
+mlp1_gemm_kernel(const int8_t* __restrict__ codes, const float* __restrict__ gscale,
+                 const float* __restrict__ sup_scale, const int8_t* __restrict__ w1,
+                 const float* __restrict__ w1s, const float* __restrict__ b1,
+                 OutT* __restrict__ out, int rows, int Tp) {
+  extern __shared__ __align__(16) unsigned char m1_smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(m1_smem);
+  float* rs = reinterpret_cast<float*>(ring + kMlpStages * kMlpStage);  // the rows' s * sup_scale
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / kMlpNW, wn = warp % kMlpNW;
+  const int m0 = blockIdx.x * kMlpBM, n = min(kMlpBM, rows - m0);
+  constexpr int KT = kKm / kMlpBK, CH = kMlpBK / 16;
+  auto load = [&](int kt) {
+    int8_t* st = ring + (kt % kMlpStages) * kMlpStage;
+    for (int i = tid; i < (kMlpBM + kDh) * CH; i += kMlpThreads) {
+      const int r = i / CH, c = i - r * CH;
+      if (r < kMlpBM) {
+        const bool ok = r < n;
+        cp_async16(st + r * kMlpLd + 16 * c,
+                   codes + static_cast<size_t>(m0 + (ok ? r : 0)) * kKm + kt * kMlpBK + 16 * c, ok);
+      } else {
+        cp_async16(st + kMlpStageA + (r - kMlpBM) * kMlpLd + 16 * c,
+                   w1 + static_cast<size_t>(r - kMlpBM) * kKm + kt * kMlpBK + 16 * c, true);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kMlpStages - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+  if (tid < kMlpBM) {  // visible after the loop's first barrier
+    const int pt = (m0 + min(tid, n - 1)) / Tp;
+    rs[tid] = __fmul_rn(gscale[pt], sup_scale[pt]);
+  }
+  int acc[2][kMlpNI][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kMlpNI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+  const int a_off = (wm * 32 + (lane & 15)) * kMlpLd + (lane >> 4) * 16;
+  const int b_off = kMlpStageA + (wn * 8 * kMlpNI + (lane >> 4) * 8 + (lane & 7)) * kMlpLd +
+                    ((lane >> 3) & 1) * 16;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kMlpStages - 2>();
+    __syncthreads();
+    if (kt + kMlpStages - 1 < KT) load(kt + kMlpStages - 1);
+    cp_async_commit();
+    const int8_t* st = ring + (kt % kMlpStages) * kMlpStage;
+    warp_mma<2, kMlpNI, kMlpBK, kMlpLd>(acc, st + a_off, kMlpLd, st, b_off, 0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the output tile is staged there
+  OutT* os = reinterpret_cast<OutT*>(ring);
+#pragma unroll
+  for (int ni = 0; ni < kMlpNI; ++ni) {
+    const int c = wn * 8 * kMlpNI + ni * 8 + 2 * t4;
+    const float wa = w1s[c], wb = w1s[c + 1], ba = b1[c], bb = b1[c + 1];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mi * 16 + g + 8 * h;
+        const float sc = rs[r];
+        const float v0 = __fadd_rn(
+            __fmul_rn(__fmul_rn(static_cast<float>(acc[mi][ni][2 * h]), wa), sc), ba);
+        const float v1 = __fadd_rn(
+            __fmul_rn(__fmul_rn(static_cast<float>(acc[mi][ni][2 * h + 1]), wb), sc), bb);
+        if constexpr (sizeof(OutT) == 4)
+          *reinterpret_cast<float2*>(os + r * kMlpOut + c) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(os + r * kMlpOut + c) = __floats2bfloat162_rn(v0, v1);
+      }
+  }
+  __syncthreads();
+  constexpr int P = kDh * static_cast<int>(sizeof(OutT)) / 16;  // 16-byte pieces a row
+  for (int i = tid; i < n * P; i += kMlpThreads) {
+    const int r = i / P, c = i - r * P;
+    reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * kDh)[c] =
+        reinterpret_cast<const uint4*>(os + r * kMlpOut)[c];
+  }
+}
+
+// K4m: the code rows and scales (K4's cluster kernel in its K4m mode), then
+// MLP1 on them.
+template <typename OutT>
+int launch_k4m(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
+               const int8_t* w1, const float* w1s, const float* b1, const float* sup_scale,
+               int8_t* codes, float* gscale, void* out, int NP, int Tp, int Hp, int Wp, int cs,
+               bool hold, void* stream) {
+  int e = hold ? launch_k4<true, true>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp, Wp, cs,
+                                       stream)
+               : launch_k4<false, true>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp, Wp, cs,
+                                        stream);
+  if (e != cudaSuccess) return e;
+  auto kern = mlp1_gemm_kernel<OutT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMlpSmem);
+  if (e != cudaSuccess) return e;
+  const int rows = NP * Tp;
+  kern<<<(rows + kMlpBM - 1) / kMlpBM, kMlpThreads, kMlpSmem, static_cast<cudaStream_t>(stream)>>>(
+      codes, gscale, sup_scale, w1, w1s, b1, static_cast<OutT*>(out), rows, Tp);
+  return cudaGetLastError();
+}
+
 }  // namespace ct
 
 extern "C" {
 
-// K4m: out (NP, Tp, 384) pre-GELU MLP1 rows, bf16 (out_bf16) or float32;
-// w1 (384, 2432) int8 codes, w1s / b1 (384,) f32, sup_scale (NP,) f32.
-int ct_corr_mlp1(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
-                 const int8_t* w1, const float* w1s, const float* b1, const float* sup_scale,
-                 void* out, int out_bf16, int NP, int Tp, int Hp, int Wp, int Dh, void* stream) {
+// K4m's first body (corr_mlp1_kernel, one block a point, two passes over
+// the windows; PR 5): kept as the yardstick of the two launches below.
+int ct_corr_mlp1_first(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
+                       const int8_t* w1, const float* w1s, const float* b1,
+                       const float* sup_scale, void* out, int out_bf16, int NP, int Tp, int Hp,
+                       int Wp, int Dh, void* stream) {
   if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8 || Dh != ct::kDh) return cudaErrorInvalidValue;
   return out_bf16 ? ct::launch_mlp1<__nv_bfloat16>(fm, sup, starts, wxy, w1, w1s, b1, sup_scale,
                                                    out, NP, Tp, Hp, Wp, stream)
@@ -653,6 +838,28 @@ int ct_corr_mlp1(const int8_t* fm, const int8_t* sup, const int* starts, const f
                                            Tp, Hp, Wp, stream);
 }
 
+// K4m: out (NP, Tp, 384) pre-GELU MLP1 rows, bf16 (out_bf16) or float32;
+// w1 (384, 2432) int8 codes, w1s / b1 (384,) f32, sup_scale (NP,) f32;
+// codes (NP * Tp, 2432) int8 and gscale (NP,) f32: the scratch between the
+// two launches, from the caller; `cluster` and `hold` as K4's (k4_plan).
+int ct_corr_mlp1(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
+                 const int8_t* w1, const float* w1s, const float* b1, const float* sup_scale,
+                 int8_t* codes, float* gscale, void* out, int out_bf16, int NP, int Tp, int Hp,
+                 int Wp, int Dh, int cluster, int hold, void* stream) {
+  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8 || Dh != ct::kDh || cluster < 1 ||
+      cluster > ct::kK4MaxCluster || cluster > Tp ||
+      (hold && (Tp + cluster - 1) / cluster > ct::kK4Regions) ||
+      static_cast<long long>(NP) * Tp > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  return out_bf16 ? ct::launch_k4m<__nv_bfloat16>(fm, sup, starts, wxy, w1, w1s, b1, sup_scale,
+                                                  codes, gscale, out, NP, Tp, Hp, Wp, cluster,
+                                                  hold, stream)
+                  : ct::launch_k4m<float>(fm, sup, starts, wxy, w1, w1s, b1, sup_scale, codes,
+                                          gscale, out, NP, Tp, Hp, Wp, cluster, hold, stream);
+}
+
+// K4m's MLP1 kernel's shared-memory bytes a block (k4m_plan checks its arithmetic).
+int ct_k4m_gemm_smem() { return ct::kMlpSmem; }
 
 // K4 on corr_cuda.k4_plan's tiling: `cluster` blocks a point; hold = 1 keeps
 // the combined volume on chip (one pass; every block at most 8 frames).

@@ -23,8 +23,14 @@
 // K8 and K9, the two W8A8 halves of the time block's three-kernel split
 // around the K5 attention core (videos whose frames leave no whole-block
 // track tile), are one launch each:
-//   ct_k8_ln_qkv      one read of x -> LN + row quant into shared memory ->
-//                     the q and kv products -> q, kv in the token dtype
+//   ct_k8_ln_qkv      float32 tokens (in bfloat16 the PR 4 body that the
+//                     streamed one is held to bit for bit): one read of x ->
+//                     LN + row quant into shared memory -> the q and kv
+//                     products -> q, kv in the token dtype. K8 in bfloat16
+//                     runs persistent blocks on a weight stream with
+//                     LayerNorm warps beside the product warps (ct_k8_stream,
+//                     int8_time_block.cu): 3.58 -> 1.18 ms at 2,048 tracks x
+//                     250 frames on an H100.
 //   ct_k9_attnout_mlp float32 tokens only: one read of a and x -> r = x +
 //                     to_out(a) kept in shared memory (f32) -> LN + quant ->
 //                     fc1 + GELU -> quant (the 1,536-wide codes stay in
@@ -49,11 +55,13 @@
 // kernel that projects each key tile on chip (int8_v2p_proj.cu). K8 moves
 // 3,072 bytes a bf16 row for 0.88 M int8 operations (~290 a byte, under the
 // card's int8 balance of ~590: bytes-bound), K9 2,304 bytes for 2.65 M
-// (compute-bound); both re-read the weights from L2 for every row tile (128
-// rows for K8, 64 for K9's f32 body, whose tile is bounded by the 227 KB of
-// shared memory a block may hold), and K9 computes fc1 twice (the GELU
-// codes' row scale needs the row's absmax before the first code is
-// written): 1.45x its operations.
+// (compute-bound); the float32 bodies here re-read the weights from L2 for
+// every row tile (128 rows for K8, 64 for K9, whose tile is bounded by the
+// 227 KB of shared memory a block may hold) on plain loads with two
+// barriers a K step, K8 stores its outputs 4 bytes at a time from the
+// product fragments, and K9 computes fc1 twice (the GELU codes' row scale
+// needs the row's absmax before the first code is written): 1.45x its
+// operations.
 //
 // The shared device routines (LN + row quant, GELU, the tile GEMM and the
 // MLP-tail stages) live in int8_tile.cuh, with the two variant flags of the

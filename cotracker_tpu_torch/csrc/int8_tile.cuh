@@ -366,38 +366,8 @@ __device__ __forceinline__ void stage_mlp_tail(const TileSmem<32 * MT, BK>& s,
 // ------------------------------------------ streamed products and barriers
 // The weight-streaming GEMM of the fused W8A8 kernels (K1's front,
 // int8_time_block.cu; K2's front; K3, int8_v2p_proj.cu) and the mbarrier
-// helpers of K1's tail stream and of the fronts' bulk row copies.
-
-// One warp's products over BK bytes of K: acc[MI][NI] += the warp's A rows
-// (a: this K slice of its first row's ldmatrix address, row stride lda) x
-// the stage's B rows (b: the stage's base; b_pair / b_last the lane's
-// ldmatrix offsets of the column-tile pairs and of an odd last tile).
-template <int MI, int NI, int BK, int LDB>
-__device__ __forceinline__ void warp_mma(int (&acc)[MI][NI][4], const int8_t* a, int lda,
-                                         const int8_t* b, int b_pair, int b_last) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 32) {
-    uint32_t af[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) ldsm_x4(af[mi], a + mi * 16 * lda + kk);
-#pragma unroll
-    for (int ni = 0; ni + 1 < NI; ni += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + b_pair + ni * 8 * LDB + kk);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma_s8_16832(acc[mi][ni], af[mi], bf);
-        mma_s8_16832(acc[mi][ni + 1], af[mi], bf + 2);
-      }
-    }
-    if constexpr (NI % 2 == 1) {
-      uint32_t bf[2];
-      ldsm_x2(bf, b + b_last + kk);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma_s8_16832(acc[mi][NI - 1], af[mi], bf);
-    }
-  }
-}
+// helpers of K1's tail stream and of the fronts' bulk row copies (the warp's
+// products, warp_mma, are in common.cuh).
 
 // ------------------------------------------------------------- RingGemm
 // acc[MI][NI][4] (+)= A[rows, 0:K) . W[col(n), 0:K)^T over a block tile of

@@ -1,15 +1,17 @@
-// K1 on Hopper: the whole W8A8 time block in two launches, and K9 and K2
-// on K1's tail (sm_90a).
+// K1 on Hopper: the whole W8A8 time block in two launches, K9 and K2 on
+// K1's tail, and K8 on the tail's weight stream (sm_90a).
 //
 // Replaces, on the H100, the Pallas bodies
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel  (K1)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel     (K9)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_kernel (K2)
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_qkv_kernel         (K8)
 // (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8,
-// fused_space_block_int8) for bfloat16 tokens, driven from
-// ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan; K9's body:
-// k9_route). float32 tokens keep the launch chains and the 64-row K9 body
-// of int8_blocks.cu (K2 also past the 64 virtual tokens its front stages).
+// fused_space_block_int8, fused_ln_qkv_int8) for bfloat16 tokens, driven
+// from ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan, k8_plan;
+// K9's body: k9_route). float32 tokens keep the launch chains and the K8 /
+// K9 bodies of int8_blocks.cu (K2 also past the 64 virtual tokens its front
+// stages). K8's design and what bounds it: the note above its kernel.
 //
 // K2 (ct_k2_space_block) is a front of its own (k2_front_kernel, below)
 // and then K1's tail unchanged, since the block's second half is K1's
@@ -511,15 +513,18 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(K1T_CONSUMERS) : "memory");
 }
 
-// Each side's position in the ring: slot and the parity of its current use.
+// Each side's position in a ring of SLOTS slots: slot and the parity of its
+// current use. K1's tail (and K9, K2) stream through K1T_SLOTS slots, K8
+// through K8_SLOTS; every slot holds K1T_SLOT bytes.
+template <int SLOTS>
 struct Stream {
   int8_t* ring;
-  uint64_t* full;   // K1T_SLOTS, count 32 (the producer's lanes)
-  uint64_t* empty;  // K1T_SLOTS, count 16 (the consumer warps)
+  uint64_t* full;   // SLOTS, count 32 (the producer's lanes)
+  uint64_t* empty;  // SLOTS, count: the consumer warps
   int slot;
   unsigned parity;
   __device__ void advance() {
-    if (++slot == K1T_SLOTS) {
+    if (++slot == SLOTS) {
       slot = 0;
       parity ^= 1u;
     }
@@ -538,11 +543,11 @@ struct Stream {
     cp_async_mbar_arrive(full + slot);
     advance();
   }
-  // consumer: acc (+)= A[64 rows, 0:K) . the next K / BK stages^T, the 16
-  // warps as 2 x 8, warp tiles (16 * MI) x (8 * NI)
-  template <int MI, int NI, int BK>
+  // consumer: acc (+)= A[rows, 0:K) . the next K / BK stages^T, the
+  // consumer warps as rows x NW, warp tiles (16 * MI) x (8 * NI)
+  template <int MI, int NI, int BK, int NW = 8>
   __device__ void gemm(const int8_t* A, int lda, int K, bool zero, int (&acc)[MI][NI][4]) {
-    constexpr int NW = 8, LDB = BK + 16;
+    constexpr int LDB = BK + 16;
     static_assert(NI % 2 == 0, "column tiles in pairs");  // warp_mma's b_last unused
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp / NW, wn = warp % NW;
     if (zero) {
@@ -621,7 +626,7 @@ tail_body(const int8_t* __restrict__ acode, const float* __restrict__ ascale,
     *full_rows = 0;
   }
   __syncthreads();
-  Stream st{ring, bars, bars + K1T_SLOTS, 0, 0u};
+  Stream<K1T_SLOTS> st{ring, bars, bars + K1T_SLOTS, 0, 0u};
 
   if (warp == NWARP) {  // the producer
     for (int kt = 0; kt < KC / 32; ++kt) st.produce<384, 32>(wo, KC, 32 * kt);
@@ -846,6 +851,196 @@ __global__ void __launch_bounds__(K1T_THREADS, 1) k9_tail_kernel(CT_TAIL_PARAMS)
 }
 #undef CT_TAIL_PARAMS
 
+// ------------------------------------------------------------- K8
+// K8 in bfloat16 (ct_k8_stream): the split time block's LN + W8A8 q|kv,
+//   h = LN(x); hq, sr = row quant(h); [q | kv] = hq . w^T * (sr * sw) + bias,
+// w = [to_q; to_kv] (1152, 384). Persistent blocks, one an SM, each walking a
+// contiguous run of 128-row tiles (k8_plan), with three kinds of warp:
+//   * 8 LayerNorm warps quantize the NEXT tile's rows (the PR 4 body's device
+//     code, ln_quant_row, on rows in shared memory: each warp keeps three
+//     rows in flight by cp.async, 16 bytes a lane, and the tile after is
+//     prefetched into L2 by one bulk prefetch) into the other of two code
+//     buffers, while
+//   * 16 product warps (4 x 4, warp tiles 32 x 32) run this tile's nine
+//     128-column tiles of the q|kv product, and
+//   * one producer warp streams every weight stage of every tile of the run
+//     (9 column tiles x 3 stages of 128 bytes of K) through K8_SLOTS slots
+//     (the tail's Stream), so the weights flow on across column tiles,
+//     epilogues and row tiles.
+// The code buffers pass between the two groups on mbarriers (full: every
+// LayerNorm lane has written; empty: every product warp has read). The
+// epilogue is the PR 4 body's, dequant then __fadd_rn bias, rounded to bf16
+// (the s8 products are exact: bit-identical to it), with the weight scales
+// and biases in shared memory; a quad of lanes trades its fragments (three
+// shuffles) so that each lane stores 16 bytes, 8 whole bf16 columns, and
+// each quad 64 contiguous bytes of a row, as streaming (evict-first)
+// stores.
+// What bounds it (one NVIDIA H100 80GB HBM3 at 700 W; scripts/torch_k8_parts.py
+// builds copies with one part taken out): 1.18 ms at 2,048 tracks x 250
+// frames (the PR 4 body 3.58, the byte bound 0.47), 0.78 with no products,
+// 1.05 with no LayerNorm, 1.10 with no stores. The products are what is
+// left: 453 G s8 operations on mma.sync m16n8k32 from ldmatrix fragments,
+// ~390 T a second over the whole call; plain stores instead of streaming
+// ones cost 0.26 ms more.
+constexpr int K8_BM = 128, K8_SLOTS = 4, K8_XBUF = 3;  // K8_XBUF: x rows in flight a LN warp
+constexpr int K8_MMA = 512, K8_LN = 256, K8_THREADS = K8_MMA + K8_LN + 32;
+constexpr int K8_SMEM = 2 * K8_BM * LDA_C + K8_SLOTS * K1T_SLOT + (K8_LN / 32) * K8_XBUF * KC * 2 +
+                        2 * K8_BM * 4 + 2 * 3 * KC * 4 + (2 * K8_SLOTS + 4) * 8;
+static_assert(K8_SMEM <= 232448, "K8 fits one block an SM");
+
+// v[i] of a 4-element register array at a lane-varying index (no local memory)
+__device__ __forceinline__ uint32_t sel4(const uint32_t (&v)[4], int i) {
+  return (i & 2) ? ((i & 1) ? v[3] : v[2]) : ((i & 1) ? v[1] : v[0]);
+}
+
+// The lanes of a quad each hold P[j] = columns 8j + 2t, 8j + 2t + 1 (t the
+// lane's place in the quad) of one row, packed bf16 pairs; returns this
+// lane's columns 8t .. 8t + 7.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&P)[4]) {
+  const int t = threadIdx.x & 3;
+  uint32_t R[4];  // R[r]: columns 8t + 2(t ^ r), +1, from lane t ^ r
+  R[0] = sel4(P, t);
+#pragma unroll
+  for (int r = 1; r < 4; ++r) R[r] = __shfl_xor_sync(0xffffffffu, sel4(P, t ^ r), r);
+  return make_uint4(sel4(R, t), sel4(R, t ^ 1), sel4(R, t ^ 2), sel4(R, t ^ 3));
+}
+
+// `bytes` (a multiple of 16) of device memory at src into L2, asynchronously
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+template <bool kBf16Ln>
+__global__ void __launch_bounds__(K8_THREADS, 1)
+k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict__ w,
+                 const float* __restrict__ sw, const float* __restrict__ bias, float eps,
+                 bf16* __restrict__ q, bf16* __restrict__ kv) {
+  constexpr int NW = 4, CT = 3 * KC / 128, VPL = KC / 32;
+  constexpr int MMA_WARPS = K8_MMA / 32, LN_WARPS = K8_LN / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* A = reinterpret_cast<int8_t*>(smem);  // two code buffers
+  int8_t* ring = A + 2 * K8_BM * LDA_C;
+  bf16* xs = reinterpret_cast<bf16*>(ring + K8_SLOTS * K1T_SLOT);  // the LN warps' x rows
+  float* sr = reinterpret_cast<float*>(xs + (K8_LN / 32) * K8_XBUF * KC);  // two row-scale buffers
+  float* sws = sr + 2 * K8_BM;                                      // sw, then bias
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sws + 2 * 3 * KC);
+  uint64_t* afull = bars + 2 * K8_SLOTS;  // [2]: a buffer's codes written
+  uint64_t* aempty = afull + 2;           // [2]: a buffer's codes read
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (rows + K8_BM - 1) / K8_BM;
+  const int begin = static_cast<int>(1ll * tiles * blockIdx.x / gridDim.x);
+  const int end = static_cast<int>(1ll * tiles * (blockIdx.x + 1) / gridDim.x);
+  for (int c = tid; c < 3 * KC; c += K8_THREADS) {
+    sws[c] = sw[c];
+    sws[3 * KC + c] = bias[c];
+  }
+  if (tid == 0) {
+    for (int i = 0; i < K8_SLOTS; ++i) {
+      mbar_init(bars + i, 32);
+      mbar_init(bars + K8_SLOTS + i, MMA_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(afull + b, K8_LN);
+      mbar_init(aempty + b, MMA_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == MMA_WARPS + LN_WARPS) {  // the producer
+    Stream<K8_SLOTS> st{ring, bars, bars + K8_SLOTS, 0, 0u};
+    for (int i = begin; i < end; ++i)
+      for (int j = 0; j < CT; ++j)
+        for (int kt = 0; kt < KC / 128; ++kt)
+          st.produce<128, 128>(w + static_cast<size_t>(128 * j) * KC, KC, 128 * kt);
+    return;
+  }
+
+  if (warp >= MMA_WARPS) {  // the LayerNorm warps: tile k into buffer k % 2
+    const int lw = warp - MMA_WARPS;
+    bf16* xw = xs + lw * K8_XBUF * KC;  // this warp's rows in flight
+    // row r of the tile into slot (r / LN_WARPS) % K8_XBUF, 16 bytes a lane;
+    // one cp.async group a row, empty past the tile's rows
+    auto fetch = [&](int r0, int n, int r) {
+      if (r < n) {
+        const bf16* src = x + static_cast<size_t>(r0 + r) * KC;
+        bf16* dst = xw + ((r / LN_WARPS) % K8_XBUF) * KC;
+        for (int c = lane; c < KC / 8; c += 32) cp_async16(dst + 8 * c, src + 8 * c, true);
+      }
+      cp_async_commit();
+    };
+    for (int i = begin; i < end; ++i) {
+      const int k = i - begin, b = k & 1, r0 = i * K8_BM, n = min(K8_BM, rows - r0);
+      if (lw == 0 && lane == 0 && i + 1 < end) {
+        const int r1 = r0 + K8_BM;
+        bulk_prefetch_l2(x + static_cast<size_t>(r1) * KC, min(K8_BM, rows - r1) * KC * 2);
+      }
+      int8_t* Ab = A + b * K8_BM * LDA_C;
+      float* srb = sr + b * K8_BM;
+#pragma unroll
+      for (int p = 0; p < K8_XBUF - 1; ++p) fetch(r0, n, lw + p * LN_WARPS);
+      mbar_wait(aempty + b, ((k >> 1) & 1) ^ 1u);  // the first use of a buffer passes
+      for (int r = lw; r < K8_BM; r += LN_WARPS) {
+        fetch(r0, n, r + (K8_XBUF - 1) * LN_WARPS);
+        cp_async_wait<K8_XBUF - 1>();
+        __syncwarp();
+        float sc = 0.f;
+        if (r < n)
+          sc = ln_quant_row<bf16, VPL, kBf16Ln>(xw + ((r / LN_WARPS) % K8_XBUF) * KC, lane, nullptr,
+                                                nullptr, eps, 1, Ab + r * LDA_C);
+        else
+          for (int c = lane; c < KC; c += 32) Ab[r * LDA_C + c] = 0;
+        if (lane == 0) srb[r] = sc;
+        __syncwarp();  // every lane has read the row's slot before it is filled again
+      }
+      cp_async_wait<0>();
+      mbar_arrive(afull + b);
+    }
+    return;
+  }
+
+  // the product warps
+  Stream<K8_SLOTS> st{ring, bars, bars + K8_SLOTS, 0, 0u};
+  const int wm = warp / NW, wn = warp % NW, g = lane >> 2, t = lane & 3;
+  for (int i = begin; i < end; ++i) {
+    const int k = i - begin, b = k & 1, r0 = i * K8_BM, n = min(K8_BM, rows - r0);
+    const int8_t* Ab = A + b * K8_BM * LDA_C;
+    const float* srb = sr + b * K8_BM;
+    mbar_wait(afull + b, (k >> 1) & 1);
+    for (int j = 0; j < CT; ++j) {
+      int acc[2][4][4];
+      st.gemm<2, 4, 128, NW>(Ab, LDA_C, KC, true, acc);
+      // 128-column tiles never straddle q | kv
+      bf16* dst = j < KC / 128 ? q : kv;
+      const int ld = j < KC / 128 ? KC : 2 * KC, c0 = 128 * j - (j < KC / 128 ? 0 : KC);
+      const int cb = 128 * j + wn * 32 + 2 * t;  // this lane's columns cb + 8 ni + {0, 1}
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + mi * 16 + g + 8 * h;
+          const float s = srb[r];
+          uint32_t P[4];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int c = cb + 8 * ni;
+            P[ni] = pack_bf16(__fadd_rn(dequant(acc[mi][ni][2 * h], s, sws[c]), sws[3 * KC + c]),
+                              __fadd_rn(dequant(acc[mi][ni][2 * h + 1], s, sws[c + 1]),
+                                        sws[3 * KC + c + 1]));
+          }
+          const uint4 val = quad_transpose(P);
+          // streaming stores (evict first): the rows are the next kernel's, not this one's
+          if (r < n)
+            __stcs(reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * ld + c0 + wn * 32 +
+                                            8 * t),
+                   val);
+        }
+    }
+    __syncwarp();  // every lane's reads of the buffer's codes and scales are done
+    if (lane == 0) mbar_arrive(aempty + b);
+  }
+}
+
 // The two properties the tail's one-GELU-a-row scale rests on, over every
 // f32: gelu_tanh non-decreasing on x >= 0 (`bad` counts the steps where it
 // falls) and the largest |gelu_tanh(x)| on x < 0 (`negmax`, as bits), which
@@ -874,6 +1069,16 @@ cudaError_t launch_tail(const int8_t* acode, const float* ascale, const bf16* a,
   if (e != cudaSuccess) return e;
   tail<<<(nrows + 63) / 64, K1T_THREADS, K1_TAIL_SMEM, s>>>(acode, ascale, a, x, nrows, wo, so, bo,
                                                            w1, s1, b1, w2, s2, b2, eps, out);
+  return cudaGetLastError();
+}
+
+template <bool kBf16Ln>
+cudaError_t launch_k8(const bf16* x, int rows, int blocks, const int8_t* w, const float* sw,
+                      const float* bias, float eps, bf16* q, bf16* kv, cudaStream_t s) {
+  auto kern = k8_ln_qkv_kernel<kBf16Ln>;
+  const cudaError_t e = set_smem(kern, K8_SMEM);
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, K8_THREADS, K8_SMEM, s>>>(x, rows, w, sw, bias, eps, q, kv);
   return cudaGetLastError();
 }
 
@@ -1016,6 +1221,24 @@ int ct_k9_tail(const void* a, const void* x, int rows, int C, int H, const int8_
   if (bf16_ln) return gelu_fold ? go(T_{}, T_{}) : go(T_{}, F_{});
   return gelu_fold ? go(F_{}, T_{}) : go(F_{}, F_{});
 }
+
+// K8 in bfloat16 (mlp_int8_pallas.py::_qkv_kernel): x (rows, 384) ->
+// q (rows, 384), kv (rows, 768), on `blocks` persistent blocks (k8_plan's
+// count, at most one per 128-row tile).
+int ct_k8_stream(const void* x, int rows, int C, const int8_t* w, const float* sw,
+                 const float* bias, float eps, int bf16_ln, int blocks, void* q, void* kv,
+                 void* stream) {
+  if (rows < 1 || C != KC || blocks < 1 || blocks > (rows + K8_BM - 1) / K8_BM)
+    return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  bf16 *qp = static_cast<bf16*>(q), *kp = static_cast<bf16*>(kv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16_ln ? launch_k8<true>(xp, rows, blocks, w, sw, bias, eps, qp, kp, s)
+                 : launch_k8<false>(xp, rows, blocks, w, sw, bias, eps, qp, kp, s);
+}
+
+// K8's shared-memory bytes a block (k8_plan checks its arithmetic against it).
+int ct_k8_smem() { return K8_SMEM; }
 
 // bad (1,) u64 and negmax (1,) u32, zeroed by the caller.
 int ct_k1_gelu_check(unsigned long long* bad, unsigned* negmax, void* stream) {

@@ -16,9 +16,11 @@ terms are accumulated per chunk, so per-level embeddings never exist at full N.
 
 K4m is the `corr_fuse_mlp1` variant (corr_pallas.py `fuse_mlp1`,
 COTRACKER_CORR_FUSE_MLP1): `corr_mlp1_int8` runs the combine, a per-point
-quantization whose scale comes from the RAW volume, and the s8 MLP1 + b1
-inside the kernel and emits pre-GELU hidden rows in the compute dtype; only
-the exact-erf GELU and what follows stay outside. Its W1 is quantized from
+quantization whose scale comes from the RAW volume, and the s8 MLP1 + b1 in
+two launches on `k4m_plan` (K4's cluster kernel in its K4m mode writes each
+frame's code row of the 2,401 real taps, then a 128-row MLP1 kernel) and
+emits pre-GELU hidden rows in the compute dtype; only the exact-erf GELU and
+what follows stay outside. Its W1 is quantized from
 the float32 weights (`quantize_w1_mlp1`), K4's from the compute dtype, and
 its bias is added in float32 before the rounding, K4's after it: in bf16
 the two are different functions, as in the JAX package. Both the fold path
@@ -155,14 +157,10 @@ def _quantize_volume(c, NP, Tp):
     return q.reshape(NP, Tp, WIN * WIN, S), scale
 
 
-def corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
-    """Plain K4m. Operands as corr_volume_plain; w1c, w1s from
-    quantize_w1_mlp1; b1 (Dh,); sup_scale (NP,) the support codes' scale.
-    Returns the pre-GELU hidden rows (NP, Tp, Dh) in out_dtype:
-
-        s = max(absmax(raw g over all taps and frames), 1e-20) / 127
-        c = lerp_y(lerp_x(g)) over the 7 x 7 real taps; codes rint(c * (1/s))
-        out = (codes . W1c * w1s) * (s * sup_scale) + b1"""
+def _mlp1_codes_plain(fmq, supq, starts, wxy):
+    """K4m's code rows and per-point scale: the combined volume's 7 x 7 x 49
+    real taps in (y, x, s) order, rint(c * (1/s)), zero-padded to KM bytes
+    (NP * Tp, KM) int8, and s (NP,) f32 from the RAW volume's absmax."""
     NP, Tp, _ = starts.shape
     P = 7
     g = _window_products(fmq, supq, starts)  # (NP, R, 49), exact integers
@@ -174,7 +172,19 @@ def corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
     gx8 = g[:, :, 1:, :P] + wx * (g[:, :, 1:, 1:] - g[:, :, 1:, :P])
     c = gx0 + wy * (gx8 - gx0)
     codes = torch.round(c * (1.0 / s)[:, None, None, None, None]).to(torch.int8)
-    codes = F.pad(codes.reshape(NP * Tp, P * P * S), (0, KM - P * P * S))
+    return F.pad(codes.reshape(NP * Tp, P * P * S), (0, KM - P * P * S)), s
+
+
+def corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """Plain K4m. Operands as corr_volume_plain; w1c, w1s from
+    quantize_w1_mlp1; b1 (Dh,); sup_scale (NP,) the support codes' scale.
+    Returns the pre-GELU hidden rows (NP, Tp, Dh) in out_dtype:
+
+        s = max(absmax(raw g over all taps and frames), 1e-20) / 127
+        c = lerp_y(lerp_x(g)) over the 7 x 7 real taps; codes rint(c * (1/s))
+        out = (codes . W1c * w1s) * (s * sup_scale) + b1"""
+    NP, Tp, _ = starts.shape
+    codes, s = _mlp1_codes_plain(fmq, supq, starts, wxy)
     h32 = torch._int_mm(codes, w1c.t()).to(F32).reshape(NP, Tp, -1)
     return ((h32 * w1s) * (s * sup_scale)[:, None, None] + b1.to(F32)).to(out_dtype)
 
@@ -281,14 +291,31 @@ def corr_volume_int8(fmq, supq, starts, wxy):
 corr_volume_int8.launches = 0
 
 
-def corr_mlp1_int8(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
-    """K4m: per point, the combined volume's per-point codes through MLP1
-    + b1, as pre-GELU hidden rows (NP, Tp, Dh) in out_dtype; see
-    corr_mlp1_plain."""
-    if fmq.device.type == "cpu":
-        return corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)
+class K4mPlan(NamedTuple):
+    """K4m's two launches for NP points of Tp frames: K4's cluster kernel in
+    its K4m mode on k4_plan's tiling (`volume`), then the MLP1 product on
+    `gemm_blocks` blocks of K4M_ROWS code rows (several points' frames),
+    `gemm_smem` bytes of shared memory each."""
+
+    volume: K4Plan
+    gemm_blocks: int
+    gemm_smem: int
+
+
+K4M_ROWS, K4M_STAGES = 128, 5  # corr_window.cu's kMlpBM and kMlpStages
+# the ring: per stage the rows' codes and W1's 384 rows, 64 + 16 bytes each;
+# then the rows' scales
+K4M_GEMM_SMEM = K4M_STAGES * (K4M_ROWS + 384) * (64 + 16) + K4M_ROWS * 4
+
+
+def k4m_plan(NP: int, Tp: int) -> K4mPlan:
+    """K4m's tiling (the arithmetic of ct_corr_mlp1 and kMlpSmem)."""
+    return K4mPlan(k4_plan(NP, Tp), -(-NP * Tp // K4M_ROWS), K4M_GEMM_SMEM)
+
+
+def _check_mlp1(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
     _check_operands(fmq, supq, starts, (torch.int8,), "K4m")
-    NP, Tp, _ = starts.shape
+    NP = starts.shape[0]
     Dh = w1c.shape[0]
     for t in (wxy, w1c, w1s, b1, sup_scale):
         if t.device.type != "cuda":
@@ -297,15 +324,53 @@ def corr_mlp1_int8(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
             or out_dtype not in (F32, torch.bfloat16) or sup_scale.numel() != NP:
         raise ValueError(f"K4m takes W1 codes (384, {KM}) int8, {NP} support scales and a "
                          f"float32 or bfloat16 output; got W1 {tuple(w1c.shape)} {w1c.dtype}")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _bound("ct_corr_mlp1", P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P)
-    _, Hp, Wp, _ = fmq.shape
-    out = torch.empty((NP, Tp, Dh), dtype=out_dtype, device=fmq.device)
     f32 = lambda t: t.to(F32).contiguous()  # noqa: E731
-    args = (fmq.contiguous(), supq.contiguous(), starts.to(torch.int32).contiguous(), f32(wxy),
-            w1c.contiguous(), f32(w1s), f32(b1), f32(sup_scale.reshape(NP)), out)
-    _build.check(fn(*map(_build.ptr, args), int(out_dtype == torch.bfloat16), NP, Tp, Hp, Wp, Dh,
-                    _build.stream_ptr(fmq)), "ct_corr_mlp1")
+    return (fmq.contiguous(), supq.contiguous(), starts.to(torch.int32).contiguous(), f32(wxy),
+            w1c.contiguous(), f32(w1s), f32(b1), f32(sup_scale.reshape(NP)))
+
+
+def _k4m_launch(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """K4m's two launches on k4m_plan: returns the rows (NP, Tp, 384) and the
+    scratch they passed through, the code rows (NP * Tp, KM) int8 and the
+    points' scales (NP,)."""
+    args = _check_mlp1(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)
+    NP, Tp, _ = starts.shape
+    _, Hp, Wp, _ = fmq.shape
+    plan = k4m_plan(NP, Tp)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bound("ct_corr_mlp1", *([P] * 11), I, I, I, I, I, I, I, I, P)
+    dev = fmq.device
+    out = torch.empty((NP, Tp, 384), dtype=out_dtype, device=dev)
+    codes = torch.empty((NP * Tp, KM), dtype=torch.int8, device=dev)
+    gscale = torch.empty((NP,), dtype=F32, device=dev)
+    _build.check(fn(*map(_build.ptr, args + (codes, gscale, out)),
+                    int(out_dtype == torch.bfloat16), NP, Tp, Hp, Wp, 384, plan.volume.cluster,
+                    int(plan.volume.hold), _build.stream_ptr(fmq)), "ct_corr_mlp1")
+    return out, codes, gscale
+
+
+def _corr_mlp1_first(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """K4m's first body (ct_corr_mlp1_first: one block a point, two passes
+    over the windows, MLP1 on 16 rows at a time): the yardstick the card
+    runs beside K4m; the port calls it nowhere else."""
+    args = _check_mlp1(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)
+    NP, Tp, _ = starts.shape
+    _, Hp, Wp, _ = fmq.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _bound("ct_corr_mlp1_first", P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P)
+    out = torch.empty((NP, Tp, 384), dtype=out_dtype, device=fmq.device)
+    _build.check(fn(*map(_build.ptr, args + (out,)), int(out_dtype == torch.bfloat16), NP, Tp, Hp,
+                    Wp, 384, _build.stream_ptr(fmq)), "ct_corr_mlp1_first")
+    return out
+
+
+def corr_mlp1_int8(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype):
+    """K4m: per point, the combined volume's per-point codes through MLP1
+    + b1, as pre-GELU hidden rows (NP, Tp, Dh) in out_dtype; see
+    corr_mlp1_plain. Two launches (k4m_plan): the code rows, then MLP1."""
+    if fmq.device.type == "cpu":
+        return corr_mlp1_plain(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)
+    out = _k4m_launch(fmq, supq, starts, wxy, w1c, w1s, b1, sup_scale, out_dtype)[0]
     corr_mlp1_int8.launches += 1
     return out
 

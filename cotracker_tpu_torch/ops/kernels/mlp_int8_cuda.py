@@ -19,8 +19,10 @@ tensor-core s8 GEMMs with fused dequant/bias/GELU/residual epilogues, the
 attention core). K8
 replaces ::_qkv_kernel (wrapper fused_ln_qkv_int8) and K9 ::_out_mlp_kernel
 (wrapper fused_attnout_res_mlp_int8), one launch each: a row tile's
-activations, its f32 residual and its GELU codes stay in shared memory; K9
-in bfloat16 is K1's streamed tail with its own prologue (k9_route). See
+activations, its f32 residual and its GELU codes stay in shared memory; K8
+in bfloat16 runs persistent blocks of csrc/int8_time_block.cu on the tail's
+weight stream (k8_plan), K9 in bfloat16 is K1's streamed tail with its own
+prologue (k9_route). See
 the sources for what bounds them and what the designs do about it. K10
 replaces ::_dense_kernel (fused_ln_dense_int8), K11
 ::_space_block_allt_kernel (the `space_allt` route of
@@ -291,6 +293,9 @@ def _lib():
         _fns["k2"] = _build.bind(k1, "ct_k2_space_block", _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
         _fns["k2_smem"] = _build.bind(k1, "ct_k2_smem", _I)
+        _fns["k8_stream"] = _build.bind(k1, "ct_k8_stream", _P, _I, _I, _P, _P, _P, _F, _I, _I,
+                                        _P, _P, _P)
+        _fns["k8_smem"] = _build.bind(k1, "ct_k8_smem")
         _fns["k9_tail"] = _build.bind(k1, "ct_k9_tail", _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _F, _I, _I, _P, _P)
         fused = _build.load("int8_fused")
@@ -624,6 +629,69 @@ fused_space_block_allt_int8.launches = 0
 SPLIT_C, SPLIT_H = 384, 1536  # the widths K8-K12 are built for
 
 
+class K8Plan(NamedTuple):
+    """K8's body and tiling for `rows` token rows: "stream" (bfloat16:
+    csrc/int8_time_block.cu's k8_ln_qkv_kernel, `blocks` persistent blocks,
+    one an SM, each a contiguous run of the `tiles` 128-row tiles; `smem`
+    bytes a block) or "tile" (float32: the PR 4 body of csrc/int8_blocks.cu,
+    one block a 128-row tile)."""
+
+    route: str
+    tiles: int
+    blocks: int
+    smem: int
+
+
+# int8_time_block.cu's row tile, weight-stream slots and x rows in flight a
+# LayerNorm warp (8 of them)
+K8_BM, K8_SLOTS, K8_XBUF = 128, 4, 3
+# two code buffers, the slots, the LayerNorm warps' x rows, two row-scale
+# buffers, the weight scales and biases, the mbarriers (full and empty a
+# slot, full and empty a code buffer)
+K8_SMEM = (2 * K8_BM * _LDA_C + K8_SLOTS * K1T_SLOT + 8 * K8_XBUF * 384 * 2 + 2 * K8_BM * 4
+           + 2 * 3 * 384 * 4 + (2 * K8_SLOTS + 4) * 8)
+
+
+def k8_plan(rows: int, dtype, sms: int = 132) -> K8Plan:
+    """K8's route and tiling on a card of `sms` SMs."""
+    if rows < 1:
+        raise ValueError(f"K8 takes at least one row, got {rows}")
+    tiles = -(-rows // K8_BM)
+    if dtype == torch.bfloat16:
+        return K8Plan("stream", tiles, min(tiles, sms), K8_SMEM)
+    if dtype == F32:
+        return K8Plan("tile", tiles, tiles, 0)
+    raise TypeError(f"K8 takes float32 or bfloat16 tokens, got {dtype}")
+
+
+def _ln_qkv_tile(x2d, wqkv: QLinear, eps, bf16_ln):
+    """K8's PR 4 body (ct_k8_ln_qkv: one block a 128-row tile, the weights
+    staged by plain loads), the route of float32 tokens; in bfloat16 the
+    yardstick the streamed body is held to bit for bit."""
+    rows, C = x2d.shape
+    q = torch.empty((rows, C), dtype=x2d.dtype, device=x2d.device)
+    kv = torch.empty((rows, 2 * C), dtype=x2d.dtype, device=x2d.device)
+    _build.check(_lib()["k8"](
+        _build.ptr(x2d), _is_bf16(x2d), rows, C, _build.ptr(wqkv.w), _build.ptr(wqkv.s),
+        _build.ptr(wqkv.b), eps, int(bf16_ln), _build.ptr(q), _build.ptr(kv),
+        _build.stream_ptr(x2d)), "ct_k8_ln_qkv")
+    return q, kv
+
+
+def _ln_qkv_stream(x2d, wqkv: QLinear, eps, bf16_ln, plan: K8Plan):
+    """K8 in bfloat16: ct_k8_stream on `plan`'s blocks."""
+    rows, C = x2d.shape
+    if x2d.data_ptr() % 16:
+        raise ValueError("K8 copies x's rows in 16-byte pieces: its data must be 16-byte aligned")
+    q = torch.empty((rows, C), dtype=x2d.dtype, device=x2d.device)
+    kv = torch.empty((rows, 2 * C), dtype=x2d.dtype, device=x2d.device)
+    _build.check(_lib()["k8_stream"](
+        _build.ptr(x2d), rows, C, _build.ptr(wqkv.w), _build.ptr(wqkv.s), _build.ptr(wqkv.b), eps,
+        int(bf16_ln), plan.blocks, _build.ptr(q), _build.ptr(kv), _build.stream_ptr(x2d)),
+        "ct_k8_stream")
+    return q, kv
+
+
 def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
     """K8: the pre-norm attention entry, one LayerNorm and one row
     quantization feeding both projections:
@@ -631,7 +699,8 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
         h = quant(ln(x)); q, kv = to_q(h), to_kv(h)
 
     x (..., C) float32 or bfloat16; wqkv the stacked [to_q; to_kv] (3C, C)
-    (TimeBlockWeights.qkv). Returns (q (..., C), kv (..., 2C)) in x.dtype."""
+    (TimeBlockWeights.qkv). Returns (q (..., C), kv (..., 2C)) in x.dtype.
+    One launch; the body is k8_plan(rows, x.dtype)'s."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, wqkv, eps, bf16_ln)
     C = x.shape[-1]
@@ -640,13 +709,12 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
         raise ValueError(f"K8 takes C={SPLIT_C} and (3C, C) weights, got x {tuple(x.shape)}, "
                          f"w {tuple(wqkv.w.shape)}")
     x2d = x.contiguous().reshape(-1, C)
-    rows = x2d.shape[0]
-    q = torch.empty((rows, C), dtype=x.dtype, device=x.device)
-    kv = torch.empty((rows, 2 * C), dtype=x.dtype, device=x.device)
-    _build.check(_lib()["k8"](
-        _build.ptr(x2d), _is_bf16(x2d), rows, C, _build.ptr(wqkv.w), _build.ptr(wqkv.s),
-        _build.ptr(wqkv.b), eps, int(bf16_ln), _build.ptr(q), _build.ptr(kv),
-        _build.stream_ptr(x)), "ct_k8_ln_qkv")
+    plan = k8_plan(x2d.shape[0], x.dtype,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan.route == "stream":
+        q, kv = _ln_qkv_stream(x2d, wqkv, eps, bf16_ln, plan)
+    else:
+        q, kv = _ln_qkv_tile(x2d, wqkv, eps, bf16_ln)
     fused_ln_qkv_int8.launches += 1
     lead = x.shape[:-1]
     return q.reshape(*lead, C), kv.reshape(*lead, 2 * C)

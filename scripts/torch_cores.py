@@ -28,6 +28,11 @@ fused kernel and the merge of its key ranges) at 10,240 tracks x 60 and x
 its kernels' device time from the profiler's records, its device launches,
 the launch chain it replaced (kept as the f32 route) and its bound; on an
 earlier checkout (--root) the same records time that checkout's body.
+Then K8 (the split time block's LN + W8A8 q|kv) at the long forward's row
+counts, bit for bit against its PR 4 body, and K4m (correlation + combine
++ MLP1) at every pyramid level of the streaming and offline windows, its
+rows against corr_mlp1_plain, beside its first body and, per level-chunk
+with GELU, beside K4 + the int8 MLP1 product it replaces.
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
@@ -35,6 +40,7 @@ earlier checkout (--root) the same records time that checkout's body.
                                                 # two-pass routes side by side
     python3 scripts/torch_cores.py --only k4 k9 # some sections
     python3 scripts/torch_cores.py --only k2 k3 --root build/parent
+    python3 scripts/torch_cores.py --only k8 k4m --root build/parent
     python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
                                                 # the same sections on
                                                 # another checkout's package
@@ -236,7 +242,95 @@ def k9_section(dev, g):
         del x, a, out, ref
 
 
-SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3")
+K8_SHAPES = ((2048, 250), (2560, 250), (64, 250))
+# K4m's shapes: every pyramid level of the quasi-dense (c) window (T=16) and
+# of the offline (c) window (T=60), one 2,048-point chunk each
+K4M_SHAPES = tuple((f"l{lv}_t{T}", (96 >> lv, 128 >> lv), 2048, T)
+                   for T in (16, 60) for lv in range(4))
+
+
+def k8_section(dev, g):
+    """K8 (the split time block's LN + W8A8 q|kv) at the long forward's row
+    counts: the wrapper's body (in bf16 the streamed body on k8_plan's
+    persistent blocks; on an earlier checkout the PR 4 body), bit for bit
+    against the PR 4 body where the checkout keeps it beside (in both LN
+    modes), its device launches and its byte bound."""
+    M = mlp_int8_cuda
+    qkv = lin(g, dev, 3 * C, C)
+    first = getattr(M, "_ln_qkv_tile", None)
+    for N, T in K8_SHAPES:
+        x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+        rec = dict(kernel="K8", tracks=N, frames=T,
+                   plan=M.k8_plan(N * T, x.dtype)._asdict() if hasattr(M, "k8_plan") else None,
+                   ms=time_ms(lambda: M.fused_ln_qkv_int8(x, qkv), reps=10),
+                   device_launches=device_launches(lambda: M.fused_ln_qkv_int8(x, qkv)),
+                   bound_ms=bound_ms(4 * nbytes(x) + nbytes(*qkv), N * T * 2 * C * 3 * C / INT8_OPS))
+        if first is not None:
+            x2d = x.reshape(-1, C)
+            for ln in (False, True):
+                q, kv = M.fused_ln_qkv_int8(x, qkv, bf16_ln=ln)
+                fq, fkv = first(x2d, qkv, 1e-6, ln)
+                rec["mismatches" + ("_bf16_ln" if ln else "")] = int(
+                    (q.reshape(-1, C) != fq).sum().item() + (kv.reshape(-1, 2 * C) != fkv).sum().item())
+            rec["first_ms"] = time_ms(lambda: first(x2d, qkv, 1e-6, False), reps=10)
+            rec["ms_bf16_ln"] = time_ms(lambda: M.fused_ln_qkv_int8(x, qkv, bf16_ln=True), reps=10)
+        emit(**rec)
+        del x
+
+
+def k4m_section(dev, g):
+    """K4m (correlation + combine + MLP1) at every level of the (c) windows:
+    the wrapper's body (two launches: the code rows on K4's cluster tiling,
+    then MLP1 on 128-row tiles; on an earlier checkout the first body) with
+    its kernels' device time, the rows against corr_mlp1_plain bit for bit,
+    the first body where the checkout keeps it beside, and per level-chunk
+    with GELU the K4m path against K4 + the int8 MLP1 product (corr_hidden)."""
+    bf = torch.bfloat16
+    w1 = (0.02 * torch.randn(2401, 384, generator=g)).to(dev)
+    b1 = (0.1 * torch.randn(384, generator=g)).to(dev)
+    w1c, w1s = corr_cuda.quantize_w1_mlp1(w1)
+    w1q, w1amax = corr_cuda.quantize_w1(w1, bf)
+    first = getattr(corr_cuda, "_corr_mlp1_first", None)
+    for name, (Hh, W), n, T in K4M_SHAPES:
+        fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g), dim=-1)
+        fmq = corr_cuda.build_int8_level(fm.to(dev, bf), 3)
+        del fm
+        sup = torch.nn.functional.normalize(torch.randn(1, 49, n, 128, generator=g), dim=-1)
+        supq, sscale = corr_cuda.quantize_support(sup.to(dev, bf), bf)
+        coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev, bf)
+        starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        args = (fmq, supq.reshape(n, 49, 128), starts, wxy, w1c, w1s, b1, sscale.reshape(n), bf)
+        fn = lambda: corr_cuda.corr_mlp1_int8(*args)  # noqa: E731
+        out = fn()
+        ref = torch.cat([corr_cuda.corr_mlp1_plain(fmq, *(a[i:i + PLAIN_POINTS] for a in args[1:4]),
+                                                   w1c, w1s, b1, args[7][i:i + PLAIN_POINTS], bf)
+                         for i in range(0, n, PLAIN_POINTS)])
+        Tp = starts.shape[1]
+        by_kernel = kernel_ms(fn)
+        chain = lambda mlp1: corr_cuda.corr_hidden(  # noqa: E731
+            fmq, supq, sscale, coords, w1q, w1amax, b1, Hh, W, 3, bf,
+            (w1c, w1s) if mlp1 else None)
+        rec = dict(kernel="K4m", shape=name, points=n, frames=T,
+                   plan=corr_cuda.k4m_plan(n, Tp)._asdict() if hasattr(corr_cuda, "k4m_plan") else None,
+                   row_mismatches=int((out != ref).any(-1).sum().item()),
+                   ms=time_ms(fn, reps=10),
+                   volume_ms=sum(t for k, t in by_kernel.items() if "corr_volume_kernel" in k),
+                   gemm_ms=sum(t for k, t in by_kernel.items() if "mlp1_gemm_kernel" in k),
+                   kernels_ms={k[:60]: round(t, 4) for k, t in by_kernel.items()},
+                   device_launches=device_launches(fn),
+                   k4_chain_ms=time_ms(lambda: chain(False), reps=5),
+                   k4m_chain_ms=time_ms(lambda: chain(True), reps=5),
+                   bound_ms=bound_ms(nbytes(*args[:-1], out),
+                                     n * Tp * (64 * 49 * 128 + 2401 * 384) * 2 / INT8_OPS
+                                     + n * Tp * 2401 * 6 / F32_OPS))
+        if first is not None:
+            rec["first_row_mismatches"] = int((first(*args) != ref).any(-1).sum().item())
+            rec["first_ms"] = time_ms(lambda: first(*args), reps=5)
+        emit(**rec)
+        del fmq, supq, starts, wxy, out, ref
+
+
+SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m")
 
 
 def main():
@@ -258,7 +352,7 @@ def main():
     # each section draws its operands from its own seed, so --only repeats them
     seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
     run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
-               k1=k1_section, k2=k2_section, k3=k3_section)
+               k1=k1_section, k2=k2_section, k3=k3_section, k8=k8_section, k4m=k4m_section)
     for name in SECTIONS:
         if name in args.only:
             run[name](dev, torch.Generator().manual_seed(seeds[name]))

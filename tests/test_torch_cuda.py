@@ -10,7 +10,10 @@ of k1_plan the frame gate reaches; K2 in bf16 (the fused front, then K1's
 tail: two launches) and K3 in bf16 (one fused kernel, and the merge of its
 key ranges) from 1 to 250 frames at ragged track counts; the K2 and K3
 chains (the f32 routes) at the streaming width; the wrapper with
-corr_fuse_mlp1 (K4m).
+corr_fuse_mlp1 (K4m). K8 in bf16 (the streamed body) bit for bit against
+its PR 4 body; K4m's two launches (code rows, then MLP1) on every route of
+its plan, its code rows, scales and rows bit for bit against its plain
+version.
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -105,6 +108,29 @@ def test_ln_qkv(dev, dtype, M, T):
     for o, r in ((q, rq), (kv, rkv)):
         assert o.dtype == dtype and o.shape == r.shape
         _close(o, r, dtype)
+
+
+@pytest.mark.parametrize("bf16_ln", [False, True])
+@pytest.mark.parametrize("M,T", SPLIT_SHAPES + [(300, 7), (1000, 40)])
+def test_ln_qkv_stream_matches_first_body(dev, M, T, bf16_ln):
+    """K8 in bfloat16 (the streamed body on k8_plan's persistent blocks) is
+    bit-identical to the PR 4 body at the same inputs: the same LayerNorm and
+    quantization device code, exact s8 products, the same epilogue order.
+    Row counts: a ragged last tile (222, 2,100), whole tiles (16,000), and
+    more tiles than SMs (40,000: runs of 2-3 tiles a block); both LN modes.
+    The plan's shared-memory bytes are the kernel's."""
+    g = torch.Generator().manual_seed(M + T)
+    w = _time_pack(g, dev)
+    x = torch.randn(M, T, C, generator=g).to(dev, torch.bfloat16)
+    plan = mlp_int8_cuda.k8_plan(M * T, x.dtype)
+    assert plan.route == "stream" and plan.smem == mlp_int8_cuda._lib()["k8_smem"]()
+    n = mlp_int8_cuda.fused_ln_qkv_int8.launches
+    q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv, bf16_ln=bf16_ln)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_qkv_int8.launches == n + 1
+    fq, fkv = mlp_int8_cuda._ln_qkv_tile(x.reshape(-1, C), w.qkv, 1e-6, bf16_ln)
+    assert torch.equal(q.reshape(-1, C), fq) and torch.equal(kv.reshape(-1, 2 * C), fkv)
+    assert device_launches(lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -748,12 +774,16 @@ def test_trainable_fuse_mlp1_on_card(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [5, 16])
+@pytest.mark.parametrize("T", [5, 16, 24, 60, 80])
 def test_corr_mlp1(dev, dtype, T):
     """K4m: the same integer products, combine, codes and epilogue order as
-    its plain version, so the rows match exactly."""
+    its plain version, so the code rows, the points' scales and the rows
+    match exactly, on every route of its plan: the volume held on chip (T 5
+    padded to 6, 16, 24 the training clip, 60) and two passes past 64
+    frames (80); 38 points, so no frame count fills whole 128-row MLP1
+    tiles, and windows at the map's edge. The first body matches too."""
     g = torch.Generator().manual_seed(T)
-    B, Hh, W, NP = 2, 24, 32, 40
+    B, Hh, W, NP = 2, 24, 32, 38
     fm = torch.nn.functional.normalize(torch.randn(B, T, Hh, W, 128, generator=g), dim=-1)
     fmq = corr_cuda.build_int8_level(fm.to(dev), 3)
     sup = torch.nn.functional.normalize(torch.randn(B, 49, NP // B, 128, generator=g), dim=-1)
@@ -764,13 +794,21 @@ def test_corr_mlp1(dev, dtype, T):
     b1 = (0.1 * torch.randn(384, generator=g)).to(dev)
     args = (fmq, supq.reshape(NP, 49, 128), starts, wxy, *corr_cuda.quantize_w1_mlp1(w1), b1,
             sscale.reshape(NP), dtype)
+    Tp = starts.shape[1]
+    assert corr_cuda.k4m_plan(NP, Tp).volume.hold == (Tp <= 64)
+    assert corr_cuda._bound("ct_k4m_gemm_smem")() == corr_cuda.K4M_GEMM_SMEM
     n = corr_cuda.corr_mlp1_int8.launches
     out = corr_cuda.corr_mlp1_int8(*args)
     torch.cuda.synchronize()
     assert corr_cuda.corr_mlp1_int8.launches == n + 1
     ref = corr_cuda.corr_mlp1_plain(*args)
-    assert out.dtype == dtype and out.shape == ref.shape == (NP, starts.shape[1], 384)
+    assert out.dtype == dtype and out.shape == ref.shape == (NP, Tp, 384)
     assert torch.equal(out, ref)
+    _, codes, gscale = corr_cuda._k4m_launch(*args)
+    rcodes, rscale = corr_cuda._mlp1_codes_plain(*args[:4])
+    assert torch.equal(gscale, rscale) and torch.equal(codes, rcodes)
+    assert torch.equal(corr_cuda._corr_mlp1_first(*args), ref)
+    assert device_launches(lambda: corr_cuda.corr_mlp1_int8(*args)) == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

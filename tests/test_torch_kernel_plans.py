@@ -175,3 +175,49 @@ def test_k3_ranges_cover_every_key_once(N):
     assert A.K3_KV_RING == mlp_int8_cuda._ring_bytes(**_ring(src, "K3KvGemm"))
     assert int(re.search(r"constexpr int K3_KEYS = (\d+);", src).group(1)) == A.K3_KEYS
     assert "int8_v2p_proj" in _build.SOURCES
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k8_plan_covers_every_row_once(sms):
+    """K8 in bfloat16 runs persistent blocks, one an SM, each a non-empty
+    contiguous run of the 128-row tiles, together every tile once; a block
+    fits the card's shared memory; float32 keeps the PR 4 body (one block a
+    tile). The plan's constants are int8_time_block.cu's."""
+    for rows in (1, 127, 128, 129, 222, 16000, 16001, 512000, 640000):
+        p = mlp_int8_cuda.k8_plan(rows, torch.bfloat16, sms=sms)
+        assert p.route == "stream" and p.tiles == -(-rows // mlp_int8_cuda.K8_BM)
+        assert 1 <= p.blocks <= min(p.tiles, sms) and p.smem <= mlp_int8_cuda.SMEM_LIMIT
+        runs = [range(p.tiles * b // p.blocks, p.tiles * (b + 1) // p.blocks)
+                for b in range(p.blocks)]
+        assert [i for r in runs for i in r] == list(range(p.tiles)) and min(map(len, runs)) >= 1
+        assert (p.tiles - 1) * mlp_int8_cuda.K8_BM < rows <= p.tiles * mlp_int8_cuda.K8_BM
+        assert mlp_int8_cuda.k8_plan(rows, torch.float32, sms=sms).route == "tile"
+    with pytest.raises(TypeError):
+        mlp_int8_cuda.k8_plan(128, torch.float16)
+    src = (_build.CSRC / "int8_time_block.cu").read_text()
+    consts = re.search(r"constexpr int K8_BM = (\d+), K8_SLOTS = (\d+), K8_XBUF = (\d+);", src)
+    assert tuple(map(int, consts.groups())) == (
+        mlp_int8_cuda.K8_BM, mlp_int8_cuda.K8_SLOTS, mlp_int8_cuda.K8_XBUF)
+    assert mlp_int8_cuda.K8_SMEM == 204896
+
+
+@pytest.mark.parametrize("Tp", [6, 16, 24, 60, 80, 250])
+def test_k4m_plan_covers_every_row_once(Tp):
+    """K4m's code rows come from K4's cluster tiling (every frame of a point
+    once, held on chip up to 64 frames); its MLP1 blocks take 128 code rows
+    each, several points' frames, every row of the NP * Tp once; both
+    kernels fit a block's shared memory. The constants are corr_window.cu's."""
+    for NP in (1, 37, 38, 2048):
+        p = corr_cuda.k4m_plan(NP, Tp)
+        assert p.volume == corr_cuda.k4_plan(NP, Tp)
+        frames = [t for k in range(p.volume.cluster)
+                  for t in corr_cuda.k4_frames(Tp, p.volume.cluster, k)]
+        assert frames == list(range(Tp)) and p.volume.hold == (Tp <= 64)
+        rows = NP * Tp
+        assert (p.gemm_blocks - 1) * corr_cuda.K4M_ROWS < rows <= p.gemm_blocks * corr_cuda.K4M_ROWS
+        assert max(p.gemm_smem, p.volume.smem) <= mlp_int8_cuda.SMEM_LIMIT
+    src = (_build.CSRC / "corr_window.cu").read_text()
+    consts = dict(re.findall(r"\b(kMlpBM|kMlpStages|kMlpBK) = (\d+)", src))
+    assert (int(consts["kMlpBM"]), int(consts["kMlpStages"]), int(consts["kMlpBK"])) == (
+        corr_cuda.K4M_ROWS, corr_cuda.K4M_STAGES, 64)
+    assert corr_cuda.K4M_GEMM_SMEM == 205312
