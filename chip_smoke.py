@@ -100,9 +100,13 @@ Phases, each raising on failure:
      16 and x 60 frames and 256 points x 80 frames (two passes), its code
      rows, scales and rows bit-identical to its plain version, with its
      first body (PR 5) and the K4 + int8-MLP1 chain timed beside it; K11
-     (the all-frames points<-virtual block) at 10,240 and 70,656 tracks x
-     16 frames, K2 timed beside it; K10 in each
-     flag combination and K12 with the LN on and off at 604,800 rows; then
+     (the all-frames points<-virtual block: K2's function on K2's two
+     launches) at 10,240 and 70,656 tracks x 16 frames, bit-identical to
+     K2 with K2 and K2's library chain timed beside it; K10 in each flag
+     combination; K12 (8-block clusters) with the LN on and off at 604,800
+     rows, bit-identical to its first body, with the first body and a
+     library chain (LN in torch, torch._int_mm for fc1 and fc2) timed
+     beside it and its device launches a call; then
      every W8A8 body (K1, K2, K8-K12) in each variant mode (bf16 LayerNorm,
      GELU-quant fold) at 2,048 tracks x 16 frames;
  12. quasi-dense streaming: CoTrackerOnlinePredictor(fast=True) with a
@@ -1357,6 +1361,7 @@ def evaluation_phase(dev):
 # with the variants on, and the micro-benchmark entry point
 
 SRC_FUSED = "cotracker_tpu_torch/csrc/int8_fused.cu"
+SRC_K12 = "cotracker_tpu_torch/csrc/int8_mlp_cluster.cu"
 ALL_ON = KernelVariants(corr_fuse_mlp1=True, space_allt=True, bf16_ln=True, gelu_quant_fold=True)
 QD_GRID, QD_FRAMES = 265, 48  # 70,225 points (70,656 padded), 5 windows of 16 at step 8
 QD_PAD = -(-QD_GRID**2 // 512) * 512
@@ -1367,11 +1372,13 @@ K4M_PAST_HOLD = 80  # frames past the 64 that K4m's code rows hold on chip: two 
 K9_TOL = (0.01, 0.05)  # K1/K2/K9's band, for K11 and K12
 
 
-def variant_entry(name, source, replaces, shape, err, ms, plain_ms, bnd, **extra):
+def variant_entry(name, source, replaces, shape, err, ms, plain_ms, bnd, library_ms=None,
+                  **extra):
     e = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-             library_ms=None, shape=shape, **extra)
-    log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]})")
+             library_ms=library_ms, shape=shape, **extra)
+    lib = "" if library_ms is None else f", library chain {library_ms:.3f} ms"
+    log(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms{lib}, bound {bnd[0]:.3f} ms by {bnd[1]})")
     return e
 
 
@@ -1431,6 +1438,17 @@ def mode_phase(dev):
             errs[f"{name}_{mode}"] = err
     torch.cuda.synchronize()
     return errs
+
+
+def k12_library_chain(x, fc1, fc2, ln):
+    """K12's library chain, never called by the port: LN in torch, the row
+    codes, torch._int_mm for fc1, the plain GELU codes, torch._int_mm for
+    fc2, the epilogue."""
+    x32 = x.float()
+    h = torch.nn.functional.layer_norm(x32, (C,), eps=1e-6) if ln else x32
+    hq, s0 = mlp_int8_cuda.quant_rows(h)
+    uq, s1 = mlp_int8_cuda.quant_gelu(mlp_int8_cuda.qlinear_plain(hq, s0, fc1))
+    return (x32 + mlp_int8_cuda.qlinear_plain(uq, s1, fc2)).to(x.dtype)
 
 
 def variant_kernel_phase(dev):
@@ -1504,16 +1522,23 @@ def variant_kernel_phase(dev):
     out.append(e)
     torch.cuda.empty_cache()
 
-    # K11: 10,240 and 70,656 tracks x 16 frames, K2 (which K11 stands in for) beside it
+    # K11: 10,240 and 70,656 tracks x 16 frames; it runs K2's code, so it
+    # must equal K2 bit for bit; K2 and K2's library chain timed beside it
+    gd = torch.Generator(device=dev).manual_seed(11)
     tw = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
                                         lin(g, HID, C, dev), lin(g, C, HID, dev))
     sw = space_pack(tw)
     e = None
-    for N in (N_TRACKS, -(-QD_GRID**2 // 512) * 512):
+    for N in (N_TRACKS, QD_PAD):
         T = T_STREAM
         x = torch.randn(N, T, C, generator=g).to(dev, bf)
         kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
-        o = mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)
+        k11 = lambda: mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)  # noqa: E731
+        o = k11()
+        diff = int((o != mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH)).sum().item())
+        log(f"  K11 {N}x{T}: elements differing from K2 {diff} (bound 0)")
+        if diff:
+            raise AssertionError("K11 differs from K2, whose function it computes")
         ref = mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH)
         err = check_close(f"K11 all-frames block {N}x{T}", o, ref, *K9_TOL)
         del o, ref
@@ -1521,18 +1546,26 @@ def variant_kernel_phase(dev):
         bnd = bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in sw for t in q]),
                     [(rows * 2 * C * (2 * C + 2 * HID), INT8_OPS),
                      (rows * HEADS * 4 * V * DH, BF16_OPS)])
-        vals = dict(ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_allt_int8(x, kv, sw, HEADS, DH)),
+        q6 = hm(x.transpose(0, 1))  # (T, H, N, D)
+        lib_ms, lib_parts = library_chain(
+            gd, dev, rows, ((C, C), (C, C), (C, HID), (HID, C)),
+            lambda: sdpa(q6, hm(kv[..., :C]), hm(kv[..., C:])))
+        del q6
+        vals = dict(ms=time_ms(k11),
                     plain_ms=time_ms(lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH),
                                      reps=2),
                     k2_ms=time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(
-                        x, kv, sw, HEADS, DH)))
+                        x, kv, sw, HEADS, DH)),
+                    library_ms=lib_ms, library_chain_parts_ms=lib_parts,
+                    device_launches=device_launches(k11))
         log(f"  K11 {N}x{T}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f}, bound "
-            f"{bnd[0]:.3f} by {bnd[1]}); K2 {vals['k2_ms']:.3f} ms")
+            f"{bnd[0]:.3f} by {bnd[1]}); K2 {vals['k2_ms']:.3f} ms; library chain {lib_ms:.3f} ms; "
+            f"{vals['device_launches']} device launches a call")
         if e is None:
-            e = variant_entry("K11_space_block_allt", SRC_FUSED,
+            e = variant_entry("K11_space_block_allt", SRC_K1,
                               "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:471",
                               f"{N} tracks x {T} frames, bf16", err, vals["ms"], vals["plain_ms"],
-                              bnd, k2_ms=vals["k2_ms"])
+                              bnd, **{k: v for k, v in vals.items() if k not in ("ms", "plain_ms")})
         else:
             e["max_abs_err"] = max(e["max_abs_err"], err)
             e.update({f"{k}_n{N}": v for k, v in vals.items()},
@@ -1577,20 +1610,35 @@ def variant_kernel_phase(dev):
     out.append(e)
     e = None
     for ln in (True, False):
-        o = mlp_int8_cuda.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, ln=ln)
+        k12 = lambda: mlp_int8_cuda.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, ln=ln)  # noqa: E731
+        first = lambda: mlp_int8_cuda._ln_mlp_first(  # noqa: E731
+            x, tw.fc1, tw.fc2, 1e-6, ln, False, False)
+        o = k12()
+        diff = int((o != first()).sum().item())
+        log(f"  K12 ln={int(ln)}: elements differing from its first body {diff} (bound 0)")
+        if diff:
+            raise AssertionError("K12 differs from its first body")
         ref = mlp_int8_cuda.ln_mlp_plain(x, tw.fc1, tw.fc2, ln=ln)
         err = check_close(f"K12 ln={int(ln)}", o, ref, *K9_TOL)
         del o, ref
-        kern_ms = time_ms(lambda: mlp_int8_cuda.fused_ln_mlp_int8(x, tw.fc1, tw.fc2, ln=ln))
+        vals = dict(ms=time_ms(k12), first_ms=time_ms(first, reps=2),
+                    library_ms=time_ms(lambda: k12_library_chain(x, tw.fc1, tw.fc2, ln), reps=2),
+                    device_launches=device_launches(k12))
+        log(f"  K12 ln={int(ln)}: {vals['ms']:.3f} ms (first body {vals['first_ms']:.3f}, library "
+            f"chain {vals['library_ms']:.3f}); {vals['device_launches']} device launches a call; "
+            f"plan {mlp_int8_cuda.k12_plan(UB_ROWS, mlp_int8_cuda._k12_max_clusters(dev))}")
+        if vals["device_launches"] != 1:
+            raise AssertionError("K12 is one device launch a call")
         if e is None:
             bnd = bound(2 * nbytes(x) + nbytes(*tw.fc1, *tw.fc2), [(UB_ROWS * 4 * C * HID, INT8_OPS)])
             e = variant_entry(
-                "K12_ln_mlp", SRC_FUSED, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:134",
-                f"{UB_ROWS} rows x 384, bf16, ln=1", err, kern_ms,
-                time_ms(lambda: mlp_int8_cuda.ln_mlp_plain(x, tw.fc1, tw.fc2), reps=2), bnd)
+                "K12_ln_mlp", SRC_K12, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:134",
+                f"{UB_ROWS} rows x 384, bf16, ln=1", err, vals["ms"],
+                time_ms(lambda: mlp_int8_cuda.ln_mlp_plain(x, tw.fc1, tw.fc2), reps=2), bnd,
+                **{k: v for k, v in vals.items() if k != "ms"})
         else:
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            e["ms_ln0"] = kern_ms
+            e.update({f"{k}_ln0": v for k, v in vals.items()})
     out.append(e)
     del x
     torch.cuda.empty_cache()

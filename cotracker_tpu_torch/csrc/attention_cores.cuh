@@ -16,7 +16,7 @@
 // stage keys and values as f32 and do the products on the CUDA cores; they
 // serve every f32 operand (TF32 tensor cores would change the function),
 // the K1 launch chain's bf16 time core (kept as K1's f32 route and as a
-// yardstick) and K11's stages (int8_fused.cu). The tensor-core bodies below
+// yardstick). The tensor-core bodies below
 // (p2v_tc_kernel, v2p_tc_kernel + v2p_merge_kernel, the time core
 // time_task / time_tc_kernel, also K1's attention stage, and
 // time_attention_long_tc_kernel) serve bf16 operands: both products on

@@ -121,4 +121,53 @@ __device__ __forceinline__ void warp_mma(int (&acc)[MI][NI][4], const int8_t* a,
   }
 }
 
+// ------------------------------------------------ thread-block clusters
+// (K4's and K4m's volume kernel, corr_window.cu; K12, int8_mlp_cluster.cu)
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+// the shared::cluster address of the same shared-memory address as p in
+// block `rank` of the cluster
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
+  return ra;
+}
+// the float at the same shared-memory address as p in block `rank`
+__device__ __forceinline__ float cluster_ld(const float* p, int rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_addr(p, rank))
+               : "memory");
+  return v;
+}
+// 16 bytes (p 16-byte aligned) at the same address in block `rank`
+__device__ __forceinline__ uint4 cluster_ld16(const void* p, int rank) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(cluster_addr(p, rank))
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_st16(void* p, int rank, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(cluster_addr(p, rank)),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_st(float* p, int rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(cluster_addr(p, rank)), "f"(v)
+               : "memory");
+}
+
 }  // namespace ct

@@ -414,22 +414,6 @@ static_assert(3200 * 3 <= kK4WinOff + 2048 * 4, "held c rows stay below the taps
 // byte offset of 16-byte chunk c of a 128-byte row r, XOR-swizzled
 __device__ __forceinline__ int k4_swz(int r, int c) { return r * kC + ((c ^ (r & 7)) << 4); }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// the float at the same shared-memory address in block `rank` of the cluster
-__device__ __forceinline__ float cluster_ld(const float* p, int rank) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  unsigned ra;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(ra) : "r"(a), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(ra) : "memory");
-  return v;
-}
-
 template <bool kHold, bool kMlp1>
 __global__ void __launch_bounds__(kK4Threads, 2)
 corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,

@@ -2,7 +2,8 @@
 // quantization of one row, tanh-GELU, the block-level s8 tile GEMM and the
 // stages of a pre-norm block's post-attention tail on a row tile held in
 // shared memory. int8_blocks.cu (the K1-K3 chains, K8, K9) and
-// int8_fused.cu (K10, K11, K12) build on them.
+// int8_fused.cu (K10, K12's first body) build on them; int8_mlp_cluster.cu
+// (K12) on the row quantization and the GELU.
 //
 // Two template flags carry the JAX package's variant switches into every
 // W8A8 body at once:

@@ -6,8 +6,10 @@
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_out_mlp_kernel     (K9)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_kernel (K2)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_qkv_kernel         (K8)
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_allt_kernel (K11)
 // (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8,
-// fused_space_block_int8, fused_ln_qkv_int8) for bfloat16 tokens, driven
+// fused_space_block_int8, fused_ln_qkv_int8, fused_space_block_allt_int8)
+// for bfloat16 tokens, driven
 // from ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan, k8_plan;
 // K9's body: k9_route). float32 tokens keep the launch chains and the K8 /
 // K9 bodies of int8_blocks.cu (K2 also past the 64 virtual tokens its front
@@ -37,6 +39,15 @@
 // W): 10.13-10.16 ms at 10,240 x 60 (the chain 14.45-14.46 in the same
 // call; the front 1.92-1.94, the tail 8.24-8.30) and 2.82-2.84 at x 16
 // (3.97-3.98); the tail, as K1's, is what bounds it now.
+//
+// K11 (ct_k11_space_block) is K2's function (space_block_plain): the JAX
+// body tiles 64 tracks x all T frames only to give the TPU's matrix unit
+// BLK * T rows, and keeps q in the kv dtype, a in f32 and the MLP row by
+// row. So it runs K2's two launches, its front under a name of its own
+// (k11_front_kernel, the same body) for the profiler's records: the
+// frame-major walk stages one frame's keys and values once for a run of
+// tiles, where a track-major walk would stage them for every tile. Its
+// last residual is K2's (r + y) + b2, the JAX body's order.
 //
 // K9 (ct_k9_tail) is K1's tail with another front door: its prologue reads
 // the attention output a in bf16 and quantizes each row in the tile (K1's
@@ -96,7 +107,9 @@
 //     row. The other exact option, the fc1 row held on chip across a
 //     4-block cluster (each block 64 x 384 f32, the row maxima exchanged
 //     and the fc2 s32 partials summed through distributed shared memory),
-//     is not built.
+//     is not built here. K12 (int8_mlp_cluster.cu) runs that split over an
+//     8-block cluster with its weights resident; what it showed about this
+//     tail: PERF.md section 7.
 //   * mma.sync, not wgmma: a wgmma version of both kernels (m64nNk32, both
 //     operands K-major in shared memory without swizzle, one wait a ring
 //     stage) was built, matched the plain version, and was slower than the
@@ -328,12 +341,12 @@ constexpr int K2_FRONT_SMEM = K2_KV + K2_TILE * KC * 2 + K2_TILE * LDA_C + K2_QP
                               K2QGemm::kRingBytes + 3 * K2_TILE * 4 + 16;
 static_assert(K2_FRONT_SMEM <= 232448, "K2's front fits one block an SM");
 
+#define CT_K2_FRONT_PARAMS                                                                      \
+  const bf16 *__restrict__ x, const bf16 *__restrict__ kv, int N, int Tn, int V,                 \
+      const int8_t *__restrict__ wq, const float *__restrict__ sq, const float *__restrict__ bq, \
+      float eps, float scale, int8_t *__restrict__ acode, float *__restrict__ ascale
 template <bool kBf16Ln>
-__global__ void __launch_bounds__(256, 1)
-k2_front_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, int N, int Tn, int V,
-                const int8_t* __restrict__ wq, const float* __restrict__ sq,
-                const float* __restrict__ bq, float eps, float scale,
-                int8_t* __restrict__ acode, float* __restrict__ ascale) {
+__device__ __forceinline__ void k2_front_body(CT_K2_FRONT_PARAMS) {
   using G = K2QGemm;
   constexpr int D = kDimHead, HSZ = K2_TILE * D, PAIRS = K1_HEADS / 2;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -494,6 +507,18 @@ k2_front_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, int N, 
   }
   cp_async_wait<0>();
 }
+
+// K2's front and K11's (the same body: K11 is K2's function), two kernel
+// names for the profiler's records.
+template <bool kBf16Ln>
+__global__ void __launch_bounds__(256, 1) k2_front_kernel(CT_K2_FRONT_PARAMS) {
+  k2_front_body<kBf16Ln>(x, kv, N, Tn, V, wq, sq, bq, eps, scale, acode, ascale);
+}
+template <bool kBf16Ln>
+__global__ void __launch_bounds__(256, 1) k11_front_kernel(CT_K2_FRONT_PARAMS) {
+  k2_front_body<kBf16Ln>(x, kv, N, Tn, V, wq, sq, bq, eps, scale, acode, ascale);
+}
+#undef CT_K2_FRONT_PARAMS
 
 // ------------------------------------------------------------- (b) tail
 // The weight stream. One producer warp walks the tail's whole sequence of
@@ -1104,15 +1129,16 @@ cudaError_t launch_k1(const bf16* x, int M, int Tn, int nc, int tracks, int rows
                                                 s1, b1, w2, s2, b2, eps, out, s);
 }
 
-// K2: the front on `blocks` blocks, then K1's tail over the N * T rows.
-template <bool kBf16Ln, bool kGeluFold>
+// K2 (or K11, kK11: the same body under K11's front name): the front on
+// `blocks` blocks, then K1's tail over the N * T rows.
+template <bool kBf16Ln, bool kGeluFold, bool kK11>
 cudaError_t launch_k2(const bf16* x, const bf16* kv, int N, int Tn, int V, int blocks,
                       const int8_t* wq, const float* sq, const float* bq, const int8_t* wo,
                       const float* so, const float* bo, const int8_t* w1, const float* s1,
                       const float* b1, const int8_t* w2, const float* s2, const float* b2,
                       float eps, float scale, int8_t* acode, float* ascale, bf16* out,
                       cudaStream_t s) {
-  auto front = k2_front_kernel<kBf16Ln>;
+  auto front = kK11 ? k11_front_kernel<kBf16Ln> : k2_front_kernel<kBf16Ln>;
   cudaError_t e = set_smem(front, K2_FRONT_SMEM);
   if (e != cudaSuccess) return e;
   front<<<blocks, 256, K2_FRONT_SMEM, s>>>(x, kv, N, Tn, V, wq, sq, bq, eps, scale, acode, ascale);
@@ -1120,6 +1146,33 @@ cudaError_t launch_k2(const bf16* x, const bf16* kv, int N, int Tn, int V, int b
   if (e != cudaSuccess) return e;
   return launch_tail<kBf16Ln, kGeluFold, false>(acode, ascale, nullptr, x, N * Tn, wo, so, bo, w1,
                                                 s1, b1, w2, s2, b2, eps, out, s);
+}
+
+// K2's and K11's entries: the plan's checks, then the two launches
+template <bool kK11>
+int space_block(const void* x, const void* kv, int N, int T, int V, int C, int H, int D,
+                int blocks, const int8_t* wq, const float* sq, const float* bq, const int8_t* wo,
+                const float* so, const float* bo, const int8_t* w1, const float* s1,
+                const float* b1, const int8_t* w2, const float* s2, const float* b2, float eps,
+                float scale, int bf16_ln, int gelu_fold, int8_t* acode, float* ascale, void* out,
+                void* stream) {
+  const long long tiles = static_cast<long long>((N + K2_TILE - 1) / K2_TILE) * T;
+  if (N < 1 || T < 1 || V < 1 || V > K2_MAX_V || C != KC || H != K1_HEADS || D != kDimHead ||
+      blocks < 1 || blocks > tiles || static_cast<long long>(N) * T > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* kp = static_cast<const bf16*>(kv);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto ln, auto fold) {
+    return launch_k2<decltype(ln)::value, decltype(fold)::value, kK11>(
+        xp, kp, N, T, V, blocks, wq, sq, bq, wo, so, bo, w1, s1, b1, w2, s2, b2, eps, scale,
+        acode, ascale, op, s);
+  };
+  using T_ = std::true_type;
+  using F_ = std::false_type;
+  if (bf16_ln) return gelu_fold ? go(T_{}, T_{}) : go(T_{}, F_{});
+  return gelu_fold ? go(F_{}, T_{}) : go(F_{}, F_{});
 }
 
 }  // namespace ct
@@ -1181,23 +1234,21 @@ int ct_k2_space_block(const void* x, const void* kv, int N, int T, int V, int C,
                       const float* s1, const float* b1, const int8_t* w2, const float* s2,
                       const float* b2, float eps, float scale, int bf16_ln, int gelu_fold,
                       int8_t* acode, float* ascale, void* out, void* stream) {
-  const long long tiles = static_cast<long long>((N + K2_TILE - 1) / K2_TILE) * T;
-  if (N < 1 || T < 1 || V < 1 || V > K2_MAX_V || C != KC || H != K1_HEADS || D != kDimHead ||
-      blocks < 1 || blocks > tiles || static_cast<long long>(N) * T > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* kp = static_cast<const bf16*>(kv);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto ln, auto fold) {
-    return launch_k2<decltype(ln)::value, decltype(fold)::value>(
-        xp, kp, N, T, V, blocks, wq, sq, bq, wo, so, bo, w1, s1, b1, w2, s2, b2, eps, scale,
-        acode, ascale, op, s);
-  };
-  using T_ = std::true_type;
-  using F_ = std::false_type;
-  if (bf16_ln) return gelu_fold ? go(T_{}, T_{}) : go(T_{}, F_{});
-  return gelu_fold ? go(F_{}, T_{}) : go(F_{}, F_{});
+  return space_block<false>(x, kv, N, T, V, C, H, D, blocks, wq, sq, bq, wo, so, bo, w1, s1, b1,
+                            w2, s2, b2, eps, scale, bf16_ln, gelu_fold, acode, ascale, out, stream);
+}
+
+// K11 in bfloat16 (mlp_int8_pallas.py::_space_block_allt_kernel): K2's
+// function, so K2's two launches with the same arguments; the front runs
+// under its own name (k11_front_kernel).
+int ct_k11_space_block(const void* x, const void* kv, int N, int T, int V, int C, int H, int D,
+                       int blocks, const int8_t* wq, const float* sq, const float* bq,
+                       const int8_t* wo, const float* so, const float* bo, const int8_t* w1,
+                       const float* s1, const float* b1, const int8_t* w2, const float* s2,
+                       const float* b2, float eps, float scale, int bf16_ln, int gelu_fold,
+                       int8_t* acode, float* ascale, void* out, void* stream) {
+  return space_block<true>(x, kv, N, T, V, C, H, D, blocks, wq, sq, bq, wo, so, bo, w1, s1, b1,
+                           w2, s2, b2, eps, scale, bf16_ln, gelu_fold, acode, ascale, out, stream);
 }
 
 // K9 in bfloat16 (mlp_int8_pallas.py::_out_mlp_kernel): a, x (rows, 384)

@@ -1,8 +1,9 @@
 """W8A8 block kernels: K1 (whole time block), K2 (whole points<-virtual
 block), K8 / K9, the two W8A8 halves of the time block's three-kernel
-split around the K5 attention core, K11 (the points<-virtual block tiled
-as tracks x all frames), and K10 (LN + dense) and K12 (LN + MLP), the two
-bodies only the micro-benchmark reaches.
+split around the K5 attention core, K11 (the points<-virtual block of the
+`space_allt` variant: K2's function, so K2's launches), and K10 (LN +
+dense) and K12 (LN + MLP), the two bodies only the micro-benchmark
+reaches.
 
 K1 replaces cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel
 (wrapper fused_time_block_int8), K2 its ::_space_block_kernel (wrapper
@@ -23,12 +24,16 @@ activations, its f32 residual and its GELU codes stay in shared memory; K8
 in bfloat16 runs persistent blocks of csrc/int8_time_block.cu on the tail's
 weight stream (k8_plan), K9 in bfloat16 is K1's streamed tail with its own
 prologue (k9_route). See
-the sources for what bounds them and what the designs do about it. K10
-replaces ::_dense_kernel (fused_ln_dense_int8), K11
-::_space_block_allt_kernel (the `space_allt` route of
-fused_space_block_int8; here its own wrapper, fused_space_block_allt_int8)
-and K12 ::_mlp_kernel (fused_ln_mlp_int8), one launch each of
-csrc/int8_fused.cu.
+the sources for what bounds them and what the designs do about it. K11
+replaces ::_space_block_allt_kernel (the `space_allt` route of
+fused_space_block_int8; here its own wrapper, fused_space_block_allt_int8):
+it computes K2's function, so it takes K2's route (k2_plan), its bf16 front
+under a kernel name of its own. K10 replaces ::_dense_kernel
+(fused_ln_dense_int8), one launch of csrc/int8_fused.cu, and K12
+::_mlp_kernel (fused_ln_mlp_int8), one launch of csrc/int8_mlp_cluster.cu:
+8-block thread-block clusters with resident weights and one fc1 pass
+(k12_plan); its first body (csrc/int8_fused.cu, `_ln_mlp_first`) stays as
+the yardstick it is held to bit for bit.
 
 The two variant switches that change the function of every body here
 (ops/kernels/variants.py) are the wrappers' `bf16_ln` (COTRACKER_BF16_LN:
@@ -268,8 +273,8 @@ _fns = {}
 
 
 def _lib():
-    """ctypes functions of csrc/int8_blocks.cu (shared with attention_cuda)
-    and csrc/int8_fused.cu."""
+    """ctypes functions of csrc/int8_blocks.cu (shared with attention_cuda),
+    csrc/int8_time_block.cu, csrc/int8_fused.cu and csrc/int8_mlp_cluster.cu."""
     if not _fns:
         lib = _build.load("int8_blocks")
         _fns["ln_quant"] = _build.bind(lib, "ct_ln_quant", _P, _I, _I, _I, _P, _P, _F, _I, _I, _P,
@@ -298,13 +303,18 @@ def _lib():
         _fns["k8_smem"] = _build.bind(k1, "ct_k8_smem")
         _fns["k9_tail"] = _build.bind(k1, "ct_k9_tail", _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _F, _I, _I, _P, _P)
+        _fns["k11"] = _build.bind(k1, "ct_k11_space_block", _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  *([_P] * 12), _F, _F, _I, _I, _P, _P, _P, _P)
         fused = _build.load("int8_fused")
         _fns["k10"] = _build.bind(fused, "ct_k10_ln_dense", _P, _I, _I, _I, _I, _P, _P, _P, _P,
                                   _P, _F, _I, _I, _I, _P, _P)
-        _fns["k11"] = _build.bind(fused, "ct_k11_space_allt", _P, _P, _I, _I, _I, _I, _I,
-                                  *([_P] * 12), _F, _F, _I, _I, _P, _P)
-        _fns["k12"] = _build.bind(fused, "ct_k12_ln_mlp", _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                  _P, _P, _F, _I, _I, _P, _P)
+        _fns["k12_first"] = _build.bind(fused, "ct_k12_ln_mlp", _P, _I, _I, _I, _I, _I, _P, _P,
+                                        _P, _P, _P, _P, _F, _I, _I, _P, _P)
+        k12 = _build.load("int8_mlp_cluster")
+        _fns["k12"] = _build.bind(k12, "ct_k12_cluster", _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _P, _P, _F, _I, _I, _I, _P, _P)
+        _fns["k12_smem"] = _build.bind(k12, "ct_k12_smem")
+        _fns["k12_max_clusters"] = _build.bind(k12, "ct_k12_max_clusters")
     return _fns
 
 
@@ -357,7 +367,12 @@ def _mlp_tail_cuda(a32, x2d, w, eps, out_dtype, bf16_ln, gelu_fold):
 
 
 MAX_KEYS = 512  # frames (K1) or virtual tokens (K2) staged per block on chip
-ALLT_MAX_V = 128  # virtual tokens K11 stages per frame
+ALLT_MAX_V = 128  # virtual tokens K11 takes (the JAX body stages them per frame)
+
+
+def _sms(device) -> int:
+    """The card's SM count (the persistent kernels' block counts)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(*tensors, keys):
@@ -525,9 +540,11 @@ def _space_block_chain(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf
 
 
 def _space_block_fused(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf16_ln,
-                       gelu_fold, plan: K2Plan):
+                       gelu_fold, plan: K2Plan, entry="k2"):
     """K2 in bfloat16: the two launches of ct_k2_space_block on `plan`; a's
-    int8 codes and row scales pass between them through device memory."""
+    int8 codes and row scales pass between them through device memory.
+    entry="k11": the same launches from ct_k11_space_block, whose front
+    runs under K11's kernel name."""
     N, T, C = x.shape
     V = kv.shape[1]
     if C != SPLIT_C or num_heads * dim_head != C or tuple(kv.shape) != (T, V, 2 * C) \
@@ -539,10 +556,11 @@ def _space_block_fused(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps, bf
     ascale = torch.empty((N * T,), dtype=F32, device=x.device)
     out = torch.empty_like(x)
     ptrs = [_build.ptr(t) for lin in w for t in lin]
-    _build.check(_lib()["k2"](
+    _build.check(_lib()[entry](
         _build.ptr(x), _build.ptr(kv), N, T, V, C, num_heads, dim_head, plan.blocks, *ptrs, eps,
         dim_head**-0.5, int(bf16_ln), int(gelu_fold), _build.ptr(acode), _build.ptr(ascale),
-        _build.ptr(out), _build.stream_ptr(x)), "ct_k2_space_block")
+        _build.ptr(out), _build.stream_ptr(x)), {"k2": "ct_k2_space_block",
+                                                 "k11": "ct_k11_space_block"}[entry])
     return out
 
 
@@ -584,8 +602,7 @@ def fused_space_block_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps
         return space_block_plain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     N, T, _ = x.shape
     _check_cuda(x, kv, w.q.w, keys=kv.shape[1])
-    plan = k2_plan(N, T, kv.shape[1], x.dtype, kv.dtype,
-                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = k2_plan(N, T, kv.shape[1], x.dtype, kv.dtype, _sms(x.device))
     if plan.route == "fused":
         out = _space_block_fused(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold, plan)
     else:
@@ -599,10 +616,14 @@ fused_space_block_int8.launches = 0
 
 def fused_space_block_allt_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head, eps=1e-6,
                                 bf16_ln=False, gelu_fold=False):
-    """K11: K2's function (space_block_plain) in one launch, each block a
-    tile of 64 tracks x all T frames with every intermediate in shared
-    memory. x (N, T, C) and kv (T, V, 2C) of one dtype, C = 384, V <= 128.
-    The model takes it where gates.space_allt_tile(N, T, bf16) holds."""
+    """K11: K2's function (space_block_plain) for the `space_allt` variant.
+    The JAX body tiles 64 tracks x all T frames for the TPU's matrix unit;
+    the function is K2's row for row, so on the card K11 takes K2's route
+    (k2_plan): bfloat16 with up to K2_MAX_V virtual tokens K2's two
+    launches (ct_k11_space_block: the front under K11's kernel name), else
+    K2's launch chain. x (N, T, C) and kv (T, V, 2C) of one dtype, C = 384,
+    V <= 128. The model takes it where gates.space_allt_tile(N, T, bf16)
+    holds."""
     if x.device.type == "cpu":
         return space_block_plain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     N, T, C = x.shape
@@ -612,13 +633,12 @@ def fused_space_block_allt_int8(x, kv, w: SpaceBlockWeights, num_heads, dim_head
             or kv.dtype != x.dtype or V > ALLT_MAX_V:
         raise ValueError(f"K11 takes C={SPLIT_C}, kv (T, V <= {ALLT_MAX_V}, 2C) in x's dtype; got "
                          f"x {tuple(x.shape)} {x.dtype}, kv {tuple(kv.shape)} {kv.dtype}")
-    x, kv = x.contiguous(), kv.contiguous()
-    out = torch.empty_like(x)
-    ptrs = [_build.ptr(t) for lin in (w.q, w.out, w.fc1, w.fc2) for t in lin]
-    _build.check(_lib()["k11"](
-        _build.ptr(x), _build.ptr(kv), _is_bf16(x), N, T, V, C, *ptrs, eps, dim_head**-0.5,
-        int(bf16_ln), int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)),
-        "ct_k11_space_allt")
+    plan = k2_plan(N, T, V, x.dtype, kv.dtype, _sms(x.device))
+    if plan.route == "fused":
+        out = _space_block_fused(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold, plan,
+                                 entry="k11")
+    else:
+        out = _space_block_chain(x, kv, w, num_heads, dim_head, eps, bf16_ln, gelu_fold)
     fused_space_block_allt_int8.launches += 1
     return out
 
@@ -709,8 +729,7 @@ def fused_ln_qkv_int8(x, wqkv: QLinear, eps=1e-6, bf16_ln=False):
         raise ValueError(f"K8 takes C={SPLIT_C} and (3C, C) weights, got x {tuple(x.shape)}, "
                          f"w {tuple(wqkv.w.shape)}")
     x2d = x.contiguous().reshape(-1, C)
-    plan = k8_plan(x2d.shape[0], x.dtype,
-                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = k8_plan(x2d.shape[0], x.dtype, _sms(x.device))
     if plan.route == "stream":
         q, kv = _ln_qkv_stream(x2d, wqkv, eps, bf16_ln, plan)
     else:
@@ -809,13 +828,97 @@ def fused_ln_dense_int8(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=No
 fused_ln_dense_int8.launches = 0
 
 
+class K12Plan(NamedTuple):
+    """K12's tiling for `rows` token rows (csrc/int8_mlp_cluster.cu):
+    `clusters` persistent clusters of K12_CLUSTER blocks (`blocks` in all),
+    cluster c taking the 64-row tiles c, c + clusters, ... of the `tiles`;
+    `smem` bytes a block."""
+
+    tiles: int
+    clusters: int
+    blocks: int
+    smem: int
+
+
+# int8_mlp_cluster.cu's constants (the plan test reads them back from the
+# source): 8 blocks a cluster, 64-row tiles; a block's shared memory holds
+# its w1 rows (192 x (384 + 16)), its w2 rows (48 x (1,536 + 16)), the
+# tile's codes A (64 x (384 + 16)), its own GELU codes and two buffers of a
+# peer's (3 x 64 x (192 + 16)), the warps' x rows (8 x 384 f32), its
+# scales and biases and four row vectors, and the weights' mbarrier
+K12_CLUSTER, K12_BM = 8, 64
+K12_SMEM = (192 * (384 + 16) + 48 * (1536 + 16) + 64 * _LDA_C + 3 * 64 * (192 + 16)
+            + 8 * 384 * 4 + (2 * 192 + 2 * 48 + 4 * 64) * 4 + 16)
+
+
+def k12_plan(rows: int, max_clusters: int) -> K12Plan:
+    """K12's tiling for `rows` rows on a card that seats `max_clusters`
+    8-block clusters at once (ct_k12_max_clusters: one block an SM, a
+    cluster within one GPC)."""
+    if rows < 1:
+        raise ValueError(f"K12 takes at least one row, got {rows}")
+    if max_clusters < 1:
+        raise RuntimeError(f"K12: the card seats no {K12_CLUSTER}-block cluster of "
+                           f"{K12_SMEM} bytes a block (max active clusters {max_clusters})")
+    tiles = -(-rows // K12_BM)
+    clusters = min(tiles, max_clusters)
+    return K12Plan(tiles, clusters, K12_CLUSTER * clusters, K12_SMEM)
+
+
+def k12_tiles(plan: K12Plan, cluster: int) -> range:
+    """The 64-row tiles cluster `cluster` of `plan` takes, in order."""
+    return range(cluster, plan.tiles, plan.clusters)
+
+
+_k12_clusters = {}
+
+
+def _k12_max_clusters(device) -> int:
+    """ct_k12_max_clusters on `device`, asked once per device."""
+    key = torch.device(device).index or 0
+    if key not in _k12_clusters:
+        with torch.cuda.device(device):
+            n = _lib()["k12_max_clusters"]()
+        if n < 0:
+            raise RuntimeError(f"ct_k12_max_clusters failed with cudaError_t {-n}")
+        _k12_clusters[key] = n
+    return _k12_clusters[key]
+
+
+def _ln_mlp_first(x2d, fc1: QLinear, fc2: QLinear, eps, ln, bf16_ln, gelu_fold):
+    """K12's first body (ct_k12_ln_mlp: one block a 64-row tile, the
+    weights staged by plain loads, fc1 twice): the yardstick the cluster
+    body is held to bit for bit; no path calls it."""
+    out = torch.empty_like(x2d)
+    ptrs = [_build.ptr(t) for lin in (fc1, fc2) for t in lin]
+    _build.check(_lib()["k12_first"](
+        _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], x2d.shape[1], fc1.w.shape[0], int(ln),
+        *ptrs, eps, int(bf16_ln), int(gelu_fold), _build.ptr(out), _build.stream_ptr(x2d)),
+        "ct_k12_ln_mlp")
+    return out
+
+
+def _ln_mlp_cluster(x2d, fc1: QLinear, fc2: QLinear, eps, ln, bf16_ln, gelu_fold, plan: K12Plan):
+    """K12: ct_k12_cluster on `plan`'s clusters."""
+    params = [t for lin in (fc1, fc2) for t in lin]
+    if any(t.data_ptr() % 16 for t in (x2d, *params)):
+        raise ValueError("K12 copies x, its weights, scales and biases in 16-byte pieces: their "
+                         "data must be 16-byte aligned")
+    out = torch.empty_like(x2d)
+    _build.check(_lib()["k12"](
+        _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], x2d.shape[1], fc1.w.shape[0], int(ln),
+        *map(_build.ptr, params), eps, int(bf16_ln), int(gelu_fold), plan.clusters,
+        _build.ptr(out), _build.stream_ptr(x2d)), "ct_k12_cluster")
+    return out
+
+
 def fused_ln_mlp_int8(x, fc1: QLinear, fc2: QLinear, eps=1e-6, ln=True, bf16_ln=False,
                       gelu_fold=False):
     """K12: x + fc2(gelu(fc1(ln(x)))) with W8A8, one pass (ln=False skips
     the LayerNorm). x (..., C) float32 or bfloat16; fc1 (H, C), fc2 (C, H)
     quantized. Returns (..., C) in x.dtype, or None where the JAX wrapper
     returns None: C or H not a multiple of 128, or a row count that is not a
-    multiple of 8."""
+    multiple of 8. One launch: k12_plan's clusters."""
     C, H = x.shape[-1], fc1.w.shape[0]
     if not _rows_tile(x, C, H):
         return None
@@ -826,11 +929,8 @@ def fused_ln_mlp_int8(x, fc1: QLinear, fc2: QLinear, eps=1e-6, ln=True, bf16_ln=
         raise ValueError(f"K12 takes C={SPLIT_C}, hidden {SPLIT_H}, got x {tuple(x.shape)}, "
                          f"fc1 {tuple(fc1.w.shape)}")
     x2d = x.contiguous().reshape(-1, C)
-    out = torch.empty_like(x2d)
-    ptrs = [_build.ptr(t) for lin in (fc1, fc2) for t in lin]
-    _build.check(_lib()["k12"](
-        _build.ptr(x2d), _is_bf16(x2d), x2d.shape[0], C, H, int(ln), *ptrs, eps, int(bf16_ln),
-        int(gelu_fold), _build.ptr(out), _build.stream_ptr(x)), "ct_k12_ln_mlp")
+    plan = k12_plan(x2d.shape[0], _k12_max_clusters(x.device))
+    out = _ln_mlp_cluster(x2d, fc1, fc2, eps, ln, bf16_ln, gelu_fold, plan)
     fused_ln_mlp_int8.launches += 1
     return out.reshape(x.shape)
 

@@ -70,11 +70,11 @@ def device_table(prof, top=12):
 
 GROUPS = (  # first match wins, on the device kernel's name
     ("K4m corr_mlp1_kernel", ("corr_mlp1_kernel",)),
-    ("K11 space_block_allt_kernel", ("space_block_allt_kernel",)),
+    ("K11 front (bf16) k11_front_kernel", ("k11_front_kernel",)),
     ("K8 ln_qkv_kernel", ("ln_qkv_kernel",)),
     ("K9 k9_tail_kernel (f32: attnout_mlp_kernel)", ("k9_tail_kernel", "attnout_mlp_kernel")),
     ("K1 front (bf16) k1_front_kernel", ("k1_front_kernel",)),
-    ("K1 tail (bf16) k1_tail_kernel", ("k1_tail_kernel",)),
+    ("K1 tail (bf16; also K2's and K11's second launch) k1_tail_kernel", ("k1_tail_kernel",)),
     ("K1-K3 s8 GEMM (gemm_s8_kernel)", ("gemm_s8_kernel",)),
     ("K1-K3 LN + row quant (ln_quant_kernel)", ("ln_quant_kernel",)),
     ("K4 corr_volume_kernel", ("corr_volume_kernel",)),

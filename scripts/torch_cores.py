@@ -32,7 +32,13 @@ Then K8 (the split time block's LN + W8A8 q|kv) at the long forward's row
 counts, bit for bit against its PR 4 body, and K4m (correlation + combine
 + MLP1) at every pyramid level of the streaming and offline windows, its
 rows against corr_mlp1_plain, beside its first body and, per level-chunk
-with GELU, beside K4 + the int8 MLP1 product it replaces.
+with GELU, beside K4 + the int8 MLP1 product it replaces. Then K11 (the
+`space_allt` points<-virtual block, on K2's launches) at 10,240 and 70,656
+tracks x 16 frames against K2 bit for bit, with its kernels' device time,
+beside K2; and K12 (LN + W8A8 MLP, 8-block clusters) at the
+micro-benchmark's 604,800 rows and at 1,576, bit for bit against its first
+body, beside the first body and a library chain (LN in torch,
+torch._int_mm for fc1 and fc2), with its plan and device launches.
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
@@ -41,6 +47,7 @@ with GELU, beside K4 + the int8 MLP1 product it replaces.
     python3 scripts/torch_cores.py --only k4 k9 # some sections
     python3 scripts/torch_cores.py --only k2 k3 --root build/parent
     python3 scripts/torch_cores.py --only k8 k4m --root build/parent
+    python3 scripts/torch_cores.py --only k11 k12 --root build/parent
     python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
                                                 # the same sections on
                                                 # another checkout's package
@@ -330,7 +337,7 @@ def k4m_section(dev, g):
         del fmq, supq, starts, wxy, out, ref
 
 
-SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m")
+SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m", "k11", "k12")
 
 
 def main():
@@ -352,7 +359,8 @@ def main():
     # each section draws its operands from its own seed, so --only repeats them
     seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
     run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
-               k1=k1_section, k2=k2_section, k3=k3_section, k8=k8_section, k4m=k4m_section)
+               k1=k1_section, k2=k2_section, k3=k3_section, k8=k8_section, k4m=k4m_section,
+               k11=k11_section, k12=k12_section)
     for name in SECTIONS:
         if name in args.only:
             run[name](dev, torch.Generator().manual_seed(seeds[name]))
@@ -530,6 +538,78 @@ def k3_section(dev, g):
                     bound_ms(nbytes(q, x, wkv.w, bias, q),
                              N * T * 2 * C * 2 * C / INT8_OPS + T * H * V * N * 4 * D / BF16_OPS))
         del q, x
+
+
+K11_SHAPES = ((10240, 16), (70656, 16))
+
+
+def k11_section(dev, g):
+    """K11 at the quasi-dense (c) window's shape and at 10,240 tracks: the
+    wrapper's body (K2's two launches, the front under K11's name; on an
+    earlier checkout the first body) against K2 bit for bit and against its
+    plain version, its kernels' device time, its device launches, K2's time
+    and the bound."""
+    M = mlp_int8_cuda
+    sw = M.SpaceBlockWeights(*(lin(g, dev, o, i) for o, i in ((C, C), (C, C), (HID, C), (C, HID))))
+    wbytes = nbytes(*[t for q in sw for t in q])
+    for N, T in K11_SHAPES:
+        x = torch.randn(N, T, C, generator=g).to(dev, torch.bfloat16)
+        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, torch.bfloat16)
+        rows = N * T
+        fn = lambda: M.fused_space_block_allt_int8(x, kv, sw, H, D)  # noqa: E731
+        k2 = lambda: M.fused_space_block_int8(x, kv, sw, H, D)  # noqa: E731
+        _emit_block("K11", fn, M.space_block_plain(x, kv, sw, H, D),
+                    dict(front_ms="k11_front_kernel", tail_ms="k1_tail_kernel",
+                         first_body_ms="space_block_allt_kernel"), None,
+                    dict(tracks=N, frames=T, k2_mismatches=int((fn() != k2()).sum().item()),
+                         k2_ms=time_ms(k2, reps=10)),
+                    bound_ms(2 * nbytes(x) + nbytes(kv) + wbytes,
+                             rows * 2 * C * (2 * C + 2 * HID) / INT8_OPS
+                             + rows * H * 4 * V * D / BF16_OPS))
+        del x, kv
+
+
+K12_ROWS = (604800, 1576)
+
+
+def k12_library_chain(x, fc1, fc2, ln):
+    """K12 as library calls (never the port's): LN in torch, the row codes,
+    torch._int_mm for fc1, the plain GELU codes, torch._int_mm for fc2."""
+    M = mlp_int8_cuda
+    x32 = x.float()
+    h = torch.nn.functional.layer_norm(x32, (C,), eps=1e-6) if ln else x32
+    hq, s0 = M.quant_rows(h)
+    uq, s1 = M.quant_gelu(M.qlinear_plain(hq, s0, fc1))
+    return (x32 + M.qlinear_plain(uq, s1, fc2)).to(x.dtype)
+
+
+def k12_section(dev, g):
+    """K12 at the micro-benchmark's rows: the wrapper's body (8-block
+    clusters; on an earlier checkout the first body) bit for bit against
+    the first body where the checkout keeps it beside (LN on and off), its
+    time, the first body's, the library chain's, its device launches, its
+    plan and its bound."""
+    M = mlp_int8_cuda
+    fc1, fc2 = lin(g, dev, HID, C), lin(g, dev, C, HID)
+    first = getattr(M, "_ln_mlp_first", None)
+    for rows in K12_ROWS:
+        x = torch.randn(rows, C, generator=g).to(dev, torch.bfloat16)
+        rec = dict(kernel="K12", rows=rows,
+                   ms=time_ms(lambda: M.fused_ln_mlp_int8(x, fc1, fc2), reps=10),
+                   ms_ln0=time_ms(lambda: M.fused_ln_mlp_int8(x, fc1, fc2, ln=False), reps=10),
+                   device_launches=device_launches(lambda: M.fused_ln_mlp_int8(x, fc1, fc2)),
+                   library_chain_ms=time_ms(lambda: k12_library_chain(x, fc1, fc2, True), reps=3),
+                   bound_ms=bound_ms(2 * nbytes(x) + nbytes(*fc1, *fc2), rows * 4 * C * HID / INT8_OPS))
+        if hasattr(M, "k12_plan"):
+            rec["plan"] = M.k12_plan(rows, M._k12_max_clusters(dev))._asdict()
+        if first is not None:
+            for ln in (True, False):
+                rec["mismatches" + ("" if ln else "_ln0")] = int(
+                    (M.fused_ln_mlp_int8(x, fc1, fc2, ln=ln)
+                     != first(x, fc1, fc2, 1e-6, ln, False, False)).sum().item())
+            rec["first_ms"] = time_ms(lambda: first(x, fc1, fc2, 1e-6, True, False, False), reps=5)
+        emit(**rec)
+        del x
 
 
 if __name__ == "__main__":

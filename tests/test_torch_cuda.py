@@ -30,7 +30,9 @@ and its arithmetic the plain version's: codes and scales match exactly.
 K4f sums float32 products in another order: 1e-5 of the largest output in
 float32, one bf16 ulp (2^-8) of it in bfloat16. K4m's arithmetic is its
 plain version's, integer products and epilogue order alike: its rows match
-exactly. K10, K11, K12 and the variant modes take the W8A8 bound above.
+exactly. K10, K12 and the variant modes take the W8A8 bound above; K11
+runs K2's code, so it matches K2's wrapper bit for bit, and K12 matches its
+first body bit for bit.
 """
 
 import numpy as np
@@ -812,20 +814,31 @@ def test_corr_mlp1(dev, dtype, T):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,T", [(300, 16), (70, 8)])
-def test_space_block_allt(dev, dtype, N, T):
-    """K11 computes K2's function: against space_block_plain (a ragged
-    64-track tile at both shapes)."""
-    g = torch.Generator().manual_seed(N + T)
+@pytest.mark.parametrize("N,T,V", [(300, 16, 64), (70, 8, 64), (70, 8, 96)])
+def test_space_block_allt(dev, dtype, N, T, V):
+    """K11 computes K2's function and takes K2's route: bit for bit K2's
+    wrapper on the same inputs (a ragged 64-track tile at every shape), in
+    bf16 with up to 64 virtual tokens K2's two device launches, in f32 and
+    past 64 virtual tokens (96) K2's launch chain; within the W8A8 band of
+    space_block_plain. This pins the repair of K11's last residual: its
+    first body added r + (y + b2), where the JAX body, K2 and
+    space_block_plain add (r + y) + b2."""
+    g = torch.Generator().manual_seed(N + T + V)
     w = mlp_int8_cuda.SpaceBlockWeights(_lin(g, C, C, dev), _lin(g, C, C, dev),
                                         _lin(g, HID, C, dev), _lin(g, C, HID, dev))
     x = torch.randn(N, T, C, generator=g).to(dev, dtype)
-    kv = torch.randn(T, 64, 2 * C, generator=g).to(dev, dtype)
+    kv = torch.randn(T, V, 2 * C, generator=g).to(dev, dtype)
+    fn = lambda: mlp_int8_cuda.fused_space_block_allt_int8(x, kv, w, H, D)  # noqa: E731
     n = mlp_int8_cuda.fused_space_block_allt_int8.launches
-    out = mlp_int8_cuda.fused_space_block_allt_int8(x, kv, w, H, D)
+    n2 = mlp_int8_cuda.fused_space_block_int8.launches
+    out = fn()
     torch.cuda.synchronize()
     assert mlp_int8_cuda.fused_space_block_allt_int8.launches == n + 1
+    assert mlp_int8_cuda.fused_space_block_int8.launches == n2
+    assert torch.equal(out, mlp_int8_cuda.fused_space_block_int8(x, kv, w, H, D))
     _close(out, mlp_int8_cuda.space_block_plain(x, kv, w, H, D), dtype)
+    if dtype == torch.bfloat16 and V <= mlp_int8_cuda.K2_MAX_V:
+        assert device_launches(fn) == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -856,6 +869,41 @@ def test_ln_mlp(dev, dtype, ln):
     torch.cuda.synchronize()
     assert mlp_int8_cuda.fused_ln_mlp_int8.launches == n + 1
     _close(out, mlp_int8_cuda.ln_mlp_plain(x, fc1, fc2, ln=ln), dtype)
+
+
+@pytest.mark.parametrize("rows", [8, 120, 64 * 8 * 3 + 40])
+@pytest.mark.parametrize("bf16_ln,gelu_fold", [(False, False), (True, False), (False, True),
+                                               (True, True)])
+@pytest.mark.parametrize("ln", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_mlp_cluster_matches_first_body(dev, dtype, ln, bf16_ln, gelu_fold, rows):
+    """K12 (8-block clusters, resident weights, one fc1 pass) is bit-identical
+    to its first body (one block a 64-row tile, fc1 twice): the same LN,
+    GELU and epilogue device code, exact s8 products, an order-free row
+    max. Row counts: one tile with most clusters idle (8), a ragged last
+    tile (120), several tiles a cluster (1,576: 25 tiles; and again on 3
+    clusters, 8-9 tiles each). One device launch a call; the plan's shared
+    memory is the kernel's; within the W8A8 band of ln_mlp_plain, taken on
+    the CPU (torch._int_mm on the card takes more than 16 rows)."""
+    g = torch.Generator().manual_seed(rows + 2 * ln + bf16_ln)
+    fc1, fc2 = _lin(g, HID, C, dev), _lin(g, C, HID, dev)
+    x = torch.randn(rows, C, generator=g).to(dev, dtype)
+    kw = dict(ln=ln, bf16_ln=bf16_ln, gelu_fold=gelu_fold)
+    fn = lambda: mlp_int8_cuda.fused_ln_mlp_int8(x, fc1, fc2, **kw)  # noqa: E731
+    n = mlp_int8_cuda.fused_ln_mlp_int8.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_mlp_int8.launches == n + 1
+    first = mlp_int8_cuda._ln_mlp_first(x, fc1, fc2, 1e-6, ln, bf16_ln, gelu_fold)
+    assert torch.equal(out, first)
+    few = mlp_int8_cuda._ln_mlp_cluster(x, fc1, fc2, 1e-6, ln, bf16_ln, gelu_fold,
+                                        mlp_int8_cuda.k12_plan(rows, 3))
+    assert torch.equal(few, first)
+    cpu = [mlp_int8_cuda.QLinear(*(t.cpu() for t in lin)) for lin in (fc1, fc2)]
+    _close(out.cpu(), mlp_int8_cuda.ln_mlp_plain(x.cpu(), *cpu, **kw), dtype)
+    assert device_launches(fn) == 1
+    assert mlp_int8_cuda._lib()["k12_smem"]() == mlp_int8_cuda.K12_SMEM
+    assert mlp_int8_cuda._k12_max_clusters(dev) >= 1
 
 
 def _fold_pack(g, dev):

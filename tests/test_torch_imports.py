@@ -62,7 +62,8 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize("script", ["torch_ubench.py", "torch_breakdown.py", "torch_cores.py",
-                                    "torch_k3_parts.py", "torch_k8_parts.py"])
+                                    "torch_k3_parts.py", "torch_k8_parts.py",
+                                    "torch_k12_parts.py"])
 def test_port_scripts_import_no_jax(script):
     names = _imported_names(os.path.join(REPO, "scripts", script))
     assert any(n.startswith("cotracker_tpu_torch") for n in names), names

@@ -3,8 +3,9 @@ Python (no kernel, no JAX): K1's two-launch plan (`mlp_int8_cuda.k1_plan`)
 for every (tracks, frames) the frame gate sends to the whole time block,
 K5's route for every frame count (`attention_cuda.k5_plan`), K4's cluster
 tiling (`corr_cuda.k4_plan`), K9's body by token dtype
-(`mlp_int8_cuda.k9_route`), K2's route and front (`mlp_int8_cuda.k2_plan`)
-and K3's key ranges and head groups (`attention_cuda.k3_plan`). On the
+(`mlp_int8_cuda.k9_route`), K2's route and front (`mlp_int8_cuda.k2_plan`),
+which K11 takes too, K3's key ranges and head groups
+(`attention_cuda.k3_plan`) and K12's clusters (`mlp_int8_cuda.k12_plan`). On the
 card, `tests/test_torch_cuda.py` holds the kernels to these plans (K1's,
 K2's, K3's and K4's shared-memory arithmetic against `ct_k1_smem`,
 `ct_k2_smem`, `ct_k3_smem` and `ct_k4_smem`) and each route to the plain
@@ -221,3 +222,67 @@ def test_k4m_plan_covers_every_row_once(Tp):
     assert (int(consts["kMlpBM"]), int(consts["kMlpStages"]), int(consts["kMlpBK"])) == (
         corr_cuda.K4M_ROWS, corr_cuda.K4M_STAGES, 64)
     assert corr_cuda.K4M_GEMM_SMEM == 205312
+
+
+def _k12_consts():
+    """int8_mlp_cluster.cu's K12_* constants, evaluated in order."""
+    src = (_build.CSRC / "int8_mlp_cluster.cu").read_text()
+    env = dict(KC=384, KH=1536, LDA_C=384 + 16, LDA_H=1536 + 16)
+    for name, expr in re.findall(r"constexpr int (K12_\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("/", "//"), {}, env)
+    return env
+
+
+@pytest.mark.parametrize("max_clusters", [1, 3, 14, 16, 132])
+def test_k12_plan_covers_every_tile_once(max_clusters):
+    """K12's clusters (at most the card's max active count, at most one a
+    64-row tile) take the tiles c, c + clusters, ...: every tile once, no
+    cluster idle; a block's shared memory, as int8_mlp_cluster.cu's
+    constants give it, fits the card and is the plan's."""
+    M = mlp_int8_cuda
+    k = _k12_consts()
+    assert (k["K12_CLUSTER"], k["K12_BM"]) == (M.K12_CLUSTER, M.K12_BM)
+    assert k["K12_SMEM"] == M.K12_SMEM <= M.SMEM_LIMIT
+    assert k["K12_HB"] * k["K12_CLUSTER"] == 1536 and k["K12_NB"] * k["K12_CLUSTER"] == 384
+    for rows in (1, 8, 64, 65, 120, 64 * 8 * 3 + 40, 9999, 604800):
+        p = M.k12_plan(rows, max_clusters)
+        assert p.tiles == -(-rows // M.K12_BM) and p.smem == M.K12_SMEM
+        assert 1 <= p.clusters == min(p.tiles, max_clusters)
+        assert p.blocks == M.K12_CLUSTER * p.clusters
+        tiles = sorted(t for c in range(p.clusters) for t in M.k12_tiles(p, c))
+        assert tiles == list(range(p.tiles))
+        assert min(len(M.k12_tiles(p, c)) for c in range(p.clusters)) >= 1
+    with pytest.raises(RuntimeError, match="seats no"):
+        M.k12_plan(64, 0)
+    with pytest.raises(ValueError):
+        M.k12_plan(0, 16)
+    assert "int8_mlp_cluster" in _build.SOURCES
+
+
+def test_k11_takes_k2s_route(monkeypatch):
+    """K11 computes K2's function, so its wrapper routes by k2_plan: bf16
+    tokens and keys with up to 64 virtual tokens K2's fused launches under
+    K11's entry, float32 or 65-128 virtual tokens K2's chain; past 128 it
+    raises. A call probe on meta tensors, with the launches replaced."""
+    M = mlp_int8_cuda
+    routes = []
+    monkeypatch.setattr(M, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(M, "_sms", lambda device: 132)
+    monkeypatch.setattr(M, "_space_block_fused",
+                        lambda *a, entry="k2", **k: routes.append(("fused", entry, a[-1].route)))
+    monkeypatch.setattr(M, "_space_block_chain", lambda *a, **k: routes.append(("chain",)))
+    w = M.SpaceBlockWeights(*(M.QLinear(torch.empty(o, i, dtype=torch.int8, device="meta"),
+                                        torch.empty(o, device="meta"), torch.empty(o, device="meta"))
+                              for o, i in ((384, 384), (384, 384), (1536, 384), (384, 1536))))
+    n2 = M.fused_space_block_int8.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        for V in (1, 64, 65, 96, 128):
+            x = torch.empty(300, 16, 384, dtype=dtype, device="meta")
+            kv = torch.empty(16, V, 768, dtype=dtype, device="meta")
+            M.fused_space_block_allt_int8(x, kv, w, 8, 48)
+            want = ("fused", "k11", "fused") if dtype == torch.bfloat16 and V <= 64 else ("chain",)
+            assert routes.pop() == want, (dtype, V)
+        with pytest.raises(ValueError, match="K11 takes"):
+            M.fused_space_block_allt_int8(x, torch.empty(16, 129, 768, dtype=dtype, device="meta"),
+                                          w, 8, 48)
+    assert M.fused_space_block_int8.launches == n2
