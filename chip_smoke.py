@@ -30,7 +30,12 @@ Phases, each raising on failure:
      then the training kernels K4r (raw int8 volume) and K4f (raw float
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames): K4r's codes and
-     scales bit-identical to its plain version, K4f within a float32 bound;
+     scales bit-identical to its plain version, K4f (3xTF32 tensor cores in
+     f32, FMAs in k order in bf16) within a float32 bound and, in bf16,
+     within one bf16 ulp, with the bound of each dtype under the peak of
+     its products (tf32 for 3xTF32's three, bf16), the f32 FMA peak's
+     beside it, and the plain version's gather + torch.bmm chain and
+     torch.bmm alone timed beside it;
      then K7 at the quasi-dense key count (70,656 padded tracks x 16 frames,
      the keys of each frame and head shared by several blocks and merged;
      once with every key masked) and K5 on its other bf16 routes (256
@@ -70,9 +75,10 @@ Phases, each raising on failure:
      decreasing, K4r 64 launches per step (4 levels x 4 iterations x 2
      windows x 2: the checkpointed forward runs again in the backward), K4f
      and K1-K7 none; ms per step and peak memory. Then 3 steps of the
-     offline model (one 16-frame window, K4r 32 per step), 2 steps of the
+     offline model (one 16-frame window, K4r 32 per step), 4 steps of the
      online model with K4f instead of K4r (corr_quant_int8=False, K4f 64 per
-     step, K4r none) and 2 with COTRACKER_CORR_FUSE_MLP1=1 (the wrapper's
+     step, K4r none; its median ms per step beside (a)'s) and 2 with
+     COTRACKER_CORR_FUSE_MLP1=1 (the wrapper's
      forward through K4m: K4m 64 per step, K4r none);
   8. gradients on the card: one batch at 64x96, 8 frames, 32 tracks,
      iters=2 through the K4r, the K4f and the plain training models of the
@@ -103,7 +109,9 @@ Phases, each raising on failure:
      (the all-frames points<-virtual block: K2's function on K2's two
      launches) at 10,240 and 70,656 tracks x 16 frames, bit-identical to
      K2 with K2 and K2's library chain timed beside it; K10 in each flag
-     combination; K12 (8-block clusters) with the LN on and off at 604,800
+     combination (in bf16 K8's streamed body), bit-identical to its first
+     body, both timed, with a library chain (LN in torch, the row codes,
+     torch._int_mm) and its device launches a call; K12 (8-block clusters) with the LN on and off at 604,800
      rows, bit-identical to its first body, with the first body and a
      library chain (LN in torch, torch._int_mm for fc1 and fc2) timed
      beside it and its device launches a call; then
@@ -144,17 +152,20 @@ import torch
 from torch.nn.functional import scaled_dot_product_attention as sdpa  # library_ms yardstick only
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 
 from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import mlp_int8_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels.variants import ENV, KernelVariants  # noqa: E402
 from cotracker_tpu_torch.utils.profiling import device_launches  # noqa: E402
+from torch_library_chains import k4f_windows, k10_library_chain, k12_library_chain  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_OPS = 989e12
 F32_OPS = 67e12
+TF32_OPS = 494.7e12  # tensor cores, dense: K4f's f32 route (3xTF32)
 
 N_TRACKS, T_FRAMES, C, HID, HEADS, DH, V = 10240, 60, 384, 1536, 8, 48, 64
 CHUNK, LVL0 = 2048, (96, 128)
@@ -640,31 +651,73 @@ def train_kernel_phase(dev):
                   "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
         del fmq, supq, vol, rvol
 
-        fmf = corr_cuda.build_float_level(fm, 3, torch.float32)
-        supf = sup.reshape(n, 49, 128).contiguous()
-        vol = corr_cuda.corr_volume_float(fmf, supf, starts)
-        ref = corr_cuda.corr_volume_float_plain(fmf, supf, starts)
-        err = (vol - ref).abs().max().item()
-        lim = K4F_TOL * ref.abs().max().item()
-        log(f"  K4f raw f32 volume {n} points x {T} frames: max_abs_err {err:.3e} (bound {lim:.3e})")
-        if not err <= lim:
-            raise AssertionError("K4f: kernel disagrees with its plain version")
-        e = out.setdefault("K4f_corr_volume_float", dict(
-            name="K4f_corr_volume_float", route="cuda", source=SRC_CORR,
-            replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
-            shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames, f32"))
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        bnd = bound(nbytes(fmf, supf, starts, vol), [(mm, F32_OPS)])
-        e.update({"ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_float(fmf, supf, starts)),
-                  "plain_ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_float_plain(fmf, supf, starts),
-                                            reps=2),
-                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
+        for dtype in (torch.float32, torch.bfloat16):
+            k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx)
         for k in out.values():
             if ("ms" + sfx) in k:
                 log(f"  {k['name']} {n}x{T}: {k['ms' + sfx]:.3f} ms (plain {k['plain_ms' + sfx]:.3f} ms, "
                     f"bound {k['bound_ms' + sfx]:.3f} ms by {k['bound_by' + sfx]})")
-        del fm, fmf, sup, supf, vol, ref
+        del fm, sup
     return [out[k] for k in sorted(out)]
+
+
+def k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx):
+    """K4f in `dtype` against its plain version: f32 (3xTF32 on the tensor
+    cores) within K4F_TOL of the largest |g|, bf16 (f32 FMAs in the plain
+    version's k order) within one bf16 ulp (2^-8) of it, the elements that
+    differ counted. Its time, the plain version's (the window gather +
+    torch.bmm, TF32 off: also the library chain), torch.bmm alone, and the
+    bound of its dtype: bytes against the products at the peak of their
+    type, 3xTF32's three tf32 products at the tf32 peak (f32) or one bf16
+    product at the bf16 peak (bf16); beside it the products at the f32 FMA
+    peak (bound_f32_fma_ms: the first body's bound, and the peak of the bf16
+    route's CUDA-core FMAs)."""
+    f32 = dtype == torch.float32
+    sfx = sfx + ("" if f32 else "_bf16")
+    fmf = corr_cuda.build_float_level(fm, 3, dtype)
+    supf = sup.reshape(n, 49, 128).to(dtype).contiguous()
+    vol = corr_cuda.corr_volume_float(fmf, supf, starts)
+    ref = corr_cuda.corr_volume_float_plain(fmf, supf, starts)
+    err = (vol.float() - ref.float()).abs().max().item()
+    lim = (K4F_TOL if f32 else 2.0**-8) * ref.float().abs().max().item()
+    what = "f32" if f32 else "bf16"
+    differ = int((vol != ref).sum().item())
+    log(f"  K4f raw {what} volume {n} points x {T} frames: max_abs_err {err:.3e} (bound {lim:.3e}), "
+        f"{differ} of {vol.numel()} elements differ")
+    if not err <= lim:
+        raise AssertionError(f"K4f ({what}): kernel disagrees with its plain version")
+    e = out.setdefault("K4f_corr_volume_float", dict(
+        name="K4f_corr_volume_float", route="cuda", source=SRC_CORR,
+        replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
+        shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames, f32 "
+              f"(also *_t60: {INFER_SHAPE[0]} x {INFER_SHAPE[1]}; *_bf16: bf16)"))
+    if f32:
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    else:
+        e["max_abs_err_bf16"] = max(e.get("max_abs_err_bf16", 0.0), err)
+    nb = nbytes(fmf, supf, starts, vol)
+    ops = (3 * mm, TF32_OPS) if f32 else (mm, BF16_OPS)
+    bnd = bound(nb, [ops])
+    fn = lambda: corr_cuda.corr_volume_float(fmf, supf, starts)  # noqa: E731
+    plain = lambda: corr_cuda.corr_volume_float_plain(fmf, supf, starts)  # noqa: E731
+    plain_ms = time_ms(plain, reps=2)
+    win = k4f_windows(fmf, starts)
+    e.update({"ms" + sfx: time_ms(fn), "plain_ms" + sfx: plain_ms,
+              "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1],
+              "bound_bytes_ms" + sfx: 1e3 * nb / HBM_BPS,
+              "bound_ops_ms" + sfx: 1e3 * ops[0] / ops[1],
+              "bound_f32_fma_ms" + sfx: 1e3 * mm / F32_OPS,
+              "elements_differing" + sfx: differ,
+              "library_ms" + sfx: plain_ms,
+              "library_bmm_only_ms" + sfx: time_ms(lambda: torch.bmm(win, supf.transpose(1, 2))),
+              "device_launches" + sfx: device_launches(fn)})
+    if e["device_launches" + sfx] != 1:
+        raise AssertionError("K4f is one device launch a call")
+    log(f"  K4f {what} {n}x{T}: {e['ms' + sfx]:.3f} ms (plain version = library chain "
+        f"{plain_ms:.3f} ms, torch.bmm alone "
+        f"{e['library_bmm_only_ms' + sfx]:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]}: bytes "
+        f"{e['bound_bytes_ms' + sfx]:.3f}, operations {e['bound_ops_ms' + sfx]:.3f})")
+    del fmf, supf, vol, ref, win
 
 
 LONG_T, LONG_TRACKS = 250, 2048  # the long path's point tokens (2,048 tracks x 250 frames)
@@ -1044,6 +1097,12 @@ def read_losses(exp_dir):
         return [json.loads(line) for line in f]
 
 
+def median_ms(per_step):
+    """The median of train_run's step times."""
+    ms = sorted(m for _, _, m in per_step)
+    return ms[len(ms) // 2] if len(ms) % 2 else 0.5 * (ms[len(ms) // 2 - 1] + ms[len(ms) // 2])
+
+
 def check_launches(name, per_step, expected):
     for step, counts, _ in per_step:
         if counts != expected:
@@ -1070,8 +1129,7 @@ def training_phase(dev, smi):
         k4r = 4 * TRAIN_ITERS * windows * 2
         check_launches("training (a)", run1, {**zeros, "K4r_corr_volume_raw": k4r})
         losses = [r["total_loss"] for r in read_losses(exp)]
-        ms = sorted(m for _, _, m in run1[2:])
-        ms_step = ms[len(ms) // 2] if len(ms) % 2 else 0.5 * (ms[len(ms) // 2 - 1] + ms[len(ms) // 2])
+        ms_step = median_ms(run1[2:])
         log(f"  total loss per step {[round(x, 4) for x in losses]}")
         log(f"  ms per step {[round(m, 1) for _, _, m in run1]}; median of steps 3-8 "
             f"{ms_step:.1f} ms; peak memory {peak:.2f} GiB ({smi})")
@@ -1104,13 +1162,15 @@ def training_phase(dev, smi):
         if not all(math.isfinite(x) for x in off):
             raise AssertionError("training (b): non-finite loss")
 
-        log("training (c): online model with K4f (corr_quant_int8=False), 2 steps:")
+        log("training (c): online model with K4f (corr_quant_int8=False), 4 steps:")
         exp = os.path.join(root, "k4f")
-        run_f = train_run(exp, clip, 2, corr_quant_int8=False, **online)
+        run_f = train_run(exp, clip, 4, corr_quant_int8=False, **online)
         check_launches("training (c)", run_f, {**zeros, "K4f_corr_volume_float": k4r})
         fl = [r["total_loss"] for r in read_losses(exp)]
+        ms_step_f = median_ms(run_f[1:])
         log(f"  total loss per step {[round(x, 4) for x in fl]}; ms per step "
-            f"{[round(m, 1) for _, _, m in run_f]}")
+            f"{[round(m, 1) for _, _, m in run_f]}; median of steps 2-4 {ms_step_f:.1f} ms "
+            f"(training (a): {ms_step:.1f} ms, median of steps 3-8)")
         if not all(math.isfinite(x) for x in fl):
             raise AssertionError("training (c): non-finite loss")
 
@@ -1132,7 +1192,8 @@ def training_phase(dev, smi):
         shutil.rmtree(root, ignore_errors=True)
     return run1[-1][1], run_f[-1][1], run_m[-1][1], dict(
         ms_per_step=ms_step, peak_gib=peak, ms_per_step_offline=[m for _, _, m in run],
-        ms_per_step_k4f=[m for _, _, m in run_f], ms_per_step_k4m=[m for _, _, m in run_m])
+        ms_per_step_k4f=[m for _, _, m in run_f], ms_per_step_k4f_median=ms_step_f,
+        ms_per_step_k4m=[m for _, _, m in run_m])
 
 
 def gradient_phase(dev):
@@ -1360,7 +1421,6 @@ def evaluation_phase(dev):
 # quasi-dense streaming cell in both settings, the offline bench workload
 # with the variants on, and the micro-benchmark entry point
 
-SRC_FUSED = "cotracker_tpu_torch/csrc/int8_fused.cu"
 SRC_K12 = "cotracker_tpu_torch/csrc/int8_mlp_cluster.cu"
 ALL_ON = KernelVariants(corr_fuse_mlp1=True, space_allt=True, bf16_ln=True, gelu_quant_fold=True)
 QD_GRID, QD_FRAMES = 265, 48  # 70,225 points (70,656 padded), 5 windows of 16 at step 8
@@ -1438,17 +1498,6 @@ def mode_phase(dev):
             errs[f"{name}_{mode}"] = err
     torch.cuda.synchronize()
     return errs
-
-
-def k12_library_chain(x, fc1, fc2, ln):
-    """K12's library chain, never called by the port: LN in torch, the row
-    codes, torch._int_mm for fc1, the plain GELU codes, torch._int_mm for
-    fc2, the epilogue."""
-    x32 = x.float()
-    h = torch.nn.functional.layer_norm(x32, (C,), eps=1e-6) if ln else x32
-    hq, s0 = mlp_int8_cuda.quant_rows(h)
-    uq, s1 = mlp_int8_cuda.quant_gelu(mlp_int8_cuda.qlinear_plain(hq, s0, fc1))
-    return (x32 + mlp_int8_cuda.qlinear_plain(uq, s1, fc2)).to(x.dtype)
 
 
 def variant_kernel_phase(dev):
@@ -1585,9 +1634,16 @@ def variant_kernel_phase(dev):
                 lin_ = tw.out if residual else tw.qkv
                 kw = dict(ln=ln, residual=residual, gamma=gamma if affine else None,
                           beta=beta if affine else None)
-                o = mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw)
-                ref = mlp_int8_cuda.ln_dense_plain(x, lin_, **kw)
+                k10 = lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw)  # noqa: E731
+                first = lambda: mlp_int8_cuda._ln_dense_first(  # noqa: E731
+                    x, lin_, 1e-6, ln, kw["gamma"], kw["beta"], residual, False)
+                o = k10()
                 tag = f"ln={int(ln)} affine={int(affine)} residual={int(residual)}"
+                diff = int((o != first()).sum().item())
+                log(f"  K10 {tag}: elements differing from its first body {diff} (bound 0)")
+                if diff:
+                    raise AssertionError(f"K10 {tag} differs from its first body")
+                ref = mlp_int8_cuda.ln_dense_plain(x, lin_, **kw)
                 err = check_close(f"K10 {tag}", o, ref, *K8_TOL)
                 frac = bf16_ulp_frac(o, ref)
                 if frac > 1e-2:
@@ -1598,15 +1654,17 @@ def variant_kernel_phase(dev):
                     bnd = bound(nbytes(x) + UB_ROWS * N * 2 + nbytes(*lin_),
                                 [(UB_ROWS * 2 * C * N, INT8_OPS)])
                     e = variant_entry(
-                        "K10_ln_dense", SRC_FUSED, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:203",
-                        f"{UB_ROWS} rows x 384 -> {N}, bf16, ln=1", err,
-                        time_ms(lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw)),
+                        "K10_ln_dense", SRC_K1, "cotracker_tpu/ops/kernels/mlp_int8_pallas.py:203",
+                        f"{UB_ROWS} rows x 384 -> {N}, bf16, ln=1", err, time_ms(k10),
                         time_ms(lambda: mlp_int8_cuda.ln_dense_plain(x, lin_, **kw), reps=2), bnd,
-                        ms_by_flags={})
+                        time_ms(lambda: k10_library_chain(x, lin_, **kw), reps=2),
+                        ms_by_flags={}, first_ms_by_flags={}, device_launches=device_launches(k10))
                 e["max_abs_err"] = max(e["max_abs_err"], err)
-                e["ms_by_flags"][tag] = time_ms(
-                    lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin_, **kw))
-    log(f"  K10 ms by flags {e['ms_by_flags']}")
+                e["ms_by_flags"][tag] = time_ms(k10)
+                e["first_ms_by_flags"][tag] = time_ms(first, reps=2)
+                if device_launches(k10) != 1:
+                    raise AssertionError(f"K10 {tag} is one device launch a call")
+    log(f"  K10 ms by flags {e['ms_by_flags']}; its first body {e['first_ms_by_flags']}")
     out.append(e)
     e = None
     for ln in (True, False):

@@ -1,8 +1,9 @@
 // Shared device helpers of the port's kernels (sm_90a, plain C interface).
 //
 // The int8 products use the warp-level tensor-core instruction
-// mma.sync.m16n8k32 (s8 x s8 -> s32). Fragment layouts (PTX ISA, "Matrix
-// fragments for mma.m16n8k32"), with g = lane / 4 and t = lane % 4:
+// mma.sync.m16n8k32 (s8 x s8 -> s32), K4f's f32 ones m16n8k8 (tf32, below).
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k32"), with
+// g = lane / 4 and t = lane % 4:
 //   A (16 x 32, row-major): a0 = A[g][4t..4t+3],    a1 = A[g+8][4t..4t+3],
 //                           a2 = A[g][16+4t..],     a3 = A[g+8][16+4t..]
 //   B (32 x 8, column j = g): b0 = B[4t..4t+3][g],  b1 = B[16+4t..][g]
@@ -23,6 +24,24 @@ __device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, const ui
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// tf32 x tf32 -> f32, m16n8k8: A a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; B b0 = B[t][g], b1 = B[t+4][g]; C as above.
+__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to tf32 (10 explicit mantissa bits, to nearest, ties away), as bits
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {

@@ -34,8 +34,9 @@
 // point, two passes (absmax of the RAW s32 volume, then the codes
 // rint(g * (1/scale))).
 // K4f (plain g, corr_pallas.py:401-402): float (f32 or bf16) windows and
-// support, f32 FMAs over a window staged in shared memory, the volume
-// written in the input dtype. One pass, no scale.
+// support, the volume written in the input dtype. One pass, no scale; its
+// design (k4f_volume_kernel, on corr_cuda.k4f_plan: 3xTF32 tensor cores in
+// f32, f32 FMAs in k order in bf16) is the note above it.
 //
 // K4m (fuse_mlp1, corr_pallas.py:244-333 with the plan :509-560 and the
 // epilogue :706-712): the whole correlation epilogue up to MLP1, per point:
@@ -89,9 +90,14 @@
 // SM: too few warps to hide the instructions' latency. Not profiled (the
 // card's machine runs no ncu).
 // K4r reads ~1 GB of windows (every window twice, mostly from L2): memory
-// and its shared-memory combine traffic bound it. K4f does the same
-// contraction as ~100 f32 GFLOP on the CUDA cores (no tensor cores), which
-// bounds it.
+// and its shared-memory combine traffic bound it. K4f's first body did the
+// contraction as f32 FMAs on the CUDA cores (0.973 ms at 768 points x 16
+// frames, 10.42 at 2,048 x 60), bound by its shared-memory loads; on the
+// tensor cores the least time for the work is its bytes (the level map,
+// the support and the 154 MB volume at 768 x 16 f32: ~0.085 ms), above the
+// 3 x 9.87 G tf32 operations at 494.7 T a second (~0.060 ms); in bf16, on
+// the CUDA cores for an exact sum, the 9.87 G f32 operations at 67 T a
+// second (0.147 ms) bound it.
 
 #include "common.cuh"
 
@@ -182,73 +188,341 @@ corr_volume_raw_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__
   }
 }
 
-// K4f. 128 threads; thread (ry, sx) = (tid / 8, tid % 8) accumulates the
-// 4 x 7 outputs at rows ry + 16i and support taps sx + 8j in f32. Window and
-// support sit in shared memory as f32 with rows padded to 129 words, so a
-// warp's loads of one channel fall on distinct banks or broadcast.
-constexpr int kFl = kC + 1;
-constexpr size_t kFloatSmem = static_cast<size_t>(kR + kSp) * kFl * sizeof(float);
+// ---------------------------------------------------------------- K4f
+// K4f (k4f_volume_kernel; tiling corr_cuda.k4f_plan): per (point, frame)
+// the 64 x 49 x 128 contraction g = window . support^T.
+//   * f32: on tensor cores, 3xTF32 on mma.sync m16n8k8 (CUTLASS's fast-f32
+//     split): each operand v = hi + lo, hi = cvt.rna.tf32(v), lo =
+//     cvt.rna.tf32(v - hi); per 8-deep k step acc += lo_a.hi_b, then
+//     hi_a.lo_b, then hi_a.hi_b (small terms first), in f32. The dropped
+//     lo.lo term and lo's own rounding are each under 2^-22 of |a.b|: ~1e-6
+//     of sum_c |a_c b_c| (at most 1 for the unit-norm features) at worst.
+//     The K axis is permuted alike in both operands, so that a lane's
+//     fragments of two k steps are one 16-byte shared-memory load: in each
+//     64-byte chunk j of a row, lane (g, t) reads bytes 16t .. 16t + 15,
+//     whose four floats are (a0, a2) of step 2j and (a0, a2) of step 2j + 1
+//     for row g (a1, a3: row g + 8), and (b0, b1) of the same steps for
+//     support row g. Window rows are padded by 64 bytes, so rows g and g + 1
+//     (a quarter-warp's 128-bit load) fall on other banks. The support is
+//     staged once per task in fragment order, split once: supF[step]
+//     [n-tile][lane] = {hi b0, hi b1, lo b0, lo b1}. Warps: two teams of 8,
+//     each warp 16 window rows x 4 or 3 n-tiles of 8 support taps.
+//   * bf16: on the CUDA cores, f32 FMAs in k order. The products of bf16
+//     values are exact in f32, so any other order of the sum (a tensor
+//     core's among them) rounds a few elements to the neighbouring bf16
+//     value, an error up to 2^-7 of the largest |g|; in k order the sum is
+//     the plain version's (cuBLAS's f32 GEMM) bit for bit. A thread holds 8
+//     window rows x 7 support taps (64 threads a frame); per 8 k the rows'
+//     16 bytes of bf16 are one broadcast load a quarter-warp and the taps'
+//     floats (the support staged once per task in f32, rows padded by 16
+//     bytes: the 8 taps of a quarter-warp on 8 bank groups) two 16-byte
+//     loads, for 448 FMAs. Warps: four teams of 2.
+// Block (both): 16 warps (f32) or 8 (bf16), one block an SM, persistent
+// over the plan's tasks (a point and a group of its frames; the groups in
+// order, so that the blocks in flight read the same frames' windows from
+// L2). A step takes one frame a team; the next step's windows arrive by
+// cp.async in 16-byte pieces while this step computes (two steps of
+// windows in shared memory); each frame's 64 x 49 output (12,544
+// contiguous bytes in f32) is staged in shared memory and leaves as 16-byte
+// streaming stores; the next task's support is read into registers during
+// the last step of the task before. Shared memory: f32 229,888 bytes,
+// bf16 185,728.
+// What bounds it (one NVIDIA H100 80GB HBM3 at 700 W; scripts/torch_k4f_parts.py
+// builds copies with one part taken out): f32 0.29 ms at 768 points x 16
+// frames, against 0.091 ms of bytes and 0.060 of tf32 operations. With its
+// products replaced by adds it takes as long; without the windows' copies
+// 10% less, without the stores 8%, without the staging or the split under
+// 2% each: what is left is the block's instruction stream (fragment loads,
+// address arithmetic, two block barriers a step) at 16 warps an SM (8
+// warps took 0.32 ms). bf16 0.34 ms, of which the FMAs 0.20 (~85% of the
+// f32 FMA peak on the 56 padded taps) and the rest 0.15.
+template <typename T> struct K4fT;
+template <> struct K4fT<float> {  // threads, frames a step (teams), window row stride, support bytes
+  static constexpr int kThreads = 512, kFrames = 2, kLdw = kC * 4 + 64, kSup = 8 * 2 * 7 * 32 * 16;
+};
+template <> struct K4fT<__nv_bfloat16> {
+  static constexpr int kThreads = 256, kFrames = 4, kLdw = kC * 2, kSup = kSp * (kC + 4) * 4;
+};
+constexpr int kFNt = kSp / 8;  // 7 n-tiles of 8 support taps
+constexpr int kFSupLd = kC + 4;                  // bf16: the f32 support's row stride (floats)
 
 template <typename T>
-__global__ void __launch_bounds__(128)
-corr_volume_float_kernel(const T* __restrict__ fm, const T* __restrict__ sup,
-                         const int* __restrict__ starts, T* __restrict__ vol, int Tp, int Hp,
-                         int Wp) {
-  extern __shared__ float smem[];
-  float* win_s = smem;               // (64, 129)
-  float* sup_s = smem + kR * kFl;    // (56, 129), rows 49.. zero
-  const int p = blockIdx.x, tid = threadIdx.x, ry = tid >> 3, sx = tid & 7;
-  for (int i = tid; i < kSp * kC; i += blockDim.x) {
-    const int r = i / kC, c = i - r * kC;
-    sup_s[r * kFl + c] = r < kS ? to_f(sup[(static_cast<size_t>(p) * kS + r) * kC + c]) : 0.f;
-  }
-  const int* st = starts + static_cast<size_t>(p) * Tp * 3;
-  for (int t = 0; t < Tp; ++t) {
-    const int f = st[t * 3], wy = st[t * 3 + 1], wx = st[t * 3 + 2];
-    __syncthreads();  // the previous frame's readers of win_s are done
-    for (int i = tid; i < kR * kC; i += blockDim.x) {
-      const int r = i / kC, c = i - r * kC, y = r >> 3, x = r & 7;
-      win_s[r * kFl + c] = to_f(fm[((static_cast<size_t>(f) * Hp + wy + y) * Wp + wx + x) * kC + c]);
+struct K4fLayout {
+  static constexpr int kThreads = K4fT<T>::kThreads, kFrames = K4fT<T>::kFrames;
+  static constexpr int kLdw = K4fT<T>::kLdw, kSup = K4fT<T>::kSup;
+  static constexpr int kRow = kC * static_cast<int>(sizeof(T)), kCPR = kRow / 16;
+  static constexpr int kWin = kR * kLdw, kStage = kR * kS * static_cast<int>(sizeof(T));
+  static constexpr int kSmem = kSup + 2 * kFrames * kWin + kFrames * kStage;
+  static constexpr int kSupRegs = (kS * kCPR + kThreads - 1) / kThreads;
+};
+static_assert(K4fLayout<float>::kSmem <= 232448 && K4fLayout<__nv_bfloat16>::kSmem <= 232448,
+              "K4f: one block an SM");
+
+__device__ __forceinline__ uint32_t word4(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// f32: acc[m][n] = window rows row0 + 16 m .. +15 x n-tiles n0 + n.
+template <int MT, int NT>
+__device__ __forceinline__ void k4f_mma(const unsigned char* win, const uint4* supF, int row0,
+                                        int n0, float (&acc)[MT][NT][4]) {
+  constexpr int kLdw = K4fT<float>::kLdw;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+  const unsigned char* a_base = win + (row0 + g) * kLdw + 16 * t;
+  const uint4* b_base = supF + n0 * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < kC / 16; ++j) {
+    uint4 ar[MT][2];  // rows g and g + 8 of each m-tile
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ar[m][h] = *reinterpret_cast<const uint4*>(a_base + (16 * m + 8 * h) * kLdw + 64 * j);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      uint4 b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) b[n] = b_base[((2 * j + u) * kFNt + n) * 32];
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // a0 = word 2u of row g, a1 of row g + 8, a2, a3: 2u + 1
+          const float v = __uint_as_float(word4(ar[m][k & 1], 2 * u + (k >> 1)));
+          ah[m][k] = tf32_rna(v);
+          al[m][k] = tf32_rna(__fsub_rn(v, __uint_as_float(ah[m][k])));
+        }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32_1688(acc[m][n], al[m], b[n].x, b[n].y);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32_1688(acc[m][n], ah[m], b[n].z, b[n].w);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32_1688(acc[m][n], ah[m], b[n].x, b[n].y);
     }
-    __syncthreads();
-    float acc[4][7];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 7; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < kC; ++c) {
-      float a[4], b[7];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = win_s[(ry + 16 * i) * kFl + c];
-#pragma unroll
-      for (int j = 0; j < 7; ++j) b[j] = sup_s[(sx + 8 * j) * kFl + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 7; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    T* out = vol + (static_cast<size_t>(p) * Tp + t) * (kR * kS);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 7; ++j) {
-        const int s = sx + 8 * j;
-        if (s < kS) out[(ry + 16 * i) * kS + s] = from_f<T>(acc[i][j]);
-      }
   }
 }
 
+// f32: the frame's outputs of k4f_mma, in its (r, s) flatten, into `out`.
+template <int MT, int NT>
+__device__ __forceinline__ void k4f_mma_stage(float* out, const float (&acc)[MT][NT][4], int row0,
+                                              int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = row0 + 16 * m + g + 8 * (k >> 1), c = 8 * (n0 + n) + 2 * t + (k & 1);
+        if (c < kS) out[r * kS + c] = acc[m][n][k];
+      }
+}
+
+// bf16: the frame's window rows 8 ry .. 8 ry + 7 x support taps sx + 8 j,
+// each summed in k order, into `out`.
+__device__ __forceinline__ void k4f_ffma(const unsigned char* win, const float* supR, int ry, int sx,
+                                         __nv_bfloat16* out) {
+  constexpr int kLdw = K4fT<__nv_bfloat16>::kLdw;
+  float acc[8][7];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 7; ++j) acc[i][j] = 0.f;
+  const unsigned char* a_base = win + 8 * ry * kLdw;
+  const float* b_base = supR + sx * kFSupLd;
+#pragma unroll 1
+  for (int kc = 0; kc < kC / 8; ++kc) {
+    float b[7][8];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      const float4 lo = *reinterpret_cast<const float4*>(b_base + 8 * j * kFSupLd + 8 * kc);
+      const float4 hi = *reinterpret_cast<const float4*>(b_base + 8 * j * kFSupLd + 8 * kc + 4);
+      b[j][0] = lo.x, b[j][1] = lo.y, b[j][2] = lo.z, b[j][3] = lo.w;
+      b[j][4] = hi.x, b[j][5] = hi.y, b[j][6] = hi.z, b[j][7] = hi.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(a_base + i * kLdw + 16 * kc);
+      float a[8];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {  // element 2w is the low half of word w
+        a[2 * w] = __uint_as_float(word4(raw, w) << 16);
+        a[2 * w + 1] = __uint_as_float(word4(raw, w) & 0xffff0000u);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int j = 0; j < 7; ++j) acc[i][j] = fmaf(a[kk], b[j][kk], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+      if (sx + 8 * j < kS) out[(8 * ry + i) * kS + sx + 8 * j] = __float2bfloat16_rn(acc[i][j]);
+}
+
 template <typename T>
-int launch_float(const T* fm, const T* sup, const int* starts, T* vol, int NP, int Tp, int Hp,
-                 int Wp, void* stream) {
-  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      corr_volume_float_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kFloatSmem));
+__global__ void __launch_bounds__(K4fT<T>::kThreads, 1)
+k4f_volume_kernel(const T* __restrict__ fm, const T* __restrict__ sup, const int* __restrict__ starts,
+                  T* __restrict__ vol, int NP, int Tp, int Hp, int Wp, int group) {
+  using L = K4fLayout<T>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int F = L::kFrames;
+  extern __shared__ __align__(16) unsigned char k4f_smem[];
+  unsigned char* wins = k4f_smem + L::kSup;              // [step parity][team] windows
+  T* stage = reinterpret_cast<T*>(wins + 2 * F * L::kWin);  // [team] one frame's output
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int team = warp % F, lw = warp / F;  // this warp's frame of a step, its place in the team
+  const int tasks = (Tp + group - 1) / group * NP;
+  // task -> point, its first frame and its frame count (groups in order)
+  auto point = [&](int task) { return task % NP; };
+  auto first = [&](int task) { return task / NP * group; };
+  auto frames = [&](int task) { return min(group, Tp - first(task)); };
+  auto next = [&](int& task, int& s) {
+    if (task < tasks && F * ++s >= frames(task)) {
+      task += gridDim.x;
+      s = 0;
+    }
+  };
+  int task = blockIdx.x, s = 0;  // the step computing
+  int ltask = task, ls = 0;      // the step loading, two ahead
+  if (task >= tasks) return;
+
+  // the support rows 49 .. 55 stay zero (f32: their B entries, n-tile 6, g > 0)
+  if constexpr (kF32) {
+    uint4* supF = reinterpret_cast<uint4*>(k4f_smem);
+    for (int i = tid; i < 16 * 28; i += L::kThreads)
+      supF[((i / 28) * kFNt + kFNt - 1) * 32 + 4 + i % 28] = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    float* supR = reinterpret_cast<float*>(k4f_smem);
+    for (int i = tid; i < (kSp - kS) * kC; i += L::kThreads)
+      supR[(kS + i / kC) * kFSupLd + i % kC] = 0.f;
+  }
+  uint4 sreg[L::kSupRegs];  // the support's rows, 16 bytes a piece
+  auto load_support = [&](int tk) {
+    const uint4* src = reinterpret_cast<const uint4*>(sup + static_cast<size_t>(point(tk)) * kS * kC);
+#pragma unroll
+    for (int k = 0; k < L::kSupRegs; ++k) {
+      const int i = tid + k * L::kThreads;
+      if (i < kS * L::kCPR) sreg[k] = __ldg(src + i);
+    }
+  };
+  auto write_support = [&]() {
+#pragma unroll
+    for (int k = 0; k < L::kSupRegs; ++k) {
+      const int i = tid + k * L::kThreads;
+      if (i >= kS * L::kCPR) continue;
+      const int r = i / L::kCPR, c = i - r * L::kCPR;
+      if constexpr (kF32) {
+        uint4* dst = reinterpret_cast<uint4*>(k4f_smem) + (r >> 3) * 32 + (r & 7) * 4 + (c & 3);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float v0 = __uint_as_float(word4(sreg[k], 2 * u));
+          const float v1 = __uint_as_float(word4(sreg[k], 2 * u + 1));
+          const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
+          dst[(2 * (c >> 2) + u) * kFNt * 32] =
+              make_uint4(h0, h1, tf32_rna(__fsub_rn(v0, __uint_as_float(h0))),
+                         tf32_rna(__fsub_rn(v1, __uint_as_float(h1))));
+        }
+      } else {
+        float4* dst = reinterpret_cast<float4*>(reinterpret_cast<float*>(k4f_smem) +
+                                                r * kFSupLd + 8 * c);
+        const uint32_t w[4] = {sreg[k].x, sreg[k].y, sreg[k].z, sreg[k].w};
+        dst[0] = make_float4(__uint_as_float(w[0] << 16), __uint_as_float(w[0] & 0xffff0000u),
+                             __uint_as_float(w[1] << 16), __uint_as_float(w[1] & 0xffff0000u));
+        dst[1] = make_float4(__uint_as_float(w[2] << 16), __uint_as_float(w[2] & 0xffff0000u),
+                             __uint_as_float(w[3] << 16), __uint_as_float(w[3] & 0xffff0000u));
+      }
+    }
+  };
+  // the windows of step (tk, st) into buffer set `slot`; one commit group
+  auto load_windows = [&](int tk, int st, int slot) {
+    if (tk < tasks) {
+      const int p = point(tk), t0 = first(tk) + F * st, nj = min(F, frames(tk) - F * st);
+      for (int tm = 0; tm < nj; ++tm) {
+        const int* sp = starts + (static_cast<size_t>(p) * Tp + t0 + tm) * 3;
+        const int f = sp[0], wy = sp[1], wx = sp[2];
+        unsigned char* dst = wins + (F * slot + tm) * L::kWin;
+        for (int i = tid; i < kR * L::kCPR; i += L::kThreads) {
+          const int r = i / L::kCPR, c = i - r * L::kCPR;
+          const size_t pix = (static_cast<size_t>(f) * Hp + wy + (r >> 3)) * Wp + wx + (r & 7);
+          cp_async16(dst + r * L::kLdw + 16 * c,
+                     reinterpret_cast<const unsigned char*>(fm + pix * kC) + 16 * c, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  load_support(task);
+  load_windows(ltask, ls, 0);
+  next(ltask, ls);
+  load_windows(ltask, ls, 1);
+  next(ltask, ls);
+  for (int q = 0; task < tasks; ++q) {
+    cp_async_wait<1>();
+    __syncthreads();  // this step's windows landed; the last step's readers are done
+    const int p = point(task), nf = frames(task), t0 = first(task) + F * s;
+    const int nj = min(F, nf - F * s);
+    if (s == 0) {
+      write_support();
+      __syncthreads();
+    }
+    if (F * (s + 1) >= nf && task + static_cast<int>(gridDim.x) < tasks)
+      load_support(task + gridDim.x);
+    if (team < nj) {
+      const unsigned char* win = wins + (F * (q & 1) + team) * L::kWin;
+      T* out = stage + team * (kR * kS);
+      if constexpr (kF32) {
+        const uint4* supF = reinterpret_cast<const uint4*>(k4f_smem);
+        const int row0 = 16 * (lw & 3);
+        if (lw < 4) {
+          float acc[1][4][4];
+          k4f_mma<1, 4>(win, supF, row0, 0, acc);
+          k4f_mma_stage<1, 4>(out, acc, row0, 0);
+        } else {
+          float acc[1][kFNt - 4][4];
+          k4f_mma<1, kFNt - 4>(win, supF, row0, 4, acc);
+          k4f_mma_stage<1, kFNt - 4>(out, acc, row0, 4);
+        }
+      } else {
+        const int lt = lw * 32 + (tid & 31);
+        k4f_ffma(win, reinterpret_cast<const float*>(k4f_smem), lt >> 3, lt & 7, out);
+      }
+    }
+    __syncthreads();  // the outputs are staged; this step's windows are read
+    load_windows(ltask, ls, q & 1);
+    next(ltask, ls);
+    // the step's frames t0 .. t0 + nj - 1 are contiguous in vol, as are the stages
+    const uint4* src = reinterpret_cast<const uint4*>(stage);
+    uint4* dst = reinterpret_cast<uint4*>(vol + (static_cast<size_t>(p) * Tp + t0) * (kR * kS));
+    for (int i = tid; i < nj * (L::kStage / 16); i += L::kThreads) __stcs(dst + i, src[i]);
+    next(task, s);
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T>
+int launch_k4f(const void* fm, const void* sup, const int* starts, void* vol, int NP, int Tp,
+               int Hp, int Wp, int group, int blocks, void* stream) {
+  auto kern = k4f_volume_kernel<T>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             K4fLayout<T>::kSmem);
   if (e != cudaSuccess) return e;
-  corr_volume_float_kernel<T><<<NP, 128, kFloatSmem, static_cast<cudaStream_t>(stream)>>>(
-      fm, sup, starts, vol, Tp, Hp, Wp);
+  kern<<<blocks, K4fT<T>::kThreads, K4fLayout<T>::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(fm), static_cast<const T*>(sup), starts, static_cast<T*>(vol), NP,
+      Tp, Hp, Wp, group);
   return cudaGetLastError();
 }
 
@@ -871,15 +1145,23 @@ int ct_corr_volume_raw(const int8_t* fm, const int8_t* sup, const int* starts, i
   return cudaGetLastError();
 }
 
-// K4f in float32 and in bfloat16.
-int ct_corr_volume_f32(const float* fm, const float* sup, const int* starts, float* vol, int NP,
-                       int Tp, int Hp, int Wp, void* stream) {
-  return ct::launch_float(fm, sup, starts, vol, NP, Tp, Hp, Wp, stream);
+// K4f: vol (NP, Tp, 64, 49) in the operands' dtype (bf16 = 1: bfloat16, else
+// float32) on k4f_plan's tiling: tasks of `group` frames of a point,
+// `blocks` persistent blocks (at most one a task).
+int ct_corr_volume_float(const void* fm, const void* sup, const int* starts, void* vol, int bf16,
+                         int NP, int Tp, int Hp, int Wp, int group, int blocks, void* stream) {
+  const long long tasks = static_cast<long long>((Tp + group - 1) / (group < 1 ? 1 : group)) * NP;
+  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8 || group < 1 || blocks < 1 || blocks > tasks ||
+      tasks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  return bf16 ? ct::launch_k4f<__nv_bfloat16>(fm, sup, starts, vol, NP, Tp, Hp, Wp, group, blocks,
+                                              stream)
+              : ct::launch_k4f<float>(fm, sup, starts, vol, NP, Tp, Hp, Wp, group, blocks, stream);
 }
 
-int ct_corr_volume_bf16(const __nv_bfloat16* fm, const __nv_bfloat16* sup, const int* starts,
-                        __nv_bfloat16* vol, int NP, int Tp, int Hp, int Wp, void* stream) {
-  return ct::launch_float(fm, sup, starts, vol, NP, Tp, Hp, Wp, stream);
+// K4f's shared-memory bytes a block (k4f_plan checks its arithmetic).
+int ct_k4f_smem(int bf16) {
+  return bf16 ? ct::K4fLayout<__nv_bfloat16>::kSmem : ct::K4fLayout<float>::kSmem;
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-// K10 and K12's first body: two W8A8 bodies of the JAX package (sm_90a),
+// K10's and K12's first bodies: two W8A8 bodies of the JAX package (sm_90a),
 // one launch each, on the shared routines of int8_tile.cuh.
 //
-//   K10 ct_k10_ln_dense   replaces mlp_int8_pallas.py::_dense_kernel
+//   K10 ct_k10_ln_dense   the first body of mlp_int8_pallas.py::_dense_kernel
 //       [x +] (LN(x) [* gamma + beta]) @ W + b, W8A8 (fused_ln_dense_int8).
-//       128-row tiles as K8: one read of x, LN (optional), the optional
-//       affine, row quantization into shared memory (51 KB of codes), then
-//       every 128-column tile of W through tile_gemm_s8; the epilogue
-//       (acc * (s_row * s_w) + b) [+ x] in f32, in that order.
+//       128-row tiles as K8's first body: one read of x, LN (optional), the
+//       optional affine, row quantization into shared memory (51 KB of
+//       codes), then every 128-column tile of W through tile_gemm_s8; the
+//       epilogue (acc * (s_row * s_w) + b) [+ x] in f32, in that order. It
+//       is K10's route for float32 tokens; bfloat16 tokens take K8's
+//       streamed body (int8_time_block.cu, ct_k10_stream), which is held to
+//       this one bit for bit (mlp_int8_cuda._ln_dense_first).
 //   K12 ct_k12_ln_mlp     the first body of mlp_int8_pallas.py::_mlp_kernel
 //       x + fc2(gelu(fc1(LN(x)))) (LN optional), W8A8: K9's f32 body
 //       (int8_blocks.cu) without its to_out stage (r = x), 64-row tiles,
@@ -17,11 +20,12 @@
 //
 // What bounds them. At the micro-benchmark's 604,800 bf16 rows of 384:
 // K10 to_qkv (384 -> 1,152) moves 3,072 B a row for 0.88 M int8
-// operations (bytes-bound, as K8), K12 768 B a row for 2.36 M operations
-// (compute-bound: ~0.72 ms at the int8 peak); K12's first body re-reads
-// the 1.18 MB of weights from L2 for every 64-row tile and runs fc1
-// twice. Both keep the bf16-LayerNorm and GELU-quant-fold variants as
-// template flags.
+// operations (bytes-bound, as K8); this body (4.19 ms there) stages every
+// weight slice synchronously and stores each 2-byte element on its own.
+// K12 moves 768 B a row for 2.36 M operations (compute-bound: ~0.72 ms at
+// the int8 peak); K12's first body re-reads the 1.18 MB of weights from L2
+// for every 64-row tile and runs fc1 twice. Both keep the bf16-LayerNorm and
+// GELU-quant-fold variants as template flags.
 
 #include "int8_tile.cuh"
 

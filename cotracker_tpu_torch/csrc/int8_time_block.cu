@@ -1,5 +1,5 @@
 // K1 on Hopper: the whole W8A8 time block in two launches, K9 and K2 on
-// K1's tail, and K8 on the tail's weight stream (sm_90a).
+// K1's tail, and K8 and K10 on the tail's weight stream (sm_90a).
 //
 // Replaces, on the H100, the Pallas bodies
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_time_block_kernel  (K1)
@@ -7,13 +7,16 @@
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_kernel (K2)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_qkv_kernel         (K8)
 //   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_space_block_allt_kernel (K11)
+//   cotracker_tpu/ops/kernels/mlp_int8_pallas.py::_dense_kernel       (K10)
 // (wrappers fused_time_block_int8, fused_attnout_res_mlp_int8,
-// fused_space_block_int8, fused_ln_qkv_int8, fused_space_block_allt_int8)
+// fused_space_block_int8, fused_ln_qkv_int8, fused_space_block_allt_int8,
+// fused_ln_dense_int8)
 // for bfloat16 tokens, driven
-// from ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan, k8_plan;
-// K9's body: k9_route). float32 tokens keep the launch chains and the K8 /
-// K9 bodies of int8_blocks.cu (K2 also past the 64 virtual tokens its front
-// stages). K8's design and what bounds it: the note above its kernel.
+// from ops/kernels/mlp_int8_cuda.py (the plans: k1_plan, k2_plan, k8_plan,
+// k10_plan; K9's body: k9_route). float32 tokens keep the launch chains and
+// the K8 / K9 bodies of int8_blocks.cu and K10's of int8_fused.cu (K2 also
+// past the 64 virtual tokens its front stages). K8's and K10's design and
+// what bounds them: the note above their kernel.
 //
 // K2 (ct_k2_space_block) is a front of its own (k2_front_kernel, below)
 // and then K1's tail unchanged, since the block's second half is K1's
@@ -876,32 +879,41 @@ __global__ void __launch_bounds__(K1T_THREADS, 1) k9_tail_kernel(CT_TAIL_PARAMS)
 }
 #undef CT_TAIL_PARAMS
 
-// ------------------------------------------------------------- K8
-// K8 in bfloat16 (ct_k8_stream): the split time block's LN + W8A8 q|kv,
-//   h = LN(x); hq, sr = row quant(h); [q | kv] = hq . w^T * (sr * sw) + bias,
-// w = [to_q; to_kv] (1152, 384). Persistent blocks, one an SM, each walking a
-// contiguous run of 128-row tiles (k8_plan), with three kinds of warp:
-//   * 8 LayerNorm warps quantize the NEXT tile's rows (the PR 4 body's device
-//     code, ln_quant_row, on rows in shared memory: each warp keeps three
-//     rows in flight by cp.async, 16 bytes a lane, and the tile after is
-//     prefetched into L2 by one bulk prefetch) into the other of two code
-//     buffers, while
-//   * 16 product warps (4 x 4, warp tiles 32 x 32) run this tile's nine
-//     128-column tiles of the q|kv product, and
+// ------------------------------------------------------------- K8, K10
+// K8 and K10 in bfloat16 (ct_k8_stream, ct_k10_stream): one body for the
+// LN + W8A8 dense products of
+//   K8  (_qkv_kernel)    h = LN(x); [q | kv] = hq . w^T * (sr * sw) + bias,
+//                        w = [to_q; to_kv] (1152, 384);
+//   K10 (_dense_kernel)  [x +] (LN(x) [* gamma + beta]) . w^T * (sr * sw) + b,
+//                        w (N, 384), N a multiple of 128 (N = 384 with x);
+// hq, sr the rows' int8 codes and scales. Persistent blocks, one an SM, each
+// walking a contiguous run of 128-row tiles (k8_plan / k10_plan), with
+// three kinds of warp:
+//   * 8 LayerNorm warps quantize the NEXT tile's rows (the first bodies'
+//     device code, ln_quant_row, with its do_ln and affine, on rows in
+//     shared memory: each warp keeps three rows in flight by cp.async, 16
+//     bytes a lane, and the tile after is prefetched into L2 by one bulk
+//     prefetch) into the other of two code buffers, while
+//   * 16 product warps (4 x 4, warp tiles 32 x 32) run this tile's N / 128
+//     column tiles, and
 //   * one producer warp streams every weight stage of every tile of the run
-//     (9 column tiles x 3 stages of 128 bytes of K) through K8_SLOTS slots
-//     (the tail's Stream), so the weights flow on across column tiles,
-//     epilogues and row tiles.
+//     (N / 128 column tiles x 3 stages of 128 bytes of K) through K8_SLOTS
+//     slots (the tail's Stream), so the weights flow on across column
+//     tiles, epilogues and row tiles.
 // The code buffers pass between the two groups on mbarriers (full: every
 // LayerNorm lane has written; empty: every product warp has read). The
-// epilogue is the PR 4 body's, dequant then __fadd_rn bias, rounded to bf16
-// (the s8 products are exact: bit-identical to it), with the weight scales
-// and biases in shared memory; a quad of lanes trades its fragments (three
+// epilogue is the first bodies', dequant, then __fadd_rn of the bias, then
+// (K10's residual) __fadd_rn of x, rounded to bf16 (the s8 products are
+// exact: bit-identical to them); a quad of lanes trades its fragments (three
 // shuffles) so that each lane stores 16 bytes, 8 whole bf16 columns, and
 // each quad 64 contiguous bytes of a row, as streaming (evict-first)
-// stores.
+// stores. The residual's x is read as the same 16 bytes a lane and traded
+// back into fragment order the same way (the quad transpose is its own
+// inverse); the rows were just read by the LayerNorm warps, so they come
+// from L2. Where a column tile's output goes is a DenseOut: K8 sends tiles
+// 0-2 to q and 3-8 to kv, K10 all to out.
 // What bounds it (one NVIDIA H100 80GB HBM3 at 700 W; scripts/torch_k8_parts.py
-// builds copies with one part taken out): 1.18 ms at 2,048 tracks x 250
+// builds copies with one part taken out): K8 1.18 ms at 2,048 tracks x 250
 // frames (the PR 4 body 3.58, the byte bound 0.47), 0.78 with no products,
 // 1.05 with no LayerNorm, 1.10 with no stores. The products are what is
 // left: 453 G s8 operations on mma.sync m16n8k32 from ldmatrix fragments,
@@ -909,8 +921,9 @@ __global__ void __launch_bounds__(K1T_THREADS, 1) k9_tail_kernel(CT_TAIL_PARAMS)
 // ones cost 0.26 ms more.
 constexpr int K8_BM = 128, K8_SLOTS = 4, K8_XBUF = 3;  // K8_XBUF: x rows in flight a LN warp
 constexpr int K8_MMA = 512, K8_LN = 256, K8_THREADS = K8_MMA + K8_LN + 32;
+constexpr int K8_STAGED_N = 3 * KC;  // up to this N the weight scales and biases sit in shared memory
 constexpr int K8_SMEM = 2 * K8_BM * LDA_C + K8_SLOTS * K1T_SLOT + (K8_LN / 32) * K8_XBUF * KC * 2 +
-                        2 * K8_BM * 4 + 2 * 3 * KC * 4 + (2 * K8_SLOTS + 4) * 8;
+                        2 * K8_BM * 4 + 2 * K8_STAGED_N * 4 + 2 * KC * 4 + (2 * K8_SLOTS + 4) * 8;
 static_assert(K8_SMEM <= 232448, "K8 fits one block an SM");
 
 // v[i] of a 4-element register array at a lane-varying index (no local memory)
@@ -935,12 +948,32 @@ __device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
-template <bool kBf16Ln>
+// Where column tile j of the streamed body goes: out0 (row stride ld0) at
+// column 128 j while j < split, else out1 (row stride ld1) at 128 (j - split).
+struct DenseOut {
+  bf16* out0;
+  bf16* out1;
+  int split, ld0, ld1;
+};
+
+// kK8: K8's epilogue, its flags fixed at compile time (N = 1,152 as q | kv,
+// the LayerNorm, no affine, no residual); else K10's, from the arguments.
+template <bool kBf16Ln, bool kK8>
 __global__ void __launch_bounds__(K8_THREADS, 1)
-k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict__ w,
-                 const float* __restrict__ sw, const float* __restrict__ bias, float eps,
-                 bf16* __restrict__ q, bf16* __restrict__ kv) {
-  constexpr int NW = 4, CT = 3 * KC / 128, VPL = KC / 32;
+ln_dense_stream_kernel(const bf16* __restrict__ x, int rows, int N, const int8_t* __restrict__ w,
+                       const float* __restrict__ sw, const float* __restrict__ bias,
+                       const float* __restrict__ gamma, const float* __restrict__ beta, float eps,
+                       int do_ln, int residual, DenseOut o) {
+  constexpr int NW = 4, VPL = KC / 32;
+  if constexpr (kK8) {
+    N = 3 * KC;
+    gamma = beta = nullptr;
+    do_ln = 1;
+    residual = 0;
+    o.split = KC / 128;
+    o.ld0 = KC;
+    o.ld1 = 2 * KC;
+  }
   constexpr int MMA_WARPS = K8_MMA / 32, LN_WARPS = K8_LN / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* A = reinterpret_cast<int8_t*>(smem);  // two code buffers
@@ -948,17 +981,24 @@ k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict_
   bf16* xs = reinterpret_cast<bf16*>(ring + K8_SLOTS * K1T_SLOT);  // the LN warps' x rows
   float* sr = reinterpret_cast<float*>(xs + (K8_LN / 32) * K8_XBUF * KC);  // two row-scale buffers
   float* sws = sr + 2 * K8_BM;                                      // sw, then bias
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sws + 2 * 3 * KC);
+  float* gb = sws + 2 * K8_STAGED_N;                                // gamma, then beta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gb + 2 * KC);
   uint64_t* afull = bars + 2 * K8_SLOTS;  // [2]: a buffer's codes written
   uint64_t* aempty = afull + 2;           // [2]: a buffer's codes read
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tiles = (rows + K8_BM - 1) / K8_BM;
+  const int tiles = (rows + K8_BM - 1) / K8_BM, CT = N / 128;
   const int begin = static_cast<int>(1ll * tiles * blockIdx.x / gridDim.x);
   const int end = static_cast<int>(1ll * tiles * (blockIdx.x + 1) / gridDim.x);
-  for (int c = tid; c < 3 * KC; c += K8_THREADS) {
-    sws[c] = sw[c];
-    sws[3 * KC + c] = bias[c];
-  }
+  if (N <= K8_STAGED_N)
+    for (int c = tid; c < N; c += K8_THREADS) {
+      sws[c] = sw[c];
+      sws[K8_STAGED_N + c] = bias[c];
+    }
+  if (gamma != nullptr)
+    for (int c = tid; c < KC; c += K8_THREADS) {
+      gb[c] = gamma[c];
+      gb[KC + c] = beta[c];
+    }
   if (tid == 0) {
     for (int i = 0; i < K8_SLOTS; ++i) {
       mbar_init(bars + i, 32);
@@ -983,6 +1023,8 @@ k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict_
 
   if (warp >= MMA_WARPS) {  // the LayerNorm warps: tile k into buffer k % 2
     const int lw = warp - MMA_WARPS;
+    const float* gs = gamma != nullptr ? gb : nullptr;
+    const float* bs = gamma != nullptr ? gb + KC : nullptr;
     bf16* xw = xs + lw * K8_XBUF * KC;  // this warp's rows in flight
     // row r of the tile into slot (r / LN_WARPS) % K8_XBUF, 16 bytes a lane;
     // one cp.async group a row, empty past the tile's rows
@@ -1011,8 +1053,8 @@ k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict_
         __syncwarp();
         float sc = 0.f;
         if (r < n)
-          sc = ln_quant_row<bf16, VPL, kBf16Ln>(xw + ((r / LN_WARPS) % K8_XBUF) * KC, lane, nullptr,
-                                                nullptr, eps, 1, Ab + r * LDA_C);
+          sc = ln_quant_row<bf16, VPL, kBf16Ln>(xw + ((r / LN_WARPS) % K8_XBUF) * KC, lane, gs, bs,
+                                                eps, do_ln, Ab + r * LDA_C);
         else
           for (int c = lane; c < KC; c += 32) Ab[r * LDA_C + c] = 0;
         if (lane == 0) srb[r] = sc;
@@ -1024,46 +1066,71 @@ k8_ln_qkv_kernel(const bf16* __restrict__ x, int rows, const int8_t* __restrict_
     return;
   }
 
-  // the product warps
+  // the product warps; the scales and biases from shared memory up to
+  // K8_STAGED_N columns (K8, K10 at N <= 1,152), else from device memory
   Stream<K8_SLOTS> st{ring, bars, bars + K8_SLOTS, 0, 0u};
-  const int wm = warp / NW, wn = warp % NW, g = lane >> 2, t = lane & 3;
-  for (int i = begin; i < end; ++i) {
-    const int k = i - begin, b = k & 1, r0 = i * K8_BM, n = min(K8_BM, rows - r0);
-    const int8_t* Ab = A + b * K8_BM * LDA_C;
-    const float* srb = sr + b * K8_BM;
-    mbar_wait(afull + b, (k >> 1) & 1);
-    for (int j = 0; j < CT; ++j) {
-      int acc[2][4][4];
-      st.gemm<2, 4, 128, NW>(Ab, LDA_C, KC, true, acc);
-      // 128-column tiles never straddle q | kv
-      bf16* dst = j < KC / 128 ? q : kv;
-      const int ld = j < KC / 128 ? KC : 2 * KC, c0 = 128 * j - (j < KC / 128 ? 0 : KC);
-      const int cb = 128 * j + wn * 32 + 2 * t;  // this lane's columns cb + 8 ni + {0, 1}
+  auto products = [&](const float* scol, const float* bcol) {
+    const int wm = warp / NW, wn = warp % NW, g = lane >> 2, t = lane & 3;
+    for (int i = begin; i < end; ++i) {
+      const int k = i - begin, b = k & 1, r0 = i * K8_BM, n = min(K8_BM, rows - r0);
+      const int8_t* Ab = A + b * K8_BM * LDA_C;
+      const float* srb = sr + b * K8_BM;
+      mbar_wait(afull + b, (k >> 1) & 1);
+      for (int j = 0; j < CT; ++j) {
+        int acc[2][4][4];
+        st.gemm<2, 4, 128, NW>(Ab, LDA_C, KC, true, acc);
+        // 128-column tiles never straddle the two outputs
+        bf16* dst = j < o.split ? o.out0 : o.out1;
+        const int ld = j < o.split ? o.ld0 : o.ld1, c0 = 128 * (j < o.split ? j : j - o.split);
+        const int cb = 128 * j + wn * 32 + 2 * t;  // this lane's columns cb + 8 ni + {0, 1}
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 32 + mi * 16 + g + 8 * h;
-          const float s = srb[r];
-          uint32_t P[4];
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + mi * 16 + g + 8 * h;
+            const float s = srb[r];
+            float y[4][2];
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int c = cb + 8 * ni;
-            P[ni] = pack_bf16(__fadd_rn(dequant(acc[mi][ni][2 * h], s, sws[c]), sws[3 * KC + c]),
-                              __fadd_rn(dequant(acc[mi][ni][2 * h + 1], s, sws[c + 1]),
-                                        sws[3 * KC + c + 1]));
+            for (int ni = 0; ni < 4; ++ni) {
+              const int c = cb + 8 * ni;
+              y[ni][0] = __fadd_rn(dequant(acc[mi][ni][2 * h], s, scol[c]), bcol[c]);
+              y[ni][1] = __fadd_rn(dequant(acc[mi][ni][2 * h + 1], s, scol[c + 1]), bcol[c + 1]);
+            }
+            if (residual) {  // x's 16 bytes at this lane's store, back in fragment order
+              uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+              if (r < n)
+                xv = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(r0 + r) * KC + c0 +
+                                                     wn * 32 + 8 * t);
+              const uint32_t xq[4] = {xv.x, xv.y, xv.z, xv.w};
+              const uint4 xf = quad_transpose(xq);
+              const uint32_t xp[4] = {xf.x, xf.y, xf.z, xf.w};
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni) {
+                const float2 xx =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xp[ni]));
+                y[ni][0] = __fadd_rn(y[ni][0], xx.x);
+                y[ni][1] = __fadd_rn(y[ni][1], xx.y);
+              }
+            }
+            uint32_t P[4];
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) P[ni] = pack_bf16(y[ni][0], y[ni][1]);
+            const uint4 val = quad_transpose(P);
+            // streaming stores (evict first): the rows are the next kernel's, not this one's
+            if (r < n)
+              __stcs(reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * ld + c0 + wn * 32 +
+                                              8 * t),
+                     val);
           }
-          const uint4 val = quad_transpose(P);
-          // streaming stores (evict first): the rows are the next kernel's, not this one's
-          if (r < n)
-            __stcs(reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + r) * ld + c0 + wn * 32 +
-                                            8 * t),
-                   val);
-        }
+      }
+      __syncwarp();  // every lane's reads of the buffer's codes and scales are done
+      if (lane == 0) mbar_arrive(aempty + b);
     }
-    __syncwarp();  // every lane's reads of the buffer's codes and scales are done
-    if (lane == 0) mbar_arrive(aempty + b);
-  }
+  };
+  if (N <= K8_STAGED_N)
+    products(sws, sws + K8_STAGED_N);
+  else
+    products(sw, bias);
 }
 
 // The two properties the tail's one-GELU-a-row scale rests on, over every
@@ -1097,13 +1164,16 @@ cudaError_t launch_tail(const int8_t* acode, const float* ascale, const bf16* a,
   return cudaGetLastError();
 }
 
-template <bool kBf16Ln>
-cudaError_t launch_k8(const bf16* x, int rows, int blocks, const int8_t* w, const float* sw,
-                      const float* bias, float eps, bf16* q, bf16* kv, cudaStream_t s) {
-  auto kern = k8_ln_qkv_kernel<kBf16Ln>;
+template <bool kBf16Ln, bool kK8>
+cudaError_t launch_stream(const bf16* x, int rows, int N, int blocks, const int8_t* w,
+                          const float* sw, const float* bias, const float* gamma,
+                          const float* beta, float eps, int do_ln, int residual, DenseOut o,
+                          cudaStream_t s) {
+  auto kern = ln_dense_stream_kernel<kBf16Ln, kK8>;
   const cudaError_t e = set_smem(kern, K8_SMEM);
   if (e != cudaSuccess) return e;
-  kern<<<blocks, K8_THREADS, K8_SMEM, s>>>(x, rows, w, sw, bias, eps, q, kv);
+  kern<<<blocks, K8_THREADS, K8_SMEM, s>>>(x, rows, N, w, sw, bias, gamma, beta, eps, do_ln,
+                                           residual, o);
   return cudaGetLastError();
 }
 
@@ -1282,13 +1352,35 @@ int ct_k8_stream(const void* x, int rows, int C, const int8_t* w, const float* s
   if (rows < 1 || C != KC || blocks < 1 || blocks > (rows + K8_BM - 1) / K8_BM)
     return cudaErrorInvalidValue;
   const bf16* xp = static_cast<const bf16*>(x);
-  bf16 *qp = static_cast<bf16*>(q), *kp = static_cast<bf16*>(kv);
+  const DenseOut o{static_cast<bf16*>(q), static_cast<bf16*>(kv), KC / 128, KC, 2 * KC};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_ln ? launch_k8<true>(xp, rows, blocks, w, sw, bias, eps, qp, kp, s)
-                 : launch_k8<false>(xp, rows, blocks, w, sw, bias, eps, qp, kp, s);
+  return bf16_ln ? launch_stream<true, true>(xp, rows, 3 * KC, blocks, w, sw, bias, nullptr,
+                                             nullptr, eps, 1, 0, o, s)
+                 : launch_stream<false, true>(xp, rows, 3 * KC, blocks, w, sw, bias, nullptr,
+                                              nullptr, eps, 1, 0, o, s);
 }
 
-// K8's shared-memory bytes a block (k8_plan checks its arithmetic against it).
+// K10 in bfloat16 (mlp_int8_pallas.py::_dense_kernel): x (rows, 384) ->
+// out (rows, N), N a multiple of 128 (N = 384 with the residual); gamma and
+// beta both given or both null; on `blocks` persistent blocks (k10_plan's).
+int ct_k10_stream(const void* x, int rows, int C, int N, const int8_t* w, const float* sw,
+                  const float* bias, const float* gamma, const float* beta, float eps, int do_ln,
+                  int residual, int bf16_ln, int blocks, void* out, void* stream) {
+  if (rows < 1 || C != KC || N < 128 || N % 128 != 0 || (residual && N != KC) ||
+      (gamma == nullptr) != (beta == nullptr) || blocks < 1 ||
+      blocks > (rows + K8_BM - 1) / K8_BM)
+    return cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const DenseOut o{static_cast<bf16*>(out), nullptr, N / 128, N, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16_ln ? launch_stream<true, false>(xp, rows, N, blocks, w, sw, bias, gamma, beta, eps,
+                                              do_ln, residual, o, s)
+                 : launch_stream<false, false>(xp, rows, N, blocks, w, sw, bias, gamma, beta, eps,
+                                               do_ln, residual, o, s);
+}
+
+// The streamed body's shared-memory bytes a block (k8_plan and k10_plan
+// check their arithmetic against it).
 int ct_k8_smem() { return K8_SMEM; }
 
 // bad (1,) u64 and negmax (1,) u32, zeroed by the caller.

@@ -30,8 +30,10 @@ int8 correlation.
 
 K4r and K4f emit the RAW window volume (no combine): K4r as int8 codes with
 a per-point scale over the raw volume (quant_int8), K4f in the compute
-dtype. `fused_corr_embs_kernel` runs either per level with the XLA epilogue
-of `fused_corr_embs_pallas` (combine, MLP1, exact GELU, fc2), and
+dtype, on `k4f_plan`'s persistent blocks (3xTF32 tensor cores in float32,
+FMAs in k order in bfloat16). `fused_corr_embs_kernel` runs either per
+level with the XLA epilogue of `fused_corr_embs_pallas` (combine, MLP1,
+exact GELU, fc2), and
 `fused_corr_embs_trainable` wraps it in an autograd Function whose backward
 is the plain `fused_corr_embs` (port of `fused_corr_embs_pallas_trainable`):
 the training path.
@@ -402,22 +404,67 @@ def corr_volume_raw_int8(fmq, supq, starts):
 corr_volume_raw_int8.launches = 0
 
 
-def corr_volume_float(fm, sup, starts):
-    """K4f: per point, the raw correlation volume over all frames in the
-    input dtype (f32 or bf16), accumulated in f32; see corr_volume_float_plain."""
-    if fm.device.type == "cpu":
-        return corr_volume_float_plain(fm, sup, starts)
-    _check_operands(fm, sup, starts, (F32, torch.bfloat16), "K4f")
+class K4fPlan(NamedTuple):
+    """K4f's tiling (csrc/corr_window.cu, k4f_volume_kernel) for NP points
+    of Tp frames: tasks of `group` consecutive frames of one point (a
+    point's last group may be shorter), group-major (task k: point k % NP,
+    frames from (k // NP) * group), so that the blocks in flight read the
+    same frames' windows; `blocks` persistent blocks, one an SM, block b
+    taking tasks b, b + blocks, ... (the kernel sizes its own shared
+    memory: ct_k4f_smem)."""
+
+    group: int
+    tasks: int
+    blocks: int
+
+
+K4F_GROUP = 16  # frames a task, at most
+
+
+def k4f_plan(NP: int, Tp: int, dtype, sms: int = 132, group: Optional[int] = None) -> K4fPlan:
+    """K4f's tiling on a card of `sms` SMs: tasks of min(Tp, K4F_GROUP)
+    frames unless `group` is given."""
+    if NP < 1 or Tp < 1:
+        raise ValueError(f"K4f takes at least one point and one frame, got NP={NP}, Tp={Tp}")
+    if dtype not in (F32, torch.bfloat16):
+        raise TypeError(f"K4f takes float32 or bfloat16 operands, got {dtype}")
+    group = min(Tp, K4F_GROUP) if group is None else group
+    if group < 1:
+        raise ValueError(f"K4f: a task takes at least one frame, got {group}")
+    tasks = -(-Tp // group) * NP
+    return K4fPlan(group, tasks, min(tasks, sms))
+
+
+def _k4f_launch(fm, sup, starts, plan: K4fPlan):
+    """One launch of ct_corr_volume_float on `plan` (operands checked)."""
+    if fm.data_ptr() % 16 or sup.data_ptr() % 16:
+        raise ValueError("K4f copies the map and the support in 16-byte pieces: their data must "
+                         "be 16-byte aligned")
     P, I = ctypes.c_void_p, ctypes.c_int
-    name = "ct_corr_volume_f32" if fm.dtype == F32 else "ct_corr_volume_bf16"
-    fn = _bound(name, P, P, P, P, I, I, I, I, P)
+    fn = _bound("ct_corr_volume_float", P, P, P, P, I, I, I, I, I, I, I, P)
     NP, Tp, _ = starts.shape
     _, Hp, Wp, _ = fm.shape
     starts = starts.to(torch.int32).contiguous()
-    fm, sup = fm.contiguous(), sup.contiguous()
     vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=fm.dtype, device=fm.device)
     _build.check(fn(_build.ptr(fm), _build.ptr(sup), _build.ptr(starts), _build.ptr(vol),
-                    NP, Tp, Hp, Wp, _build.stream_ptr(fm)), name)
+                    int(fm.dtype == torch.bfloat16), NP, Tp, Hp, Wp, plan.group, plan.blocks,
+                    _build.stream_ptr(fm)), "ct_corr_volume_float")
+    return vol
+
+
+def corr_volume_float(fm, sup, starts):
+    """K4f: per point, the raw correlation volume over all frames in the
+    input dtype (f32 or bf16), accumulated in f32; see
+    corr_volume_float_plain. One launch on k4f_plan's tiling (f32: 3xTF32
+    on the tensor cores; bf16: f32 FMAs in k order, bit for bit the plain
+    version)."""
+    if fm.device.type == "cpu":
+        return corr_volume_float_plain(fm, sup, starts)
+    _check_operands(fm, sup, starts, (F32, torch.bfloat16), "K4f")
+    fm, sup = fm.contiguous(), sup.contiguous()
+    NP, Tp, _ = starts.shape
+    sms = torch.cuda.get_device_properties(fm.device).multi_processor_count
+    vol = _k4f_launch(fm, sup, starts, k4f_plan(NP, Tp, fm.dtype, sms))
     corr_volume_float.launches += 1
     return vol
 

@@ -29,7 +29,8 @@ replaces ::_space_block_allt_kernel (the `space_allt` route of
 fused_space_block_int8; here its own wrapper, fused_space_block_allt_int8):
 it computes K2's function, so it takes K2's route (k2_plan), its bf16 front
 under a kernel name of its own. K10 replaces ::_dense_kernel
-(fused_ln_dense_int8), one launch of csrc/int8_fused.cu, and K12
+(fused_ln_dense_int8), one launch: in bfloat16 K8's streamed body
+(k10_plan), in float32 its first body (csrc/int8_fused.cu), and K12
 ::_mlp_kernel (fused_ln_mlp_int8), one launch of csrc/int8_mlp_cluster.cu:
 8-block thread-block clusters with resident weights and one fc1 pass
 (k12_plan); its first body (csrc/int8_fused.cu, `_ln_mlp_first`) stays as
@@ -301,6 +302,8 @@ def _lib():
         _fns["k8_stream"] = _build.bind(k1, "ct_k8_stream", _P, _I, _I, _P, _P, _P, _F, _I, _I,
                                         _P, _P, _P)
         _fns["k8_smem"] = _build.bind(k1, "ct_k8_smem")
+        _fns["k10_stream"] = _build.bind(k1, "ct_k10_stream", _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                         _F, _I, _I, _I, _I, _P, _P)
         _fns["k9_tail"] = _build.bind(k1, "ct_k9_tail", _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _F, _I, _I, _P, _P)
         _fns["k11"] = _build.bind(k1, "ct_k11_space_block", _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -650,11 +653,12 @@ SPLIT_C, SPLIT_H = 384, 1536  # the widths K8-K12 are built for
 
 
 class K8Plan(NamedTuple):
-    """K8's body and tiling for `rows` token rows: "stream" (bfloat16:
-    csrc/int8_time_block.cu's k8_ln_qkv_kernel, `blocks` persistent blocks,
-    one an SM, each a contiguous run of the `tiles` 128-row tiles; `smem`
-    bytes a block) or "tile" (float32: the PR 4 body of csrc/int8_blocks.cu,
-    one block a 128-row tile)."""
+    """K8's (and K10's) body and tiling for `rows` token rows: "stream"
+    (bfloat16: csrc/int8_time_block.cu's ln_dense_stream_kernel, `blocks`
+    persistent blocks, one an SM, each a contiguous run of the `tiles`
+    128-row tiles; `smem` bytes a block) or "tile" (float32: the first
+    body, K8's in csrc/int8_blocks.cu, K10's in csrc/int8_fused.cu, one
+    block a 128-row tile)."""
 
     route: str
     tiles: int
@@ -666,10 +670,11 @@ class K8Plan(NamedTuple):
 # LayerNorm warp (8 of them)
 K8_BM, K8_SLOTS, K8_XBUF = 128, 4, 3
 # two code buffers, the slots, the LayerNorm warps' x rows, two row-scale
-# buffers, the weight scales and biases, the mbarriers (full and empty a
-# slot, full and empty a code buffer)
+# buffers, the weight scales and biases (up to N = 1,152), the LayerNorm's
+# gamma and beta (K10's affine), the mbarriers (full and empty a slot, full
+# and empty a code buffer)
 K8_SMEM = (2 * K8_BM * _LDA_C + K8_SLOTS * K1T_SLOT + 8 * K8_XBUF * 384 * 2 + 2 * K8_BM * 4
-           + 2 * 3 * 384 * 4 + (2 * K8_SLOTS + 4) * 8)
+           + 2 * 3 * 384 * 4 + 2 * 384 * 4 + (2 * K8_SLOTS + 4) * 8)
 
 
 def k8_plan(rows: int, dtype, sms: int = 132) -> K8Plan:
@@ -698,11 +703,16 @@ def _ln_qkv_tile(x2d, wqkv: QLinear, eps, bf16_ln):
     return q, kv
 
 
+def _check_stream_alignment(x2d, what):
+    if x2d.data_ptr() % 16:
+        raise ValueError(f"{what} copies x's rows in 16-byte pieces: its data must be 16-byte "
+                         "aligned")
+
+
 def _ln_qkv_stream(x2d, wqkv: QLinear, eps, bf16_ln, plan: K8Plan):
     """K8 in bfloat16: ct_k8_stream on `plan`'s blocks."""
     rows, C = x2d.shape
-    if x2d.data_ptr() % 16:
-        raise ValueError("K8 copies x's rows in 16-byte pieces: its data must be 16-byte aligned")
+    _check_stream_alignment(x2d, "K8")
     q = torch.empty((rows, C), dtype=x2d.dtype, device=x2d.device)
     kv = torch.empty((rows, 2 * C), dtype=x2d.dtype, device=x2d.device)
     _build.check(_lib()["k8_stream"](
@@ -796,6 +806,39 @@ def _rows_tile(x, *widths) -> bool:
     return all(n % 128 == 0 for n in widths) and rows % 8 == 0
 
 
+def k10_plan(rows: int, N: int, dtype, sms: int = 132) -> K8Plan:
+    """K10's route and tiling for `rows` rows of (rows, 384) -> (rows, N):
+    K8's (its body streams N / 128 column tiles a row tile)."""
+    if N < 128 or N % 128:
+        raise ValueError(f"K10 takes N a multiple of 128, got {N}")
+    return k8_plan(rows, dtype, sms)
+
+
+def _ln_dense_first(x2d, lin: QLinear, eps, ln, gamma, beta, residual, bf16_ln):
+    """K10's first body (ct_k10_ln_dense: one block a 128-row tile, the
+    weights staged by plain loads), the route of float32 tokens; in bfloat16
+    the yardstick the streamed body is held to bit for bit."""
+    rows, C = x2d.shape
+    out = torch.empty((rows, lin.w.shape[0]), dtype=x2d.dtype, device=x2d.device)
+    _build.check(_lib()["k10"](
+        _build.ptr(x2d), _is_bf16(x2d), rows, C, lin.w.shape[0], _build.ptr(lin.w),
+        _build.ptr(lin.s), _build.ptr(lin.b), _build.ptr(gamma), _build.ptr(beta), eps, int(ln),
+        int(residual), int(bf16_ln), _build.ptr(out), _build.stream_ptr(x2d)), "ct_k10_ln_dense")
+    return out
+
+
+def _ln_dense_stream(x2d, lin: QLinear, eps, ln, gamma, beta, residual, bf16_ln, plan: K8Plan):
+    """K10 in bfloat16: ct_k10_stream (K8's streamed body) on `plan`'s blocks."""
+    rows, C = x2d.shape
+    _check_stream_alignment(x2d, "K10")
+    out = torch.empty((rows, lin.w.shape[0]), dtype=x2d.dtype, device=x2d.device)
+    _build.check(_lib()["k10_stream"](
+        _build.ptr(x2d), rows, C, lin.w.shape[0], _build.ptr(lin.w), _build.ptr(lin.s),
+        _build.ptr(lin.b), _build.ptr(gamma), _build.ptr(beta), eps, int(ln), int(residual),
+        int(bf16_ln), plan.blocks, _build.ptr(out), _build.stream_ptr(x2d)), "ct_k10_stream")
+    return out
+
+
 def fused_ln_dense_int8(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=None,
                         residual=False, bf16_ln=False):
     """K10: [x +] ((ln(x) [* gamma + beta]) @ W + b) with W8A8, one pass:
@@ -803,7 +846,8 @@ def fused_ln_dense_int8(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=No
     x (..., C) float32 or bfloat16; lin the quantized (N, C) weight. Returns
     (..., N) in x.dtype, or None where the JAX wrapper returns None: C or N
     not a multiple of 128, residual with N != C, or a row count that is not
-    a multiple of 8."""
+    a multiple of 8. One launch; the body is k10_plan(rows, N, x.dtype)'s
+    (bfloat16: K8's streamed body; float32: the first body)."""
     C, N = x.shape[-1], lin.w.shape[0]
     if not _rows_tile(x, C, N) or (residual and N != C):
         return None
@@ -813,14 +857,13 @@ def fused_ln_dense_int8(x, lin: QLinear, eps=1e-6, ln=False, gamma=None, beta=No
     if C != SPLIT_C or (gamma is None) != (beta is None):
         raise ValueError(f"K10 takes C={SPLIT_C} and gamma with beta, got x {tuple(x.shape)}")
     x2d = x.contiguous().reshape(-1, C)
-    rows = x2d.shape[0]
     g = None if gamma is None else gamma.detach().to(F32).contiguous()
     b = None if beta is None else beta.detach().to(F32).contiguous()
-    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    _build.check(_lib()["k10"](
-        _build.ptr(x2d), _is_bf16(x2d), rows, C, N, _build.ptr(lin.w), _build.ptr(lin.s),
-        _build.ptr(lin.b), _build.ptr(g), _build.ptr(b), eps, int(ln), int(residual),
-        int(bf16_ln), _build.ptr(out), _build.stream_ptr(x)), "ct_k10_ln_dense")
+    plan = k10_plan(x2d.shape[0], N, x.dtype, _sms(x.device))
+    if plan.route == "stream":
+        out = _ln_dense_stream(x2d, lin, eps, ln, g, b, residual, bf16_ln, plan)
+    else:
+        out = _ln_dense_first(x2d, lin, eps, ln, g, b, residual, bf16_ln)
     fused_ln_dense_int8.launches += 1
     return out.reshape(*x.shape[:-1], N)
 

@@ -91,7 +91,7 @@ GROUPS = (  # first match wins, on the device kernel's name
 
 TRAIN_GROUPS = (
     ("K4r corr_volume_raw_kernel", ("corr_volume_raw_kernel",)),
-    ("K4f corr_volume_float_kernel", ("corr_volume_float_kernel",)),
+    ("K4f k4f_volume_kernel", ("k4f_volume_kernel",)),
     ("gathers and scatters (window gathers, their backward)", ("index", "gather", "scatter")),
     ("convolutions (fnet, forward and backward)",
      ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm", "nchw", "nhwc")),

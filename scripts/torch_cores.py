@@ -38,7 +38,15 @@ tracks x 16 frames against K2 bit for bit, with its kernels' device time,
 beside K2; and K12 (LN + W8A8 MLP, 8-block clusters) at the
 micro-benchmark's 604,800 rows and at 1,576, bit for bit against its first
 body, beside the first body and a library chain (LN in torch,
-torch._int_mm for fc1 and fc2), with its plan and device launches.
+torch._int_mm for fc1 and fc2), with its plan and device launches. Then
+K4f (the raw float correlation volume of the training path) at 768 x 16
+and 2,048 x 60 in f32 and bf16, against corr_volume_float_plain, beside the
+plain version (the gather + torch.bmm chain, also its library chain) and
+torch.bmm alone, with its bytes and operation bounds and, on a checkout
+with k4f_plan, at each frame group of its tasks; and K10 (LN + W8A8
+dense) at the micro-benchmark's 604,800 rows in each (ln, affine,
+residual) combination, bit for bit against its first body, beside it and a
+library chain.
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
@@ -48,6 +56,7 @@ torch._int_mm for fc1 and fc2), with its plan and device launches.
     python3 scripts/torch_cores.py --only k2 k3 --root build/parent
     python3 scripts/torch_cores.py --only k8 k4m --root build/parent
     python3 scripts/torch_cores.py --only k11 k12 --root build/parent
+    python3 scripts/torch_cores.py --only k4f k10 --root build/parent
     python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
                                                 # the same sections on
                                                 # another checkout's package
@@ -80,9 +89,11 @@ sys.path.insert(0, _root())
 from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, corr_cuda  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import mlp_int8_cuda  # noqa: E402
 from cotracker_tpu_torch.utils.profiling import device_launches, kernel_ms  # noqa: E402
+from torch_library_chains import k4f_windows, k10_library_chain, k12_library_chain  # noqa: E402
 
 C, H, D, V, HID = 384, 8, 48, 64, 1536
 HBM_BPS, INT8_OPS, BF16_OPS, F32_OPS = 3.35e12, 1979e12, 989e12, 67e12  # H100 SXM, dense, 700 W
+TF32_OPS = 494.7e12
 # K5 at the default paths' shapes: streaming (b) and evaluation (10,240 x 16),
 # the offline window (x 60), the long forward's point and virtual tokens
 # (2,560 / 64 x 250), the 600-frame video (512 x 600, the long route) and
@@ -337,7 +348,7 @@ def k4m_section(dev, g):
         del fmq, supq, starts, wxy, out, ref
 
 
-SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m", "k11", "k12")
+SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m", "k11", "k12", "k4f", "k10")
 
 
 def main():
@@ -360,7 +371,7 @@ def main():
     seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
     run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
                k1=k1_section, k2=k2_section, k3=k3_section, k8=k8_section, k4m=k4m_section,
-               k11=k11_section, k12=k12_section)
+               k11=k11_section, k12=k12_section, k4f=k4f_section, k10=k10_section)
     for name in SECTIONS:
         if name in args.only:
             run[name](dev, torch.Generator().manual_seed(seeds[name]))
@@ -572,17 +583,6 @@ def k11_section(dev, g):
 K12_ROWS = (604800, 1576)
 
 
-def k12_library_chain(x, fc1, fc2, ln):
-    """K12 as library calls (never the port's): LN in torch, the row codes,
-    torch._int_mm for fc1, the plain GELU codes, torch._int_mm for fc2."""
-    M = mlp_int8_cuda
-    x32 = x.float()
-    h = torch.nn.functional.layer_norm(x32, (C,), eps=1e-6) if ln else x32
-    hq, s0 = M.quant_rows(h)
-    uq, s1 = M.quant_gelu(M.qlinear_plain(hq, s0, fc1))
-    return (x32 + M.qlinear_plain(uq, s1, fc2)).to(x.dtype)
-
-
 def k12_section(dev, g):
     """K12 at the micro-benchmark's rows: the wrapper's body (8-block
     clusters; on an earlier checkout the first body) bit for bit against
@@ -610,6 +610,111 @@ def k12_section(dev, g):
             rec["first_ms"] = time_ms(lambda: first(x, fc1, fc2, 1e-6, True, False, False), reps=5)
         emit(**rec)
         del x
+
+
+# K4f: the training shape (768 points x 16 frames) and the inference chunk
+# (2,048 x 60), level 0 of the 384x512 input
+K4F_SHAPES = ((768, 16), (2048, 60))
+K4F_GROUPS = (2, 4, 8, 16, 30, 60)
+
+
+def k4f_section(dev, g):
+    """K4f (the raw float volume of the training path) at the training shape
+    and the inference chunk, f32 and bf16: the wrapper's body (on an earlier
+    checkout its first body) against corr_volume_float_plain (max |err| /
+    max |ref|), its time, its device launches, the plain version's time
+    (the window gather + torch.bmm with TF32 off: also the library chain),
+    torch.bmm alone on windows gathered beforehand, the byte bound and the
+    operation bounds (3xTF32's three tf32 products at the tf32 peak, the
+    products at the f32 FMA peak and at the bf16 peak), the bound of the
+    dtype (bytes against 3xTF32 in f32, against the bf16 peak in bf16), and
+    where the checkout has k4f_plan the kernel at each frame group of its
+    tasks."""
+    Hh, W = 96, 128
+    for n, T in K4F_SHAPES:
+        fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g), dim=-1).to(dev)
+        sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g), dim=-1).to(dev)
+        coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+        starts, _ = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        Tp = starts.shape[1]
+        mm = n * Tp * 64 * 49 * 128 * 2
+        for dtype in (torch.float32, torch.bfloat16):
+            fmf = corr_cuda.build_float_level(fm, 3, dtype)
+            supf = sup.reshape(n, 49, 128).to(dtype).contiguous()
+            fn = lambda: corr_cuda.corr_volume_float(fmf, supf, starts)  # noqa: E731
+            vol = fn()
+            ref = corr_cuda.corr_volume_float_plain(fmf, supf, starts)
+            byte_ms = bound_ms(nbytes(fmf, supf, starts, vol), 0.0)
+            ops = {"tf32_3x": 1e3 * 3 * mm / TF32_OPS, "f32_fma": 1e3 * mm / F32_OPS,
+                   "bf16": 1e3 * mm / BF16_OPS}
+            op_ms = ops["tf32_3x" if dtype == torch.float32 else "bf16"]
+            rec = dict(kernel="K4f", points=n, frames=T, dtype=str(dtype).split(".")[-1],
+                       rel_err=rel_err(vol, ref), elements_differing=int((vol != ref).sum().item()),
+                       ms=time_ms(fn, reps=10),
+                       device_launches=device_launches(fn),
+                       plain_ms=time_ms(lambda: corr_cuda.corr_volume_float_plain(fmf, supf, starts),
+                                        reps=3),
+                       bound_bytes_ms=byte_ms, bound_ops_ms=ops, bound_ms=max(byte_ms, op_ms),
+                       bound_by="bytes" if byte_ms >= op_ms else "operations")
+            del vol, ref
+            win = k4f_windows(fmf, starts)
+            rec["bmm_only_ms"] = time_ms(lambda: torch.bmm(win, supf.transpose(1, 2)), reps=5)
+            del win
+            if hasattr(corr_cuda, "k4f_plan"):
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                rec["plan"] = corr_cuda.k4f_plan(n, Tp, dtype, sms)._asdict()
+                rec["ms_by_group"] = {
+                    gr: round(time_ms(lambda: corr_cuda._k4f_launch(
+                        fmf, supf, starts, corr_cuda.k4f_plan(n, Tp, dtype, sms, gr)), reps=10), 4)
+                    for gr in K4F_GROUPS if gr <= Tp}
+            emit(**rec)
+            del fmf, supf
+        del fm, sup, starts
+
+
+K10_ROWS = 604_800  # the micro-benchmark's rows (scripts/torch_ubench.py int8pallas)
+
+
+def k10_section(dev, g):
+    """K10 (LN + W8A8 dense) at the micro-benchmark's 604,800 bf16 rows in
+    each (ln, affine, residual) combination (384 -> 1,152, or 384 -> 384
+    with the residual): the wrapper's body (in bf16 K8's streamed body; on
+    an earlier checkout the first body), bit for bit against the first body
+    where the checkout keeps it beside, both times, the library chain's
+    time, the device launches, the plan and the byte bound (x read once,
+    the output written once, the weights)."""
+    M = mlp_int8_cuda
+    qkv, out_l = lin(g, dev, 3 * C, C), lin(g, dev, C, C)
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.05 * torch.randn(C, generator=g)).to(dev)
+    x = torch.randn(K10_ROWS, C, generator=g).to(dev, torch.bfloat16)
+    first = getattr(M, "_ln_dense_first", None)
+    for ln in (True, False):
+        for affine in (False, True):
+            for residual in (False, True):
+                lin_ = out_l if residual else qkv
+                N = lin_.w.shape[0]
+                gm, bt = (gamma, beta) if affine else (None, None)
+                kw = dict(ln=ln, gamma=gm, beta=bt, residual=residual)
+                fn = lambda: M.fused_ln_dense_int8(x, lin_, **kw)  # noqa: E731
+                rec = dict(kernel="K10", rows=K10_ROWS, N=N, ln=ln, affine=affine, residual=residual,
+                           ms=time_ms(fn, reps=10), device_launches=device_launches(fn),
+                           library_chain_ms=time_ms(lambda: k10_library_chain(
+                               x, lin_, ln, gm, bt, residual), reps=3),
+                           bound_ms=bound_ms(nbytes(x) + K10_ROWS * N * 2 + nbytes(*lin_),
+                                             K10_ROWS * 2 * C * N / INT8_OPS))
+                if hasattr(M, "k10_plan"):
+                    rec["plan"] = M.k10_plan(K10_ROWS, N, x.dtype,
+                                             torch.cuda.get_device_properties(dev)
+                                             .multi_processor_count)._asdict()
+                if first is not None:
+                    ref = first(x, lin_, 1e-6, ln, gm, bt, residual, False)
+                    rec["mismatches"] = int((fn() != ref).sum().item())
+                    rec["first_ms"] = time_ms(lambda: first(x, lin_, 1e-6, ln, gm, bt, residual,
+                                                            False), reps=5)
+                    del ref
+                emit(**rec)
+    del x
 
 
 if __name__ == "__main__":

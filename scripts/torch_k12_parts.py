@@ -27,19 +27,17 @@ import ctypes
 import json
 import math
 import os
-import shutil
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch_parts as parts  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import _build, mlp_int8_cuda  # noqa: E402
 
 C, HID = 384, 1536
 ROWS = (604800, 1576)
-OUT = _build.BUILD_DIR.parent / "k12_parts"
 MMA = (("      warp_mma<2, 6, KC, K12_LDW1>(acc, a1, LDA_C, W1, b1_pair, 0);\n",
         "      acc[0][0][0] += W1[lane];\n"),
        ("    warp_mma<2, 3, K12_HB / 2, K12_LDW2>(acc2, U + a2, K12_LDU, W2 + K12_HB * rank, b2_pair,\n"
@@ -72,61 +70,11 @@ VARIANTS = {"kernel": (), "no_mma": MMA, "no_exchange": EXCHANGE, "no_ln": LN, "
             "no_cluster_sync": SYNC, "no_store": STORE}
 
 
-def sources():
-    """Writes the headers and one copy of int8_mlp_cluster.cu per variant."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    for f in _build.CSRC.glob("*.cuh"):
-        shutil.copy(f, OUT / f.name)
-    src = (_build.CSRC / "int8_mlp_cluster.cu").read_text()
-    paths = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"int8_mlp_cluster.cu: the part {name} is not where this probe "
-                                   "expects it")
-            text = text.replace(old, new)
-        paths[name] = OUT / f"k12_{name}.cu"
-        paths[name].write_text(text)
-    return paths
-
-
-def build(paths):
-    procs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                                  str(p.with_suffix(".so")), str(p)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for n, p in paths.items()}
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"k12_{name}.cu did not build:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(paths[name].with_suffix(".so")))
-        fns[name] = _build.bind(lib, "ct_k12_cluster", P, I, I, I, I, I, P, P, P, P, P, P, F, I, I,
-                                I, P, P)
-    return fns
-
-
-def time_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def main():
-    if not torch.cuda.is_available():
-        sys.exit("torch_k12_parts: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    shutil.rmtree(OUT, ignore_errors=True)
-    fns = build(sources())
+    smi = parts.card("torch_k12_parts")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = parts.build(parts.edited_copies("int8_mlp_cluster.cu", "k12", VARIANTS), "ct_k12_cluster",
+                      P, I, I, I, I, I, P, P, P, P, P, P, F, I, I, I, P, P)
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator().manual_seed(0)
     lins = [mlp_int8_cuda.quantize_linear((torch.randn(o, i, generator=g) / math.sqrt(i)).to(dev),
@@ -138,14 +86,14 @@ def main():
         x = torch.randn(rows, C, generator=g).to(dev, bf)
         plan = mlp_int8_cuda.k12_plan(rows, max_clusters)
         first = mlp_int8_cuda._ln_mlp_first(x, *lins, 1e-6, True, False, False)
-        ms = {"first_body": time_ms(lambda: mlp_int8_cuda._ln_mlp_first(
+        ms = {"first_body": parts.time_ms(lambda: mlp_int8_cuda._ln_mlp_first(
             x, *lins, 1e-6, True, False, False), reps=3)}
         exact = {}
         for name, fn in fns.items():
             out = torch.empty_like(x)
             args = (x.data_ptr(), 1, rows, C, HID, 1, *ptrs, 1e-6, 0, 0, plan.clusters,
                     out.data_ptr())
-            ms[name] = time_ms(lambda: _build.check(
+            ms[name] = parts.time_ms(lambda: _build.check(
                 fn(*args, torch.cuda.current_stream().cuda_stream), f"k12_{name}"))
             if name == "kernel":
                 exact[name] = bool(torch.equal(out, first))

@@ -20,19 +20,17 @@ import ctypes
 import json
 import math
 import os
-import shutil
-import subprocess
 import sys
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch_parts as parts  # noqa: E402
 from cotracker_tpu_torch.ops.kernels import _build, attention_cuda, mlp_int8_cuda  # noqa: E402
 
 C, H, D, V = 384, 8, 48, 64
 SHAPES = ((10240, 60), (10240, 16))
-OUT = _build.BUILD_DIR.parent / "k3_parts"
 RING = "using K3KvGemm = RingGemm<2, 4, 2, 6, 128, 3>;"
 # (source text, the same text guarded by a macro) of each part
 GUARDS = {
@@ -56,14 +54,14 @@ def guarded(text, macro):
 
 def sources():
     """Writes the probe copies of the headers and one .cu per variant."""
-    OUT.mkdir(parents=True, exist_ok=True)
+    out = parts.fresh_dir("k3")
     for f in _build.CSRC.glob("*.cuh"):
         text = f.read_text()
         for old, macro in GUARDS.get(f.name, ()):
             if old not in text:
                 raise RuntimeError(f"{f.name}: the part {macro} is not where this probe expects it")
             text = text.replace(old, guarded(old, macro))
-        (OUT / f.name).write_text(text)
+        (out / f.name).write_text(text)
     src = (_build.CSRC / "int8_v2p_proj.cu").read_text()
     a, b = src.index(ATTN_BEGIN), src.index(ATTN_END) + len(ATTN_END)
     if LN not in src or RING not in src:
@@ -78,47 +76,16 @@ def sources():
         text = (f"#define PROBE_{macro}\n" if macro else "") + src
         if name == "bk64":
             text = text.replace(RING, RING.replace("128, 3>", "64, 3>"))
-        paths[name] = OUT / f"k3_{name}.cu"
+        paths[name] = out / f"k3_{name}.cu"
         paths[name].write_text(text)
     return paths
 
 
-def build(paths):
-    procs = {n: subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                                  str(p.with_suffix(".so")), str(p)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for n, p in paths.items()}
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"k3_{name}.cu did not build:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(paths[name].with_suffix(".so")))
-        fns[name] = _build.bind(lib, "ct_k3_v2p_proj", *([ctypes.c_void_p] * 8),
-                                *([ctypes.c_int] * 9), ctypes.c_float, ctypes.c_float,
-                                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
-    return fns
-
-
-def time_ms(fn, reps=10):
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def main():
-    if not torch.cuda.is_available():
-        sys.exit("torch_k3_parts: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    shutil.rmtree(OUT, ignore_errors=True)
-    fns = build(sources())
+    smi = parts.card("torch_k3_parts")
+    fns = parts.build(sources(), "ct_k3_v2p_proj", *([ctypes.c_void_p] * 8), *([ctypes.c_int] * 9),
+                      ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p)
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator().manual_seed(0)
     wkv = mlp_int8_cuda.quantize_linear(
@@ -143,8 +110,8 @@ def main():
                         beta.data_ptr(), wkv.w.data_ptr(), wkv.s.data_ptr(), wkv.b.data_ptr(),
                         N, T, V, C, H, D, plan.splits, plan.split_keys, heads, 1e-5, D**-0.5,
                         out.data_ptr(), part.data_ptr())
-                ms[name] = time_ms(lambda: _build.check(
-                    fn(*args, torch.cuda.current_stream().cuda_stream), f"k3_{name}"))
+                ms[name] = parts.time_ms(lambda: _build.check(
+                    fn(*args, torch.cuda.current_stream().cuda_stream), f"k3_{name}"), reps=10)
                 outs[name] = out
             print(json.dumps(dict(
                 nvidia_smi=smi, tracks=N, frames=T, heads=heads, splits=plan.splits,

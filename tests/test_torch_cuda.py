@@ -11,8 +11,9 @@ tail: two launches) and K3 in bf16 (one fused kernel, and the merge of its
 key ranges) from 1 to 250 frames at ragged track counts; the K2 and K3
 chains (the f32 routes) at the streaming width; the wrapper with
 corr_fuse_mlp1 (K4m). K8 in bf16 (the streamed body) bit for bit against
-its PR 4 body; K4m's two launches (code rows, then MLP1) on every route of
-its plan, its code rows, scales and rows bit for bit against its plain
+its first body, and K10 in bf16 (the same body) against its own first
+body; K4m's two launches (code rows, then MLP1) on every route of its
+plan, its code rows, scales and rows bit for bit against its plain
 version.
 
 Run on the card:  python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -27,13 +28,17 @@ within the rounding of the output and of the probabilities (two bf16 ulps,
 2^-7 relative to the largest output). K4 is held so on every route of its plan (one pass in a
 cluster, two passes past 64 frames). K4r's integer products are exact
 and its arithmetic the plain version's: codes and scales match exactly.
-K4f sums float32 products in another order: 1e-5 of the largest output in
-float32, one bf16 ulp (2^-8) of it in bfloat16. K4m's arithmetic is its
+K4f sums float32 products in another order in float32 (3xTF32 on the
+tensor cores, whose dropped terms are under 2^-21 of sum|a b|): 1e-5 of
+the largest output; in bfloat16 it sums in the plain version's order, one
+bf16 ulp (2^-8) of it. K4m's arithmetic is its
 plain version's, integer products and epilogue order alike: its rows match
 exactly. K10, K12 and the variant modes take the W8A8 bound above; K11
 runs K2's code, so it matches K2's wrapper bit for bit, and K12 matches its
 first body bit for bit.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -308,15 +313,41 @@ def test_corr_volume_raw(dev, T):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [5, 16])
+@pytest.mark.parametrize("T", [5, 16, 60])
 def test_corr_volume_float(dev, dtype, T):
+    """K4f (k4f_plan's persistent tasks: 3xTF32 tensor cores in f32, FMAs in
+    k order in bf16) at a small level and at level 0 of the 384x512 input
+    (96 x 128) with T = 60; one device launch; the kernel's shared memory
+    fits one block an SM."""
     g = torch.Generator().manual_seed(40 + T)
-    fm, sup, starts = _raw_operands(g, dev, 2, T, 24, 32, 40)
-    level = corr_cuda.build_float_level(fm, 3, dtype)
+    Hh, W = (96, 128) if T == 60 else (24, 32)
+    fm, sup, starts = _raw_operands(g, dev, 2, T, Hh, W, 40)
+    level, sup = corr_cuda.build_float_level(fm, 3, dtype), sup.to(dtype)
     n = corr_cuda.corr_volume_float.launches
-    vol = corr_cuda.corr_volume_float(level, sup.to(dtype), starts)
+    vol = corr_cuda.corr_volume_float(level, sup, starts)
     torch.cuda.synchronize()
     assert corr_cuda.corr_volume_float.launches == n + 1 and vol.dtype == dtype
+    ref = corr_cuda.corr_volume_float_plain(level, sup, starts)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-8
+    assert (vol.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+    assert device_launches(lambda: corr_cuda.corr_volume_float(level, sup, starts)) == 1
+    smem = corr_cuda._bound("ct_k4f_smem", ctypes.c_int)(int(dtype == torch.bfloat16))
+    assert 0 < smem <= mlp_int8_cuda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,blocks", [(1, 1), (3, 5), (4, 2), (7, 300), (16, 1000)])
+def test_corr_volume_float_tasks(dev, dtype, group, blocks):
+    """K4f on other tilings than the default: one-frame and odd frame groups
+    (a step with one frame), few blocks walking many tasks across points,
+    as many blocks as tasks; every element within the float tolerance of
+    the plain version."""
+    g = torch.Generator().manual_seed(group)
+    fm, sup, starts = _raw_operands(g, dev, 2, 13, 24, 32, 38)
+    level = corr_cuda.build_float_level(fm, 3, dtype)
+    NP, Tp, _ = starts.shape
+    p = corr_cuda.k4f_plan(NP, Tp, dtype, group=group)
+    vol = corr_cuda._k4f_launch(level, sup.to(dtype), starts, p._replace(blocks=min(blocks, p.tasks)))
     ref = corr_cuda.corr_volume_float_plain(level, sup.to(dtype), starts)
     tol = 1e-5 if dtype == torch.float32 else 2.0**-8
     assert (vol.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
@@ -856,6 +887,38 @@ def test_ln_dense(dev, dtype, ln, affine, residual):
     torch.cuda.synchronize()
     assert mlp_int8_cuda.fused_ln_dense_int8.launches == n + 1
     _close(out, mlp_int8_cuda.ln_dense_plain(x, lin, **kw), dtype)
+
+
+@pytest.mark.parametrize("bf16_ln", [False, True])
+@pytest.mark.parametrize("rows", [136, 1000])
+@pytest.mark.parametrize("ln,affine,residual,N", [
+    (ln, af, res, C if res else 3 * C)
+    for ln in (False, True) for af in (False, True) for res in (False, True)] + [
+    (ln, af, False, 4 * C) for ln in (False, True) for af in (False, True)])
+def test_ln_dense_stream_matches_first_body(dev, ln, affine, residual, N, rows, bf16_ln):
+    """K10 in bfloat16 (K8's streamed body on k10_plan's persistent blocks)
+    is bit-identical to its first body at the same inputs in every (ln,
+    affine, residual) combination: the same LayerNorm, affine and
+    quantization device code, exact s8 products, the same epilogue order
+    (dequant, bias, x). N = 1,536 takes the body's other branch (the weight
+    scales and biases from device memory past 1,152 columns). Ragged row
+    counts (136: two tiles, the second of 8 rows; 1,000); one device
+    launch a call."""
+    g = torch.Generator().manual_seed(rows + 4 * ln + 2 * affine + residual + N)
+    lin = _lin(g, N, C, dev)
+    x = torch.randn(rows, C, generator=g).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev) if affine else None
+    beta = (0.05 * torch.randn(C, generator=g)).to(dev) if affine else None
+    kw = dict(ln=ln, gamma=gamma, beta=beta, residual=residual, bf16_ln=bf16_ln)
+    plan = mlp_int8_cuda.k10_plan(rows, lin.w.shape[0], x.dtype)
+    assert plan.route == "stream" and plan.smem == mlp_int8_cuda._lib()["k8_smem"]()
+    n = mlp_int8_cuda.fused_ln_dense_int8.launches
+    out = mlp_int8_cuda.fused_ln_dense_int8(x, lin, **kw)
+    torch.cuda.synchronize()
+    assert mlp_int8_cuda.fused_ln_dense_int8.launches == n + 1
+    first = mlp_int8_cuda._ln_dense_first(x, lin, 1e-6, ln, gamma, beta, residual, bf16_ln)
+    assert torch.equal(out, first)
+    assert device_launches(lambda: mlp_int8_cuda.fused_ln_dense_int8(x, lin, **kw)) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,7 +5,9 @@ K5's route for every frame count (`attention_cuda.k5_plan`), K4's cluster
 tiling (`corr_cuda.k4_plan`), K9's body by token dtype
 (`mlp_int8_cuda.k9_route`), K2's route and front (`mlp_int8_cuda.k2_plan`),
 which K11 takes too, K3's key ranges and head groups
-(`attention_cuda.k3_plan`) and K12's clusters (`mlp_int8_cuda.k12_plan`). On the
+(`attention_cuda.k3_plan`), K12's clusters (`mlp_int8_cuda.k12_plan`),
+K10's streamed route (`mlp_int8_cuda.k10_plan`) and K4f's persistent
+tasks (`corr_cuda.k4f_plan`). On the
 card, `tests/test_torch_cuda.py` holds the kernels to these plans (K1's,
 K2's, K3's and K4's shared-memory arithmetic against `ct_k1_smem`,
 `ct_k2_smem`, `ct_k3_smem` and `ct_k4_smem`) and each route to the plain
@@ -199,7 +201,7 @@ def test_k8_plan_covers_every_row_once(sms):
     consts = re.search(r"constexpr int K8_BM = (\d+), K8_SLOTS = (\d+), K8_XBUF = (\d+);", src)
     assert tuple(map(int, consts.groups())) == (
         mlp_int8_cuda.K8_BM, mlp_int8_cuda.K8_SLOTS, mlp_int8_cuda.K8_XBUF)
-    assert mlp_int8_cuda.K8_SMEM == 204896
+    assert mlp_int8_cuda.K8_SMEM == 207968
 
 
 @pytest.mark.parametrize("Tp", [6, 16, 24, 60, 80, 250])
@@ -222,6 +224,51 @@ def test_k4m_plan_covers_every_row_once(Tp):
     assert (int(consts["kMlpBM"]), int(consts["kMlpStages"]), int(consts["kMlpBK"])) == (
         corr_cuda.K4M_ROWS, corr_cuda.K4M_STAGES, 64)
     assert corr_cuda.K4M_GEMM_SMEM == 205312
+
+
+@pytest.mark.parametrize("N", [384, 1152])
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_k10_plan_covers_every_row_once(sms, N):
+    """K10 in bfloat16 runs K8's streamed body (N / 128 column tiles a row
+    tile): persistent blocks, one an SM, each a non-empty contiguous run of
+    the 128-row tiles, together every row once; float32 keeps its first
+    body; N must be a multiple of 128."""
+    M = mlp_int8_cuda
+    for rows in (8, 136, 1000, 16000, 604800):
+        p = M.k10_plan(rows, N, torch.bfloat16, sms=sms)
+        assert p == M.k8_plan(rows, torch.bfloat16, sms=sms) and p.route == "stream"
+        assert 1 <= p.blocks <= min(p.tiles, sms) and p.smem == M.K8_SMEM <= M.SMEM_LIMIT
+        runs = [range(p.tiles * b // p.blocks, p.tiles * (b + 1) // p.blocks)
+                for b in range(p.blocks)]
+        covered = [r for run in runs for i in run
+                   for r in range(i * M.K8_BM, min(rows, (i + 1) * M.K8_BM))]
+        assert covered == list(range(rows)) and min(map(len, runs)) >= 1
+        assert M.k10_plan(rows, N, torch.float32, sms=sms).route == "tile"
+    with pytest.raises(ValueError, match="multiple of 128"):
+        M.k10_plan(128, N + 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("NP,Tp", [(1, 1), (37, 5), (40, 16), (38, 17), (130, 60), (16, 250)])
+def test_k4f_plan_covers_every_task_once(NP, Tp, dtype):
+    """K4f's persistent blocks (one an SM, at most one a task), each taking
+    tasks b, b + blocks, ... of the group-major list (task k: point k % NP,
+    frames from (k // NP) * group), cover every (point, frame) once; the
+    blocks' first tasks share their frames."""
+    for sms in (132, 7):
+        for group in (None, 1, 2, 4, 7):
+            p = corr_cuda.k4f_plan(NP, Tp, dtype, sms, group)
+            assert p.group == (min(Tp, corr_cuda.K4F_GROUP) if group is None else group)
+            assert p.tasks == -(-Tp // p.group) * NP and 1 <= p.blocks == min(p.tasks, sms)
+            tasks = [k for b in range(p.blocks) for k in range(b, p.tasks, p.blocks)]
+            pairs = [(k % NP, t) for k in tasks
+                     for t in range(k // NP * p.group, min(Tp, (k // NP + 1) * p.group))]
+            assert sorted(pairs) == [(q, t) for q in range(NP) for t in range(Tp)]
+            assert {b // NP for b in range(min(p.blocks, NP))} == {0}
+    with pytest.raises(TypeError):
+        corr_cuda.k4f_plan(4, 4, torch.float16)
+    with pytest.raises(ValueError):
+        corr_cuda.k4f_plan(4, 4, torch.float32, group=0)
 
 
 def _k12_consts():
