@@ -29,13 +29,14 @@ Phases, each raising on failure:
      frames too; K5 in bf16 is the tensor-core time core (k5_plan's route);
      then the training kernels K4r (raw int8 volume) and K4f (raw float
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
-     and the inference chunk (2,048 points x 60 frames): K4r's codes and
-     scales bit-identical to its plain version, K4f (3xTF32 tensor cores in
-     f32, FMAs in k order in bf16) within a float32 bound and, in bf16,
-     within one bf16 ulp, with the bound of each dtype under the peak of
-     its products (tf32 for 3xTF32's three, bf16), the f32 FMA peak's
-     beside it, and the plain version's gather + torch.bmm chain and
-     torch.bmm alone timed beside it;
+     and the inference chunk (2,048 points x 60 frames), K4r also at 256
+     points x 80 frames (two passes): K4r's codes and scales bit-identical
+     to its plain version in one device launch, its k4_plan printed, K4f
+     (3xTF32 tensor cores in f32, FMAs in k order in bf16) within a float32
+     bound and, in bf16, within one bf16 ulp, with the bound of each dtype
+     under the peak of its products (tf32 for 3xTF32's three, bf16), the
+     f32 FMA peak's beside it, and the plain version's gather + torch.bmm
+     chain and torch.bmm alone timed beside it;
      then K7 at the quasi-dense key count (70,656 padded tracks x 16 frames,
      the keys of each frame and head shared by several blocks and merged;
      once with every key masked) and K5 on its other bf16 routes (256
@@ -200,6 +201,20 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def window_bytes(fmq, starts):
+    """The level map's bytes that the 8 x 8 windows at `starts` (frame, wy,
+    wx) read: each (frame, y, x) pixel that some window covers, once (the
+    padded map's rim and the pixels no window reaches are not read)."""
+    F, Hp, Wp, C = fmq.shape
+    s = starts.reshape(-1, 3).long()
+    d = torch.arange(8, device=s.device)
+    f, wy, wx = (s[:, i, None, None] for i in range(3))
+    pix = (f * Hp + wy + d[:, None]) * Wp + wx + d
+    covered = torch.zeros(F * Hp * Wp, dtype=torch.bool, device=s.device)
+    covered[pix.flatten()] = True
+    return int(covered.sum().item()) * C * fmq.element_size()
+
+
 def check_close(name, out, ref, med_tol, max_tol):
     """bf16 bounds: median |err| <= med_tol * mean|ref| (bf16 rounding and
     int8 rounding ties), max |err| <= max_tol * max|ref|."""
@@ -262,8 +277,9 @@ CORE_TOL = (2.0**-8, 2.0**-6)
 # features in another order (FMA chains against cuBLAS's tiling); 1e-5 of
 # the largest |g| is ~80 float32 ulps of it
 K4F_TOL = 1e-5
-# the training shape (768 points x 16 frames) and the inference chunk
-TRAIN_SHAPE, INFER_SHAPE = (768, 16), (CHUNK, T_FRAMES)
+# the training shape (768 points x 16 frames) and the inference chunk;
+# K4r past 64 frames, where K4's cluster kernel takes two passes
+TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS = (768, 16), (CHUNK, T_FRAMES), (256, 80)
 # streaming configuration (b) against (a) after 7 warm-started windows of 6
 # iterations with random weights: W8A8 quantization noise separates them;
 # (median, 90th percentile, max) of the per-point distance in pixels, about
@@ -618,11 +634,12 @@ def kernel_phase(dev):
 def train_kernel_phase(dev):
     """K4r and K4f against their plain versions at level 0 (96x128), f32
     level maps and support, at the training shape (the contract's keys) and
-    the inference chunk (`*_t60`)."""
+    the inference chunk (`*_t60`); K4r also past 64 frames (`*_t80`: K4's
+    cluster kernel in two passes)."""
     g = torch.Generator().manual_seed(3)
     Hh, W = LVL0
     out = {}
-    for (n, T) in (TRAIN_SHAPE, INFER_SHAPE):
+    for (n, T) in (TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS):
         sfx = "" if (n, T) == TRAIN_SHAPE else f"_t{T}"
         fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
         sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g).to(dev), dim=-1)
@@ -630,35 +647,54 @@ def train_kernel_phase(dev):
         starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
         Tp = starts.shape[1]
         mm = n * Tp * 64 * 49 * 128 * 2  # multiply-adds of the window products, as operations
-
-        fmq = corr_cuda.build_int8_level(fm, 3)
-        supq, _ = corr_cuda.quantize_support(sup.transpose(1, 2), torch.float32)
-        supq = supq.reshape(n, 49, 128)
-        vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
-        rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
-        same = torch.equal(vol, rvol) and torch.equal(scale, rscale)
-        log(f"  K4r raw int8 volume {n} points x {T} frames: codes and scales bit-identical: {same}")
-        if not same:
-            raise AssertionError("K4r: kernel disagrees with its plain version")
-        e = out.setdefault("K4r_corr_volume_raw", dict(
-            name="K4r_corr_volume_raw", route="cuda", source=SRC_CORR,
-            replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
-            shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames"))
-        bnd = bound(nbytes(fmq, supq, starts, vol, scale), [(mm, INT8_OPS)])
-        e.update({"ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)),
-                  "plain_ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_raw_plain(fmq, supq, starts),
-                                            reps=2),
-                  "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None})
-        del fmq, supq, vol, rvol
-
-        for dtype in (torch.float32, torch.bfloat16):
-            k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx)
+        k4r_entry(out, fm, sup, starts, n, T, mm, sfx)
+        if (n, T) != K4R_TWO_PASS:
+            for dtype in (torch.float32, torch.bfloat16):
+                k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx)
         for k in out.values():
             if ("ms" + sfx) in k:
                 log(f"  {k['name']} {n}x{T}: {k['ms' + sfx]:.3f} ms (plain {k['plain_ms' + sfx]:.3f} ms, "
                     f"bound {k['bound_ms' + sfx]:.3f} ms by {k['bound_by' + sfx]})")
         del fm, sup
     return [out[k] for k in sorted(out)]
+
+
+def k4r_entry(out, fm, sup, starts, n, T, mm, sfx):
+    """K4r (K4's cluster kernel in its K4r mode, on k4_plan) against its
+    plain version: codes and scales bit-identical, one device launch a
+    call; its plan, time, the plain version's and the bound (bytes against
+    the s8 products at the int8 peak; of the level map only the pixels the
+    windows cover)."""
+    fmq = corr_cuda.build_int8_level(fm, 3)
+    supq, _ = corr_cuda.quantize_support(sup.transpose(1, 2), torch.float32)
+    supq = supq.reshape(n, 49, 128)
+    fn = lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)  # noqa: E731
+    vol, scale = fn()
+    rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+    codes, scales = int((vol != rvol).sum().item()), int((scale != rscale).sum().item())
+    plan = corr_cuda.k4_plan(n, starts.shape[1])
+    launches = device_launches(fn)
+    log(f"  K4r raw int8 volume {n} points x {T} frames: {codes} codes and {scales} scales differ "
+        f"(bound 0); plan: clusters of {plan.cluster}, {plan.frames} frames a block, "
+        f"{'held on chip' if plan.hold else 'two passes'}; {launches} device launch(es) a call")
+    if codes or scales:
+        raise AssertionError("K4r: kernel disagrees with its plain version")
+    if launches != 1:
+        raise AssertionError("K4r is one device launch a call")
+    e = out.setdefault("K4r_corr_volume_raw", dict(
+        name="K4r_corr_volume_raw", route="cuda", source=SRC_CORR,
+        replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
+        shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames "
+              f"(also *_t{INFER_SHAPE[1]}: {INFER_SHAPE[0]} x {INFER_SHAPE[1]}; "
+              f"*_t{K4R_TWO_PASS[1]}: {K4R_TWO_PASS[0]} x {K4R_TWO_PASS[1]}, two passes)"))
+    bnd = bound(window_bytes(fmq, starts) + nbytes(supq, starts, vol, scale),
+                [(mm, INT8_OPS)])
+    e.update({"ms" + sfx: time_ms(fn),
+              "plain_ms" + sfx: time_ms(lambda: corr_cuda.corr_volume_raw_plain(fmq, supq, starts),
+                                        reps=2),
+              "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None,
+              "plan" + sfx: plan._asdict(), "device_launches" + sfx: launches})
+    del fmq, supq, vol, rvol
 
 
 def k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx):

@@ -30,9 +30,12 @@
 // version ran all of them twice); past 64 frames the cluster takes two
 // passes (the absmax, then the codes) with the same pipeline.
 // K4r (g_int8 without the combine, corr_pallas.py:391-400), the training
-// default: the first version's body with the combine taken out, one block a
-// point, two passes (absmax of the RAW s32 volume, then the codes
-// rint(g * (1/scale))).
+// default: K4's cluster kernel in its K4r mode (k4r_volume_kernel, on
+// k4_plan's tiling, below): K4's windows by cp.async, support fragments held
+// in registers, the cluster's scale through distributed shared memory and
+// 16-byte code stores; each frame's own 64 taps only (four m-tiles), the
+// absmax of the RAW s32 products, the raw g held on chip up to 64 frames
+// (two passes past that), codes rint(g * (1/scale)).
 // K4f (plain g, corr_pallas.py:401-402): float (f32 or bf16) windows and
 // support, the volume written in the input dtype. One pass, no scale; its
 // design (k4f_volume_kernel, on corr_cuda.k4f_plan: 3xTF32 tensor cores in
@@ -89,8 +92,14 @@
 // 109,600 bytes of shared memory a block, two blocks of 4 warps share an
 // SM: too few warps to hide the instructions' latency. Not profiled (the
 // card's machine runs no ncu).
-// K4r reads ~1 GB of windows (every window twice, mostly from L2): memory
-// and its shared-memory combine traffic bound it. K4f's first body did the
+// K4r must read the level map's pixels its windows cover and the support
+// and write its codes: at 768 points x 16 frames 0.021 ms at the memory's
+// rate (2,048 x 60: 0.151), above its 9.9 G s8 operations (0.005 ms). It
+// takes 0.075 / 0.76 ms (the first body 0.16 / 1.73: every window and
+// product twice, codes a byte at a time), of which its code write after the cluster's scale is 37%, a
+// loop of strided shared loads and byte packs (its stores alone 3-7%), the
+// windows' copies 16%, the products 11% and the cluster's barriers 9%
+// (scripts/torch_k4r_parts.py). K4f's first body did the
 // contraction as f32 FMAs on the CUDA cores (0.973 ms at 768 points x 16
 // frames, 10.42 at 2,048 x 60), bound by its shared-memory loads; on the
 // tensor cores the least time for the work is its bytes (the level map,
@@ -143,49 +152,6 @@ __device__ __forceinline__ void frame_corr(const int8_t* __restrict__ fm,
       if (s < kS) G[r * kS + s] = acc[nt][k];
     }
   __syncthreads();
-}
-
-// K4r: 128 threads = 4 warps, one 16-tap row tile each, two passes over the
-// frames (absmax of the raw volume, then its codes).
-__global__ void __launch_bounds__(128)
-corr_volume_raw_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,
-                       const int* __restrict__ starts, int8_t* __restrict__ vol,
-                       float* __restrict__ scale_out, int Tp, int Hp, int Wp) {
-  __shared__ __align__(16) int8_t win_s[kR * kLds];
-  __shared__ __align__(16) int8_t sup_s[kSp * kLds];
-  __shared__ int G[kR * kS];
-  __shared__ float red_s[4];
-  const int p = blockIdx.x, tid = threadIdx.x;
-  for (int i = tid; i < kSp * (kC / 16); i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 16;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r < kS) v = *reinterpret_cast<const int4*>(sup + (static_cast<size_t>(p) * kS + r) * kC + c);
-    *reinterpret_cast<int4*>(sup_s + r * kLds + c) = v;
-  }
-  const int* st = starts + static_cast<size_t>(p) * Tp * 3;
-  float amax = 0.f, inv = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t = 0; t < Tp; ++t) {
-      frame_corr(fm, st + t * 3, Hp, Wp, win_s, sup_s, G);
-      int8_t* out = vol + (static_cast<size_t>(p) * Tp + t) * (kR * kS);
-      for (int e = tid; e < kR * kS; e += blockDim.x) {
-        const float c = static_cast<float>(G[e]);
-        if (pass == 0)
-          amax = fmaxf(amax, fabsf(c));
-        else
-          out[e] = quant8(c, inv);
-      }
-    }
-    if (pass == 0) {
-      amax = warp_max(amax);
-      if ((tid & 31) == 0) red_s[tid >> 5] = amax;
-      __syncthreads();
-      amax = fmaxf(fmaxf(red_s[0], red_s[1]), fmaxf(red_s[2], red_s[3]));
-      const float sc = __fmul_rn(fmaxf(amax, 1e-20f), 1.0f / 127.0f);
-      inv = 1.0f / sc;
-      if (tid == 0) scale_out[p] = sc;
-    }
-  }
 }
 
 // ---------------------------------------------------------------- K4f
@@ -528,9 +494,9 @@ int launch_k4f(const void* fm, const void* sup, const int* starts, void* vol, in
 
 // K4m's first body (PR 5; ct_corr_mlp1_first, the yardstick of the two
 // launches of ct_corr_mlp1 below). 128 threads; shared memory 99,728 bytes
-// (two blocks per SM): the window and support as K4r, one frame's s32
-// volume, the 16 code rows of a frame group (2,448-byte rows) and a 384 x 80
-// W1 slice; pass A the raw absmax, pass B the volume again, the combine and
+// (two blocks per SM): the window and support as frame_corr stages them,
+// one frame's s32 volume, the 16 code rows of a frame group (2,448-byte
+// rows) and a 384 x 80 W1 slice; pass A the raw absmax, pass B the volume again, the combine and
 // MLP1 per 16 frames.
 constexpr int kTaps = 7 * 7 * kS, kKm = 2432, kLdm = kKm + 16, kDh = 384, kFG = 16;
 constexpr int kBKm = 64, kLdb = kBKm + 16;
@@ -675,6 +641,13 @@ int launch_mlp1(const int8_t* fm, const int8_t* sup, const int* starts, const fl
 // block reads the cs maxima through distributed shared memory (mapa +
 // ld.shared::cluster), scale = max(absmax, 1e-20) * (1/127), codes
 // rint(c * (1/scale)): codes and scales bit-identical to corr_volume_plain.
+// The same body runs three modes (K4Mode): K4 (above), K4m (the raw
+// absmax, each frame's code row of the 7 x 7 real taps) and K4r (the raw
+// volume: the frame's own 64 taps, m-tiles 0-3, the absmax on the s32
+// products, each m-tile's raw g emitted after the next m-tile's reads, as
+// K4's combine lags one m-tile, so that held rows never land on taps still
+// to be read; then K4's codes, from the raw g). K4 and K4m launch it as
+// corr_volume_kernel, K4r as k4r_volume_kernel (its own name in a trace).
 constexpr int kK4Warps = 4, kK4Threads = 32 * kK4Warps;
 constexpr int kK4Regions = 8;                         // frames a block holds / jobs in flight
 constexpr int kK4WinRows = kR + 16;                   // 64 taps + the next frame's first 16
@@ -683,20 +656,29 @@ constexpr int kK4Region = kR * kK4Ld * 4;             // 12,800 bytes
 constexpr int kK4WinOff = kK4Region - kK4WinRows * kC;  // 2,560: the window at the region's end
 constexpr int kK4Smem = kSp * kC + kK4Regions * kK4Region + 32;
 constexpr int kK4MaxCluster = 8;
+// the rows of m-tiles 0 .. m - 1 (3,200 bytes each) are emitted after
+// m-tile m's reads: they stay below m-tile m + 1's taps (the worst: m = 3)
 static_assert(3200 * 3 <= kK4WinOff + 2048 * 4, "held c rows stay below the taps still read");
+
+enum class K4Mode { kCombine, kMlp1, kRaw };
 
 // byte offset of 16-byte chunk c of a 128-byte row r, XOR-swizzled
 __device__ __forceinline__ int k4_swz(int r, int c) { return r * kC + ((c ^ (r & 7)) << 4); }
 
-template <bool kHold, bool kMlp1>
-__global__ void __launch_bounds__(kK4Threads, 2)
-corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,
-                   const int* __restrict__ starts, const float* __restrict__ wxy,
-                   int8_t* __restrict__ vol, float* __restrict__ scale_out, int Tp, int Hp,
-                   int Wp, int cs) {
+template <bool kHold, K4Mode kMode>
+__device__ __forceinline__ void k4_cluster_body(const int8_t* __restrict__ fm,
+                                                const int8_t* __restrict__ sup,
+                                                const int* __restrict__ starts,
+                                                const float* __restrict__ wxy,
+                                                int8_t* __restrict__ vol,
+                                                float* __restrict__ scale_out, int Tp, int Hp,
+                                                int Wp, int cs) {
+  constexpr bool kMlp1 = kMode == K4Mode::kMlp1, kRaw = kMode == K4Mode::kRaw;
   // K4m: codes rows of the 2,401 real taps (kKm bytes), the window's own 64
-  // taps only (its combine never leaves the frame); K4: rows of all 64 taps
-  constexpr int kRow = kMlp1 ? kKm : kR * kS, kWinRows = kMlp1 ? kR : kK4WinRows;
+  // taps only (its combine never leaves the frame); K4r: the window's own 64
+  // taps; K4: rows of all 64 taps and the next frame's first 16
+  constexpr int kRow = kMlp1 ? kKm : kR * kS;
+  constexpr int kWinRows = kMode == K4Mode::kCombine ? kK4WinRows : kR;
   extern __shared__ __align__(128) unsigned char k4_smem[];
   int8_t* sup_s = reinterpret_cast<int8_t*>(k4_smem);
   unsigned char* regions = k4_smem + kSp * kC;
@@ -705,7 +687,7 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   const int rank = blockIdx.x % cs, p = blockIdx.x / cs;
   const int f0 = rank * Tp / cs, nf = (rank + 1) * Tp / cs - f0;
   const int* st = starts + static_cast<size_t>(p) * Tp * 3;
-  const float* wp = wxy + static_cast<size_t>(p) * Tp * 2;
+  const float* wp = kRaw ? nullptr : wxy + static_cast<size_t>(p) * Tp * 2;  // K4r: no (wx, wy)
   int8_t* outp = vol + static_cast<size_t>(p) * Tp * kRow;
   const int nwf = nf > warp ? (nf - warp + kK4Warps - 1) / kK4Warps : 0;  // this warp's frames
   const int njobs = (kHold ? 1 : 2) * nwf;
@@ -768,15 +750,20 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   // (taps 8y .. 8y + 7, this lane's x = g) at columns 8nt + 2t4 + {0, 1}.
   // K4m tracks the RAW products' absmax here (the frame's 64 taps x 49) and
   // runs no product for the fifth m-tile: its rows y = 7 are junk it drops.
+  // K4r emits the raw g (no combine) and tracks its absmax here too.
   auto run = [&](int q, auto emit) {
     cp_async_wait<1>();
     __syncwarp();
     const int t = frame(q);
-    const float wx = wp[2 * t], wy = wp[2 * t + 1];
+    // K4, K4m: the combine's weights (K4r: none); raw row 2m - 1, its x+1
+    // shuffle, gx of row 2m - 2
+    [[maybe_unused]] const float wx = kRaw ? 0.f : wp[2 * t], wy = kRaw ? 0.f : wp[2 * t + 1];
     const int8_t* win = reinterpret_cast<const int8_t*>(region(q)) + kK4WinOff;
-    float P[7][2], SP[7][2], Q[7][2];  // raw row 2m - 1, its x+1 shuffle, gx of row 2m - 2
+    [[maybe_unused]] float P[7][2], SP[7][2], Q[7][2];
+    // K4r: the m-tile before's g, rows 2m - 2 (k = 0, 1) and 2m - 1 (k = 2, 3)
+    [[maybe_unused]] float R[7][4];
 #pragma unroll
-    for (int m = 0; m < 5; ++m) {
+    for (int m = 0; m < (kRaw ? 4 : 5); ++m) {
       int acc[7][4];
 #pragma unroll
       for (int nt = 0; nt < 7; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0;
@@ -789,37 +776,56 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
           for (int nt = 0; nt < 7; ++nt) mma_s8_16832(acc[nt], af, bfr[nt][kk]);
         }
       }
-      if (kMlp1 && m < 4) {  // columns past 48 are zero support rows: |g| = 0
+      if ((kMlp1 || kRaw) && m < 4) {  // columns past 48 are zero support rows: |g| = 0
 #pragma unroll
         for (int nt = 0; nt < 7; ++nt)
 #pragma unroll
           for (int k = 0; k < 4; ++k) amax = fmaxf(amax, fabsf(static_cast<float>(acc[nt][k])));
       }
       __syncwarp();  // every lane's reads of this m-tile are done before rows land below it
+      if constexpr (kRaw) {  // the raw g: the m-tile before's rows, then hold this one's
+#pragma unroll
+        for (int nt = 0; nt < 7; ++nt) {
+          if (m > 0) {
+            emit(2 * m - 2, nt, R[nt][0], R[nt][1]);
+            emit(2 * m - 1, nt, R[nt][2], R[nt][3]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) R[nt][k] = static_cast<float>(acc[nt][k]);
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 7; ++nt) {
+          float ca[2] = {0.f, 0.f}, cb[2] = {0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < (nt < 6 ? 2 : 1); ++j) {  // n-tile 6: only column 48 is real
+            const float y0 = static_cast<float>(acc[nt][j]);      // row 2m, x = g
+            const float y1 = static_cast<float>(acc[nt][2 + j]);  // row 2m + 1
+            const float s0 = __shfl_sync(0xffffffffu, y0, (lane + 4) & 31);
+            const float s1 = __shfl_sync(0xffffffffu, y1, (lane + 4) & 31);
+            const float gx0 = __fadd_rn(y0, __fmul_rn(wx, __fsub_rn(g == 7 ? s1 : s0, y0)));
+            if (m > 0) {
+              const float gxp =
+                  __fadd_rn(P[nt][j], __fmul_rn(wx, __fsub_rn(g == 7 ? s0 : SP[nt][j], P[nt][j])));
+              ca[j] = __fadd_rn(Q[nt][j], __fmul_rn(wy, __fsub_rn(gxp, Q[nt][j])));
+              cb[j] = __fadd_rn(gxp, __fmul_rn(wy, __fsub_rn(gx0, gxp)));
+            }
+            P[nt][j] = y1;
+            SP[nt][j] = s1;
+            Q[nt][j] = gx0;
+          }
+          if (m > 0) {
+            emit(2 * m - 2, nt, ca[0], ca[1]);
+            emit(2 * m - 1, nt, cb[0], cb[1]);
+          }
+        }
+      }
+    }
+    if constexpr (kRaw) {  // the last m-tile's rows, after its reads
 #pragma unroll
       for (int nt = 0; nt < 7; ++nt) {
-        float ca[2] = {0.f, 0.f}, cb[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < (nt < 6 ? 2 : 1); ++j) {  // n-tile 6: only column 48 is real
-          const float y0 = static_cast<float>(acc[nt][j]);      // row 2m, x = g
-          const float y1 = static_cast<float>(acc[nt][2 + j]);  // row 2m + 1
-          const float s0 = __shfl_sync(0xffffffffu, y0, (lane + 4) & 31);
-          const float s1 = __shfl_sync(0xffffffffu, y1, (lane + 4) & 31);
-          const float gx0 = __fadd_rn(y0, __fmul_rn(wx, __fsub_rn(g == 7 ? s1 : s0, y0)));
-          if (m > 0) {
-            const float gxp =
-                __fadd_rn(P[nt][j], __fmul_rn(wx, __fsub_rn(g == 7 ? s0 : SP[nt][j], P[nt][j])));
-            ca[j] = __fadd_rn(Q[nt][j], __fmul_rn(wy, __fsub_rn(gxp, Q[nt][j])));
-            cb[j] = __fadd_rn(gxp, __fmul_rn(wy, __fsub_rn(gx0, gxp)));
-          }
-          P[nt][j] = y1;
-          SP[nt][j] = s1;
-          Q[nt][j] = gx0;
-        }
-        if (m > 0) {
-          emit(2 * m - 2, nt, ca[0], ca[1]);
-          emit(2 * m - 1, nt, cb[0], cb[1]);
-        }
+        emit(6, nt, R[nt][0], R[nt][1]);
+        emit(7, nt, R[nt][2], R[nt][3]);
       }
     }
     __syncwarp();
@@ -832,14 +838,14 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
     if constexpr (kHold) {
       float* cs_ = reinterpret_cast<float*>(region(q));
       run(q, [&](int y, int nt, float c0, float c1) {
-        if (!kMlp1) track_max(y, nt, c0, c1);
+        if (kMode == K4Mode::kCombine) track_max(y, nt, c0, c1);
         float* cr = cs_ + (8 * y + g) * kK4Ld + 8 * nt + 2 * t4;
         if (nt < 6)
           *reinterpret_cast<float2*>(cr) = make_float2(c0, c1);
         else if (t4 == 0)
           cr[0] = c0;
       });
-    } else if constexpr (kMlp1) {
+    } else if constexpr (kMode != K4Mode::kCombine) {  // K4m, K4r: the absmax is run's
       run(q, [](int, int, float, float) {});
     } else {
       run(q, track_max);
@@ -934,10 +940,32 @@ corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup
   cluster_wait();  // no block leaves while another may still read its maximum
 }
 
-template <bool kHold, bool kMlp1 = false>
+// K4 (kMlp1 false) and K4m's code rows (true)
+template <bool kHold, bool kMlp1>
+__global__ void __launch_bounds__(kK4Threads, 2)
+corr_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,
+                   const int* __restrict__ starts, const float* __restrict__ wxy,
+                   int8_t* __restrict__ vol, float* __restrict__ scale_out, int Tp, int Hp,
+                   int Wp, int cs) {
+  k4_cluster_body<kHold, kMlp1 ? K4Mode::kMlp1 : K4Mode::kCombine>(fm, sup, starts, wxy, vol,
+                                                                   scale_out, Tp, Hp, Wp, cs);
+}
+
+// K4r (wxy unused)
+template <bool kHold>
+__global__ void __launch_bounds__(kK4Threads, 2)
+k4r_volume_kernel(const int8_t* __restrict__ fm, const int8_t* __restrict__ sup,
+                  const int* __restrict__ starts, const float* __restrict__ wxy,
+                  int8_t* __restrict__ vol, float* __restrict__ scale_out, int Tp, int Hp, int Wp,
+                  int cs) {
+  k4_cluster_body<kHold, K4Mode::kRaw>(fm, sup, starts, wxy, vol, scale_out, Tp, Hp, Wp, cs);
+}
+
+template <bool kHold, K4Mode kMode>
 int launch_k4(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
               int8_t* vol, float* scale, int NP, int Tp, int Hp, int Wp, int cs, void* stream) {
-  auto kern = corr_volume_kernel<kHold, kMlp1>;
+  auto kern = kMode == K4Mode::kRaw ? k4r_volume_kernel<kHold>
+                                    : corr_volume_kernel<kHold, kMode == K4Mode::kMlp1>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kK4Smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1065,10 +1093,10 @@ int launch_k4m(const int8_t* fm, const int8_t* sup, const int* starts, const flo
                const int8_t* w1, const float* w1s, const float* b1, const float* sup_scale,
                int8_t* codes, float* gscale, void* out, int NP, int Tp, int Hp, int Wp, int cs,
                bool hold, void* stream) {
-  int e = hold ? launch_k4<true, true>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp, Wp, cs,
-                                       stream)
-               : launch_k4<false, true>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp, Wp, cs,
-                                        stream);
+  int e = hold ? launch_k4<true, K4Mode::kMlp1>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp,
+                                                Wp, cs, stream)
+               : launch_k4<false, K4Mode::kMlp1>(fm, sup, starts, wxy, codes, gscale, NP, Tp, Hp,
+                                                 Wp, cs, stream);
   if (e != cudaSuccess) return e;
   auto kern = mlp1_gemm_kernel<OutT>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMlpSmem);
@@ -1077,6 +1105,12 @@ int launch_k4m(const int8_t* fm, const int8_t* sup, const int* starts, const flo
   kern<<<(rows + kMlpBM - 1) / kMlpBM, kMlpThreads, kMlpSmem, static_cast<cudaStream_t>(stream)>>>(
       codes, gscale, sup_scale, w1, w1s, b1, static_cast<OutT*>(out), rows, Tp);
   return cudaGetLastError();
+}
+
+// k4_plan's tiling, as corr_volume_kernel / k4r_volume_kernel take it
+inline bool k4_tiling_ok(int NP, int Tp, int Hp, int Wp, int cluster, int hold) {
+  return NP >= 1 && Tp >= 1 && Hp >= 8 && Wp >= 8 && cluster >= 1 && cluster <= kK4MaxCluster &&
+         cluster <= Tp && (!hold || (Tp + cluster - 1) / cluster <= kK4Regions);
 }
 
 }  // namespace ct
@@ -1104,9 +1138,7 @@ int ct_corr_mlp1(const int8_t* fm, const int8_t* sup, const int* starts, const f
                  const int8_t* w1, const float* w1s, const float* b1, const float* sup_scale,
                  int8_t* codes, float* gscale, void* out, int out_bf16, int NP, int Tp, int Hp,
                  int Wp, int Dh, int cluster, int hold, void* stream) {
-  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8 || Dh != ct::kDh || cluster < 1 ||
-      cluster > ct::kK4MaxCluster || cluster > Tp ||
-      (hold && (Tp + cluster - 1) / cluster > ct::kK4Regions) ||
+  if (!ct::k4_tiling_ok(NP, Tp, Hp, Wp, cluster, hold) || Dh != ct::kDh ||
       static_cast<long long>(NP) * Tp > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   return out_bf16 ? ct::launch_k4m<__nv_bfloat16>(fm, sup, starts, wxy, w1, w1s, b1, sup_scale,
@@ -1124,25 +1156,26 @@ int ct_k4m_gemm_smem() { return ct::kMlpSmem; }
 int ct_corr_volume(const int8_t* fm, const int8_t* sup, const int* starts, const float* wxy,
                    int8_t* vol, float* scale, int NP, int Tp, int Hp, int Wp, int cluster,
                    int hold, void* stream) {
-  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8 || cluster < 1 || cluster > ct::kK4MaxCluster ||
-      cluster > Tp || (hold && (Tp + cluster - 1) / cluster > ct::kK4Regions))
-    return cudaErrorInvalidValue;
-  return hold ? ct::launch_k4<true>(fm, sup, starts, wxy, vol, scale, NP, Tp, Hp, Wp, cluster,
-                                    stream)
-              : ct::launch_k4<false>(fm, sup, starts, wxy, vol, scale, NP, Tp, Hp, Wp, cluster,
-                                     stream);
+  if (!ct::k4_tiling_ok(NP, Tp, Hp, Wp, cluster, hold)) return cudaErrorInvalidValue;
+  return hold ? ct::launch_k4<true, ct::K4Mode::kCombine>(fm, sup, starts, wxy, vol, scale, NP,
+                                                          Tp, Hp, Wp, cluster, stream)
+              : ct::launch_k4<false, ct::K4Mode::kCombine>(fm, sup, starts, wxy, vol, scale, NP,
+                                                           Tp, Hp, Wp, cluster, stream);
 }
 
 // K4's shared-memory bytes a block (k4_plan checks its own arithmetic).
 int ct_k4_smem() { return ct::kK4Smem; }
 
-// K4r: the raw volume's codes and scale, one block a point.
+// K4r: the raw volume's codes and scale, K4's cluster kernel in its K4r mode
+// on the same tiling (k4_plan: `cluster` and `hold` as ct_corr_volume's).
 int ct_corr_volume_raw(const int8_t* fm, const int8_t* sup, const int* starts, int8_t* vol,
-                       float* scale, int NP, int Tp, int Hp, int Wp, void* stream) {
-  if (NP < 1 || Tp < 1 || Hp < 8 || Wp < 8) return cudaErrorInvalidValue;
-  ct::corr_volume_raw_kernel<<<NP, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      fm, sup, starts, vol, scale, Tp, Hp, Wp);
-  return cudaGetLastError();
+                       float* scale, int NP, int Tp, int Hp, int Wp, int cluster, int hold,
+                       void* stream) {
+  if (!ct::k4_tiling_ok(NP, Tp, Hp, Wp, cluster, hold)) return cudaErrorInvalidValue;
+  return hold ? ct::launch_k4<true, ct::K4Mode::kRaw>(fm, sup, starts, nullptr, vol, scale, NP, Tp,
+                                                      Hp, Wp, cluster, stream)
+              : ct::launch_k4<false, ct::K4Mode::kRaw>(fm, sup, starts, nullptr, vol, scale, NP,
+                                                       Tp, Hp, Wp, cluster, stream);
 }
 
 // K4f: vol (NP, Tp, 64, 49) in the operands' dtype (bf16 = 1: bfloat16, else

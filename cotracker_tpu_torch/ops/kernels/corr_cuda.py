@@ -29,8 +29,9 @@ the two are different functions, as in the JAX package. Both the fold path
 int8 correlation.
 
 K4r and K4f emit the RAW window volume (no combine): K4r as int8 codes with
-a per-point scale over the raw volume (quant_int8), K4f in the compute
-dtype, on `k4f_plan`'s persistent blocks (3xTF32 tensor cores in float32,
+a per-point scale over the raw volume (quant_int8), K4's cluster kernel in
+its K4r mode on `k4_plan`'s tiling; K4f in the compute dtype, on
+`k4f_plan`'s persistent blocks (3xTF32 tensor cores in float32,
 FMAs in k order in bfloat16). `fused_corr_embs_kernel` runs either per
 level with the XLA epilogue of `fused_corr_embs_pallas` (combine, MLP1,
 exact GELU, fc2), and
@@ -264,6 +265,28 @@ def k4_plan(NP: int, Tp: int) -> K4Plan:
     return K4Plan(frames <= K4_REGIONS, cluster, frames, K4_SMEM, NP * cluster)
 
 
+def _k4_launch(fmq, supq, starts, wxy, plan: K4Plan):
+    """One launch of K4's cluster kernel on `plan`: its K4 mode (the
+    combined volume) where wxy is given, its K4r mode (the raw volume,
+    ct_corr_volume_raw) where wxy is None. Returns vol (NP, Tp, 64, 49) int8
+    and scale (NP,) f32."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    NP, Tp, _ = starts.shape
+    _, Hp, Wp, _ = fmq.shape
+    starts = starts.to(torch.int32).contiguous()
+    fmq, supq = fmq.contiguous(), supq.contiguous()
+    vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
+    scale = torch.empty((NP,), dtype=F32, device=fmq.device)
+    if wxy is None:
+        name, head = "ct_corr_volume_raw", (fmq, supq, starts, vol, scale)
+    else:
+        name, head = "ct_corr_volume", (fmq, supq, starts, wxy.to(F32).contiguous(), vol, scale)
+    fn = _bound(name, *([P] * len(head)), I, I, I, I, I, I, P)
+    _build.check(fn(*map(_build.ptr, head), NP, Tp, Hp, Wp, plan.cluster, int(plan.hold),
+                    _build.stream_ptr(fmq)), name)
+    return vol, scale
+
+
 def corr_volume_int8(fmq, supq, starts, wxy):
     """K4: per point, the bilinearly combined int8 correlation volume over
     all frames and its scale; see corr_volume_plain for the layouts. One
@@ -273,21 +296,10 @@ def corr_volume_int8(fmq, supq, starts, wxy):
     _check_operands(fmq, supq, starts, (torch.int8,), "K4")
     if wxy.device.type != "cuda":
         raise ValueError("kernel inputs must all be CUDA tensors")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _bound("ct_corr_volume", P, P, P, P, P, P, I, I, I, I, I, I, P)
     NP, Tp, _ = starts.shape
-    _, Hp, Wp, _ = fmq.shape
-    plan = k4_plan(NP, Tp)
-    starts, wxy = starts.to(torch.int32).contiguous(), wxy.to(F32).contiguous()
-    fmq, supq = fmq.contiguous(), supq.contiguous()
-    vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
-    scale = torch.empty((NP,), dtype=F32, device=fmq.device)
-    _build.check(fn(
-        _build.ptr(fmq), _build.ptr(supq), _build.ptr(starts), _build.ptr(wxy),
-        _build.ptr(vol), _build.ptr(scale), NP, Tp, Hp, Wp, plan.cluster, int(plan.hold),
-        _build.stream_ptr(fmq)), "ct_corr_volume")
+    out = _k4_launch(fmq, supq, starts, wxy, k4_plan(NP, Tp))
     corr_volume_int8.launches += 1
-    return vol, scale
+    return out
 
 
 corr_volume_int8.launches = 0
@@ -382,23 +394,15 @@ corr_mlp1_int8.launches = 0
 
 def corr_volume_raw_int8(fmq, supq, starts):
     """K4r: per point, the raw int8 correlation volume over all frames and
-    its scale; see corr_volume_raw_plain."""
+    its scale; see corr_volume_raw_plain. One launch of K4's cluster kernel
+    in its K4r mode, on k4_plan's tiling."""
     if fmq.device.type == "cpu":
         return corr_volume_raw_plain(fmq, supq, starts)
     _check_operands(fmq, supq, starts, (torch.int8,), "K4r")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _bound("ct_corr_volume_raw", P, P, P, P, P, I, I, I, I, P)
     NP, Tp, _ = starts.shape
-    _, Hp, Wp, _ = fmq.shape
-    starts = starts.to(torch.int32).contiguous()
-    fmq, supq = fmq.contiguous(), supq.contiguous()
-    vol = torch.empty((NP, Tp, WIN * WIN, S), dtype=torch.int8, device=fmq.device)
-    scale = torch.empty((NP,), dtype=F32, device=fmq.device)
-    _build.check(fn(_build.ptr(fmq), _build.ptr(supq), _build.ptr(starts), _build.ptr(vol),
-                    _build.ptr(scale), NP, Tp, Hp, Wp, _build.stream_ptr(fmq)),
-                 "ct_corr_volume_raw")
+    out = _k4_launch(fmq, supq, starts, None, k4_plan(NP, Tp))
     corr_volume_raw_int8.launches += 1
-    return vol, scale
+    return out
 
 
 corr_volume_raw_int8.launches = 0

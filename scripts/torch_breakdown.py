@@ -90,7 +90,7 @@ GROUPS = (  # first match wins, on the device kernel's name
 
 
 TRAIN_GROUPS = (
-    ("K4r corr_volume_raw_kernel", ("corr_volume_raw_kernel",)),
+    ("K4r k4r_volume_kernel (K4's cluster kernel in its K4r mode)", ("k4r_volume_kernel",)),
     ("K4f k4f_volume_kernel", ("k4f_volume_kernel",)),
     ("gathers and scatters (window gathers, their backward)", ("index", "gather", "scatter")),
     ("convolutions (fnet, forward and backward)",

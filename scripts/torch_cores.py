@@ -46,7 +46,11 @@ torch.bmm alone, with its bytes and operation bounds and, on a checkout
 with k4f_plan, at each frame group of its tasks; and K10 (LN + W8A8
 dense) at the micro-benchmark's 604,800 rows in each (ln, affine,
 residual) combination, bit for bit against its first body, beside it and a
-library chain.
+library chain. Then K4r (the raw int8 volume of the training path: K4's
+cluster kernel in its K4r mode) at 768 x 16, 2,048 x 60 and 256 x 80 (two
+passes), bit for bit against corr_volume_raw_plain, beside the plain
+version, with its plan, device launches and bound; on an earlier checkout
+(--root) its first body.
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
@@ -57,6 +61,7 @@ library chain.
     python3 scripts/torch_cores.py --only k8 k4m --root build/parent
     python3 scripts/torch_cores.py --only k11 k12 --root build/parent
     python3 scripts/torch_cores.py --only k4f k10 --root build/parent
+    python3 scripts/torch_cores.py --only k4r k4 k4m --root build/parent
     python3 scripts/torch_cores.py --only k4 k9 --root path/to/checkout
                                                 # the same sections on
                                                 # another checkout's package
@@ -124,6 +129,20 @@ def hm(t):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def window_bytes(fmq, starts):
+    """The level map's bytes that the 8 x 8 windows at `starts` (frame, wy,
+    wx) read: each (frame, y, x) pixel that some window covers, once (the
+    padded map's rim and the pixels no window reaches are not read)."""
+    F, Hp, Wp, C = fmq.shape
+    s = starts.reshape(-1, 3).long()
+    d = torch.arange(8, device=s.device)
+    f, wy, wx = (s[:, i, None, None] for i in range(3))
+    pix = (f * Hp + wy + d[:, None]) * Wp + wx + d
+    covered = torch.zeros(F * Hp * Wp, dtype=torch.bool, device=s.device)
+    covered[pix.flatten()] = True
+    return int(covered.sum().item()) * C * fmq.element_size()
 
 
 def emit(**rec):
@@ -348,7 +367,46 @@ def k4m_section(dev, g):
         del fmq, supq, starts, wxy, out, ref
 
 
-SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m", "k11", "k12", "k4f", "k10")
+# K4r: the training shape, the inference chunk (level 0 of the 384x512
+# input) and 80 frames (K4's cluster kernel in two passes)
+K4R_SHAPES = ((768, 16), (2048, 60), (256, 80))
+
+
+def k4r_section(dev, g):
+    """K4r (the raw int8 volume of the training path) at the training shape,
+    the inference chunk and 80 frames: the wrapper's body (K4's cluster
+    kernel in its K4r mode on k4_plan; on an earlier checkout its first
+    body) against corr_volume_raw_plain bit for bit, its time, its device
+    launches, the plain version's time, the plan where the checkout runs
+    K4r on it, and the bound (bytes against the s8 products at the int8
+    peak; of the level map only the pixels the windows cover)."""
+    Hh, W = 96, 128
+    on_plan = hasattr(corr_cuda, "_k4_launch")
+    for n, T in K4R_SHAPES:
+        fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g), dim=-1).to(dev)
+        sup = torch.nn.functional.normalize(torch.randn(1, 49, n, 128, generator=g), dim=-1).to(dev)
+        coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+        starts, _ = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        fmq = corr_cuda.build_int8_level(fm, 3)
+        supq = corr_cuda.quantize_support(sup, torch.float32)[0].reshape(n, 49, 128)
+        del fm, sup
+        Tp = starts.shape[1]
+        fn = lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)  # noqa: E731
+        vol, scale = fn()
+        rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+        emit(kernel="K4r", points=n, frames=T,
+             plan=corr_cuda.k4_plan(n, Tp)._asdict() if on_plan else None,
+             code_mismatches=int((vol != rvol).sum().item()),
+             scale_mismatches=int((scale != rscale).sum().item()),
+             ms=time_ms(fn), device_launches=device_launches(fn),
+             plain_ms=time_ms(lambda: corr_cuda.corr_volume_raw_plain(fmq, supq, starts), reps=2),
+             bound_ms=bound_ms(window_bytes(fmq, starts) + nbytes(supq, starts, vol, scale),
+                               n * Tp * 64 * 49 * 128 * 2 / INT8_OPS))
+        del fmq, supq, starts, vol, rvol
+
+
+SECTIONS = ("k4", "k9", "cores", "k1", "k2", "k3", "k8", "k4m", "k11", "k12", "k4f", "k10",
+            "k4r")
 
 
 def main():
@@ -371,7 +429,8 @@ def main():
     seeds = dict(zip(SECTIONS, range(len(SECTIONS))))
     run = dict(k4=k4_section, k9=k9_section, cores=lambda d, g: cores_section(d, g, args.sweep),
                k1=k1_section, k2=k2_section, k3=k3_section, k8=k8_section, k4m=k4m_section,
-               k11=k11_section, k12=k12_section, k4f=k4f_section, k10=k10_section)
+               k11=k11_section, k12=k12_section, k4f=k4f_section, k10=k10_section,
+               k4r=k4r_section)
     for name in SECTIONS:
         if name in args.only:
             run[name](dev, torch.Generator().manual_seed(seeds[name]))

@@ -26,8 +26,9 @@ exactly. The attention cores K5-K7 have no int8 step: float32 within 1e-5
 of the output scale (summation order, expf against torch.exp), bfloat16
 within the rounding of the output and of the probabilities (two bf16 ulps,
 2^-7 relative to the largest output). K4 is held so on every route of its plan (one pass in a
-cluster, two passes past 64 frames). K4r's integer products are exact
-and its arithmetic the plain version's: codes and scales match exactly.
+cluster, two passes past 64 frames). K4r runs K4's cluster kernel in its
+K4r mode: its integer products are exact and its arithmetic the plain
+version's, so codes and scales match exactly on every route of k4_plan.
 K4f sums float32 products in another order in float32 (3xTF32 on the
 tensor cores, whose dropped terms are under 2^-21 of sum|a b|): 1e-5 of
 the largest output; in bfloat16 it sums in the plain version's order, one
@@ -296,12 +297,19 @@ def _raw_operands(g, dev, B, T, Hh, W, NP):
     return fm.to(dev), sup.to(dev), starts
 
 
-@pytest.mark.parametrize("T", [5, 16])
-def test_corr_volume_raw(dev, T):
-    g = torch.Generator().manual_seed(30 + T)
-    fm, sup, starts = _raw_operands(g, dev, 2, T, 24, 32, 40)
+@pytest.mark.parametrize("B,NP", [(2, 40), (1, 37)])
+@pytest.mark.parametrize("T", [1, 5, 16, 60, 80])
+def test_corr_volume_raw(dev, T, B, NP):
+    """K4r (K4's cluster kernel in its K4r mode) on every route of k4_plan,
+    codes and scales bit-identical to the plain version, one device launch:
+    held on chip (T = 1 and 5, padded to 2 and 6 frames, in one block a
+    point; 16 in a cluster of 2; 60 in a cluster of 8) and two passes (80
+    frames); 37 points fill no whole wave of clusters."""
+    g = torch.Generator().manual_seed(30 + T + NP)
+    fm, sup, starts = _raw_operands(g, dev, B, T, 24, 32, NP)
     fmq = corr_cuda.build_int8_level(fm, 3)
     supq = torch.round(sup * 127.0).to(torch.int8)
+    assert corr_cuda.k4_plan(NP, starts.shape[1]).hold == (starts.shape[1] <= 64)
     n = corr_cuda.corr_volume_raw_int8.launches
     vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
     torch.cuda.synchronize()
@@ -310,6 +318,25 @@ def test_corr_volume_raw(dev, T):
     assert torch.equal(scale, rscale)
     assert torch.equal(vol, rvol)
     assert vol.abs().amax(dim=(1, 2, 3)).eq(127).all()
+    assert device_launches(lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)) == 1
+
+
+@pytest.mark.parametrize("T", [16, 80])
+def test_corr_volume_raw_zero_support(dev, T):
+    """A point whose support is all zero: its raw volume is 0, so its scale
+    is the 1e-20 floor (times 1/127) and its codes all 0, on both routes;
+    the other points keep theirs."""
+    g = torch.Generator().manual_seed(70 + T)
+    fm, sup, starts = _raw_operands(g, dev, 2, T, 24, 32, 40)
+    fmq = corr_cuda.build_int8_level(fm, 3)
+    supq = torch.round(sup * 127.0).to(torch.int8)
+    supq[3] = 0
+    vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
+    rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+    assert torch.equal(scale, rscale) and torch.equal(vol, rvol)
+    floor = torch.tensor(1e-20, dtype=torch.float32) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    assert scale[3].item() == floor.item() and not vol[3].any()
+    assert vol[4].abs().amax().item() == 127
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

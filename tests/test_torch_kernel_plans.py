@@ -333,3 +333,33 @@ def test_k11_takes_k2s_route(monkeypatch):
             M.fused_space_block_allt_int8(x, torch.empty(16, 129, 768, dtype=dtype, device="meta"),
                                           w, 8, 48)
     assert M.fused_space_block_int8.launches == n2
+
+
+@pytest.mark.parametrize("Tp", [1, 16, 60, 80])
+def test_k4r_takes_k4s_cluster_kernel(monkeypatch, Tp):
+    """K4r runs K4's cluster kernel in its K4r mode on k4_plan's tiling. A
+    call probe on meta tensors, with the launch helper replaced: one launch
+    a call with no (wx, wy) (the K4r mode) on k4_plan(NP, Tp), every frame
+    held on chip up to 64 frames, two passes past that, counted once. The
+    plan is one K4's entries take: at most corr_window.cu's kK4MaxCluster
+    blocks, no more than the frames, and held only where a block's frames
+    fit its kK4Regions regions."""
+    C = corr_cuda
+    calls = []
+    monkeypatch.setattr(C, "_check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(C, "_k4_launch", lambda *a: calls.append(a) or ("vol", "scale"))
+    monkeypatch.setattr(C.corr_volume_raw_int8, "launches", 0)
+    NP = 37
+    fmq = torch.empty(Tp, 112, 144, 128, dtype=torch.int8, device="meta")
+    supq = torch.empty(NP, 49, 128, dtype=torch.int8, device="meta")
+    starts = torch.empty(NP, Tp, 3, dtype=torch.int32, device="meta")
+    assert C.corr_volume_raw_int8(fmq, supq, starts) == ("vol", "scale")
+    (_, _, _, wxy, plan), = calls
+    assert wxy is None and plan == C.k4_plan(NP, Tp) and plan.hold == (Tp <= 64)
+    assert C.corr_volume_raw_int8.launches == 1
+
+    src = (_build.CSRC / "corr_window.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (kK4\w+) = (\d+);", src)}
+    assert 1 <= plan.cluster <= min(consts["kK4MaxCluster"], Tp)
+    assert plan.frames == -(-Tp // plan.cluster)
+    assert (plan.frames <= consts["kK4Regions"]) == plan.hold

@@ -166,3 +166,27 @@ def test_corr_volume_layout_and_scale():
     codes = torch.round(c / s).to(torch.int8).reshape(2, 64, 49)
     np.testing.assert_array_equal(vol[0].numpy(), codes.numpy())
     assert vol.abs().max().item() == 127
+
+
+def test_corr_volume_raw_layout_and_scale():
+    """The plain K4r on a hand-built case: each frame's volume is its own
+    window's raw correlation in (y, x, s) order, with nothing wrapped across
+    frames (frame 0's last taps are its own (7, x) row, not frame 1's first),
+    and the per-point scale is the raw absmax over both frames: frame 1
+    holds the maximum (code 127), frame 0's smaller values keep smaller
+    codes on the same scale."""
+    rng = np.random.default_rng(4)
+    fm = np.stack([rng.integers(-20, 21, (16, 16, 128)), rng.integers(-127, 128, (16, 16, 128))])
+    fmq = torch.from_numpy(fm.astype(np.int8))
+    supq = torch.from_numpy(rng.integers(-127, 128, (1, 49, 128)).astype(np.int8))
+    starts = torch.tensor([[[0, 2, 3], [1, 4, 5]]], dtype=torch.int32)
+    vol, scale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+    assert vol.shape == (1, 2, 64, 49) and vol.dtype == torch.int8 and scale.shape == (1,)
+    sup = supq[0].double().t()
+    g = torch.stack([fmq[0, 2:10, 3:11].reshape(64, 128).double() @ sup,
+                     fmq[1, 4:12, 5:13].reshape(64, 128).double() @ sup])  # (frame, y*8+x, s)
+    s = g.abs().max().item() / 127.0
+    assert abs(scale.item() - s) <= 1e-6 * s
+    codes = torch.round(g.float() * (1.0 / scale)).to(torch.int8)
+    np.testing.assert_array_equal(vol[0].numpy(), codes.numpy())
+    assert vol[0, 1].abs().max().item() == 127 and vol[0, 0].abs().max().item() < 64
