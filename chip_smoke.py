@@ -48,7 +48,13 @@ Phases, each raising on failure:
      and 2,560 tracks x 250 frames) and virtual tokens (64 x 250); K8 in
      bf16 is the streamed body (persistent blocks on a weight stream),
      held bit for bit to its PR 4 body, which is timed beside it; K9 in
-     bf16 is K1's streamed tail with K9's prologue;
+     bf16 is K1's streamed tail with K9's prologue; then every kernel that
+     phases 16-19 launch at the shapes they give it (SURFACE: 16,384 x 24,
+     3,072 x 60, 2,560 x 24 and 320 x 300 padded tracks x frames, on the
+     route the gates pick: K1 or K8 -> K5 -> K9 for the point tokens and
+     for the 64 virtual tokens, K2, K3, and K4 at levels 0-3 of one chunk),
+     against their plain versions with the bounds above, each phase
+     failing if its forward ran at another shape;
   4. the offline main path: CoTrackerPredictor(fast=True) at full width
      (384x512, 4 levels, 3+3 blocks, iters=6) on a synthetic
      (1, 60, 3, 384, 512) video with a 100x100 grid of queries (10,000
@@ -133,7 +139,32 @@ Phases, each raising on failure:
  15. (run after phase 9) a 600-frame video (384x512, a 16x16 grid: 256
      points, 512 padded) through CoTrackerPredictor(fast=True), one forward:
      past K5's 512-frame short route, K8 36, K5 36, K9 36, K2 18, K3 18, K4
-     24; shapes, finiteness, snap-back.
+     24; shapes, finiteness, snap-back;
+ 16. dense mode: CoTrackerPredictor(fast=True) with no queries and no grid
+     on a 24-frame 384x512 video: a grid step of 6 (85x64 points an
+     offset), 36 offsets, 3 a forward: 12 forwards of 16,320 tracks (16,384
+     padded), the launches of each forward as the gates route it (K1 36, K2
+     18, K3 18, K4 192); output (1, 24, 195,840, 2), each track at frame 0
+     within 1e-3 px of its pixel, the queries tiling the 510x384 area once;
+     seconds and points*frames/s;
+ 17. a segmentation mask: a 100x100 grid inside a seeded two-ellipse mask at
+     60 frames: the kept count against one computed here from the mask, the
+     tracks at frame 0 on the kept grid points, the forward's launches;
+ 18. the reference-format export and the hub: save_reference_checkpoint of
+     phase 4's model, hub.cotracker3_offline(checkpoint=path, fast=True):
+     state_dict, tracks and visibility bit for bit the original
+     predictor's (24 frames, 2,500 points), its launches; a URL raises;
+ 19. Dynamic Replica: a seeded tree (one sequence of 300 left-camera frames,
+     the CLI's sample_len, at 1280x720, uint8, each with a right-camera record; 1,000
+     trajectories a frame) through evaluate.run_eval(dataset_name=
+     "dynamic_replica", fast=True): the forward's launches as the gates
+     route its track and frame count, finite metrics, the result files;
+     seconds per sequence;
+ 20. the demos as their entry points build them (the plain float32 model)
+     on a seeded 24-frame 384x512 .npy video: demo.track_video's tracks and
+     rendered frames, online_demo.track_stream's tracks against its
+     predictor driven by hand with the loop's chunks; no mp4 (no OpenCV on
+     the card: save_video's ImportError names cv2).
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -308,20 +339,20 @@ K4_MORE = (("_l1", (48, 64), 60), ("_l2", (24, 32), 60), ("_l3", (12, 16), 60),
 K4_PLAIN_POINTS = 256  # points a plain K4 call takes (its f32 window gather grows with T)
 
 
-def k4_operands(g, dev, hw, T):
-    """K4's operands at one pyramid level for a CHUNK-point chunk: unit
-    features and support in bf16, coordinates uniform over the level."""
+def k4_operands(g, dev, hw, T, points=CHUNK):
+    """K4's operands at one pyramid level for a chunk of `points` points:
+    unit features and support in bf16, coordinates uniform over the level."""
     bf = torch.bfloat16
     Hh, W = hw
     fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
     fmq = corr_cuda.build_int8_level(fm.to(bf), 3)
     del fm
     sup = torch.nn.functional.normalize(
-        torch.randn(1, 49, CHUNK, 128, generator=g).to(dev), dim=-1).to(bf)
+        torch.randn(1, 49, points, 128, generator=g).to(dev), dim=-1).to(bf)
     supq, _ = corr_cuda.quantize_support(sup, bf)
-    coords = (torch.rand(1, T, CHUNK, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+    coords = (torch.rand(1, T, points, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
     starts, wxy = corr_cuda.level_operands(coords.to(bf), 1, T, Hh, W, 3)
-    return fmq, supq.reshape(CHUNK, 49, 128), starts, wxy
+    return fmq, supq.reshape(points, 49, 128), starts, wxy
 
 
 def k4_plain(fmq, supq, starts, wxy):
@@ -346,10 +377,51 @@ def k4_exact(what, ops):
 
 
 def k4_bound(ops, vol, scale):
+    """Bytes (of the level map only the pixels the windows read) against the
+    s8 products at the int8 peak and the combine at the f32 peak."""
     fmq, supq, starts, wxy = ops
-    n = CHUNK * starts.shape[1] * 64 * 49
-    return bound(nbytes(fmq, supq, starts, wxy, vol, scale),
+    n = supq.shape[0] * starts.shape[1] * 64 * 49
+    return bound(window_bytes(fmq, starts) + nbytes(supq, starts, wxy, vol, scale),
                  [(n * 128 * 2, INT8_OPS), (n * 10, F32_OPS)])
+
+
+def k1_bound(x, w):
+    """K1 (and K8 -> K5 -> K9's work): x read and written once, the weights
+    once; the W8A8 products at the int8 peak, the time core at bf16's."""
+    M, T, _ = x.shape
+    return bound(2 * nbytes(x) + nbytes(*[t for q in w for t in q]),
+                 [(M * T * 2 * C * (3 * C + C + 2 * HID), INT8_OPS),
+                  (M * T * HEADS * 4 * T * DH, BF16_OPS)])
+
+
+def k2_bound(x, kv, w):
+    M, T, _ = x.shape
+    return bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in w for t in q]),
+                 [(M * T * 2 * C * (2 * C + 2 * HID), INT8_OPS),
+                  (M * T * HEADS * 4 * kv.shape[1] * DH, BF16_OPS)])
+
+
+def k3_bound(q, x, wkv, kbias, out):
+    N, T, _ = x.shape
+    return bound(nbytes(q, x, wkv.w, kbias, out),
+                 [(N * T * 2 * C * 2 * C, INT8_OPS), (T * HEADS * q.shape[1] * N * 4 * DH, BF16_OPS)])
+
+
+def k5_bound(x, kv, out):
+    M, T, _ = x.shape
+    return bound(nbytes(x, kv, out), [(M * T * HEADS * 4 * T * DH, BF16_OPS)])
+
+
+def k8_bound(x, w):
+    M, T, _ = x.shape
+    return bound(nbytes(x) * 4 + nbytes(*[t for q in w for t in q]),
+                 [(M * T * 2 * C * 3 * C, INT8_OPS)])
+
+
+def k9_bound(x, w):
+    M, T, _ = x.shape
+    return bound(nbytes(x) * 3 + nbytes(*[t for q in w for t in q]),
+                 [(M * T * 2 * (C * C + 2 * C * HID), INT8_OPS)])
 
 
 def kernel_phase(dev):
@@ -412,9 +484,7 @@ def kernel_phase(dev):
               T, T_FRAMES, err,
               time_ms(lambda: mlp_int8_cuda.fused_time_block_int8(x, tw, HEADS, DH)),
               time_ms(lambda: mlp_int8_cuda.time_block_plain(x, tw, HEADS, DH), reps=2),
-              bound(2 * nbytes(x) + nbytes(*[t for q in tw for t in q]),
-                    [(rows * 2 * C * (3 * C + C + 2 * HID), INT8_OPS),
-                     (rows * HEADS * 4 * T * DH, BF16_OPS)]))
+              k1_bound(x, tw))
         sfx = "" if T == T_FRAMES else f"_t{T}"
         results["K1_time_block"].update({
             "chain_ms" + sfx: time_ms(lambda: mlp_int8_cuda._time_block_chain(
@@ -439,9 +509,7 @@ def kernel_phase(dev):
               T, T_FRAMES, err,
               time_ms(lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH)),
               time_ms(lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH), reps=2),
-              bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in sw for t in q]),
-                    [(rows * 2 * C * (2 * C + 2 * HID), INT8_OPS),
-                     (rows * HEADS * 4 * V * DH, BF16_OPS)]), lib_ms)
+              k2_bound(x, kv, sw), lib_ms)
         fused_extras("K2_space_block", T, lib_parts,
                      lambda: mlp_int8_cuda._space_block_chain(x, kv, sw, HEADS, DH, 1e-6, False,
                                                               False),
@@ -460,9 +528,7 @@ def kernel_phase(dev):
               "cotracker_tpu/ops/kernels/attention_pallas.py:279", T, T_FRAMES, err,
               time_ms(lambda: attention_cuda.fused_virtual_from_points_proj(*args)),
               time_ms(lambda: attention_cuda.v2p_proj_plain(*args), reps=2),
-              bound(nbytes(q, x, wkv.w, kbias, out),
-                    [(rows * 2 * C * 2 * C, INT8_OPS),
-                     (T * HEADS * V * N_TRACKS * 4 * DH, BF16_OPS)]), lib_ms)
+              k3_bound(q, x, wkv, kbias, out), lib_ms)
         fused_extras("K3_virtual_from_points_proj", T, lib_parts,
                      lambda: attention_cuda._v2p_proj_chain(*args, 1e-5),
                      lambda: attention_cuda.fused_virtual_from_points_proj(*args))
@@ -479,7 +545,7 @@ def kernel_phase(dev):
               T, T_STREAM, err,
               time_ms(lambda: attention_cuda.fused_time_attention(x, kv5, HEADS, DH)),
               time_ms(lambda: attention_cuda.time_attention_plain(x, kv5, HEADS, DH), reps=2),
-              bound(nbytes(x, kv5, out), [(rows * HEADS * 4 * T * DH, BF16_OPS)]),
+              k5_bound(x, kv5, out),
               time_ms(lambda: sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))))
         del kv5, out, ref, lib
 
@@ -587,8 +653,7 @@ def kernel_phase(dev):
     e = results["K3_virtual_from_points_proj"]
     e["max_abs_err"] = max(e["max_abs_err"], err)
     lib_ms, lib_parts = k3_library_chain(gd, dev, q, x, qbias)
-    bnd = bound(nbytes(q, x, wkv.w, qbias, out),
-                [(N * T * 2 * C * 2 * C, INT8_OPS), (T * HEADS * V * N * 4 * DH, BF16_OPS)])
+    bnd = k3_bound(q, x, wkv, qbias, out)
     plan = attention_cuda.k3_plan(N, T, V, bf,
                                   sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     e.update(plan_n70656=plan._asdict(),
@@ -620,8 +685,7 @@ def kernel_phase(dev):
             "ms" + sfx: time_ms(lambda: attention_cuda.fused_time_attention(x, kv5, HEADS, DH)),
             "plain_ms" + sfx: time_ms(lambda: attention_cuda.time_attention_plain(
                 x, kv5, HEADS, DH), reps=2),
-            "bound_ms" + sfx: bound(nbytes(x, kv5, out),
-                                    [(M * T * HEADS * 4 * T * DH, BF16_OPS)])[0],
+            "bound_ms" + sfx: k5_bound(x, kv5, out)[0],
             "library_ms" + sfx: time_ms(lambda: sdpa(hm(x), hm(kv5[..., :C]), hm(kv5[..., C:]))),
             "shape" + sfx: f"{M} tracks x {T} frames, bf16 (route {route}, nc={nc})"})
         log(f"  K5 {M} tracks x {T} ({route}, nc={nc}): {e['ms' + sfx]:.3f} ms (plain "
@@ -703,9 +767,10 @@ def k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx):
     version's k order) within one bf16 ulp (2^-8) of it, the elements that
     differ counted. Its time, the plain version's (the window gather +
     torch.bmm, TF32 off: also the library chain), torch.bmm alone, and the
-    bound of its dtype: bytes against the products at the peak of their
-    type, 3xTF32's three tf32 products at the tf32 peak (f32) or one bf16
-    product at the bf16 peak (bf16); beside it the products at the f32 FMA
+    bound of its dtype: bytes (of the level map only the pixels the windows
+    read) against the products at the peak of their type, 3xTF32's three
+    tf32 products at the tf32 peak (f32) or one bf16 product at the bf16
+    peak (bf16); beside it the products at the f32 FMA
     peak (bound_f32_fma_ms: the first body's bound, and the peak of the bf16
     route's CUDA-core FMAs)."""
     f32 = dtype == torch.float32
@@ -731,7 +796,7 @@ def k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx):
         e["max_abs_err"] = max(e["max_abs_err"], err)
     else:
         e["max_abs_err_bf16"] = max(e.get("max_abs_err_bf16", 0.0), err)
-    nb = nbytes(fmf, supf, starts, vol)
+    nb = window_bytes(fmf, starts) + nbytes(supf, starts, vol)
     ops = (3 * mm, TF32_OPS) if f32 else (mm, BF16_OPS)
     bnd = bound(nb, [ops])
     fn = lambda: corr_cuda.corr_volume_float(fmf, supf, starts)  # noqa: E731
@@ -782,10 +847,8 @@ def split_kernel_phase(dev):
     bf = torch.bfloat16
     w = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
                                        lin(g, HID, C, dev), lin(g, C, HID, dev))
-    wbytes = nbytes(*[t for q in w for t in q])
     out = {}
     for M, sfx in ((LONG_TRACKS, ""), (LONG_FORWARD_TRACKS, "_m2560"), (V, "_virtual")):
-        rows = M * LONG_T
         x = torch.randn(M, LONG_T, C, generator=g).to(dev, bf)
         a = (0.5 * torch.randn(M, LONG_T, C, generator=g)).to(dev, bf)
 
@@ -810,7 +873,7 @@ def split_kernel_phase(dev):
             replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:269", launches=0,
             max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
         e["max_abs_err"] = max(e["max_abs_err"], err)
-        bnd = bound(nbytes(x) * 4 + wbytes, [(rows * 2 * C * 3 * C, INT8_OPS)])
+        bnd = k8_bound(x, w)
         e.update({"ms" + sfx: time_ms(lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, w.qkv)),
                   "first_ms" + sfx: time_ms(
                       lambda: mlp_int8_cuda._ln_qkv_tile(x2d, w.qkv, 1e-6, False)),
@@ -826,7 +889,7 @@ def split_kernel_phase(dev):
             replaces="cotracker_tpu/ops/kernels/mlp_int8_pallas.py:335", launches=0,
             max_abs_err=0.0, shape=f"{LONG_TRACKS} tracks x {LONG_T} frames, bf16"))
         e["max_abs_err"] = max(e["max_abs_err"], err)
-        bnd = bound(nbytes(x) * 3 + wbytes, [(rows * 2 * (C * C + 2 * C * HID), INT8_OPS)])
+        bnd = k9_bound(x, w)
         e.update({"ms" + sfx: time_ms(lambda: mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, w)),
                   "plain_ms" + sfx: time_ms(lambda: mlp_int8_cuda.attnout_mlp_plain(a, x, w),
                                             reps=2),
@@ -909,7 +972,7 @@ def main_path(dev):
         f"(bounds 0.5, 4), vis/conf max {verr:.3e} (bound 0.1)")
     if not (err.median().item() <= 0.5 and err.max().item() <= 4.0 and verr <= 0.1):
         raise AssertionError("fast path disagrees with the plain path")
-    return launches, n * T_FRAMES / dt
+    return launches, n * T_FRAMES / dt, pred
 
 
 WRAPPERS = {
@@ -1382,40 +1445,50 @@ def write_tapvid_pickle(path):
         pickle.dump(data, f)
 
 
-def evaluation_phase(dev):
-    """Phase 10 (see the module docstring). Returns the launch counts of
-    sequence A's forward and the seconds per sequence."""
-    from cotracker_tpu_torch.datasets.tap_vid import TapVidDataset
+def run_eval_counted(cfg):
+    """evaluate.run_eval(cfg) with the launch counts zeroed before and read
+    after each sequence's EvaluationPredictor call; returns the metrics and,
+    per sequence, (counts, seconds, video shape, queries)."""
     from cotracker_tpu_torch.evaluation import evaluation_predictor as ep
-    from cotracker_tpu_torch.evaluation.evaluate import DefaultConfig, run_eval
-    from cotracker_tpu_torch.models.build import build_cotracker
+    from cotracker_tpu_torch.evaluation.evaluate import run_eval
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
-    zeros = dict.fromkeys(WRAPPERS, 0)
-    per_call = []
-    call = ep.EvaluationPredictor.__call__
+    per_call, call = [], ep.EvaluationPredictor.__call__
 
-    def counted(self, video, queries):  # counts and seconds of each sequence
+    def counted(self, video, queries):
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = call(self, video, queries)
         torch.cuda.synchronize()
-        per_call.append((read_counts(), time.perf_counter() - t0, video.shape[1]))
+        per_call.append((read_counts(), time.perf_counter() - t0, video.shape, queries.shape[1]))
         return out
 
+    ep.EvaluationPredictor.__call__ = counted
+    try:
+        return run_eval(cfg), per_call
+    finally:
+        ep.EvaluationPredictor.__call__ = call
+
+
+def evaluation_phase(dev):
+    """Phase 10 (see the module docstring). Returns the launch counts of
+    sequence A's forward and the seconds per sequence."""
+    from cotracker_tpu_torch.datasets.tap_vid import TapVidDataset
+    from cotracker_tpu_torch.evaluation import evaluation_predictor as ep
+    from cotracker_tpu_torch.evaluation.evaluate import DefaultConfig
+    from cotracker_tpu_torch.models.build import build_cotracker
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    zeros = dict.fromkeys(WRAPPERS, 0)
     try:
         pkl = os.path.join(root, "tapvid_davis.pkl")
         write_tapvid_pickle(pkl)
         cfg = DefaultConfig(exp_dir=os.path.join(root, "exp"), dataset_root=pkl,
                             dataset_name="tapvid_davis_first", fast=True, device="cuda")
-        ep.EvaluationPredictor.__call__ = counted
-        try:
-            metrics = run_eval(cfg)
-        finally:
-            ep.EvaluationPredictor.__call__ = call
+        metrics, per_call = run_eval_counted(cfg)
         secs = {}
-        for (name, T, N, want), (counts, sec, frames) in zip(EVAL_SEQS, per_call):
+        for (name, T, N, want), (counts, sec, shape, _) in zip(EVAL_SEQS, per_call):
+            frames = shape[1]
             expected = {**zeros, **want}
             log(f"  sequence {name}: {frames} frames, {N} queries + 25 grid points: {sec:.2f} s; "
                 f"launches {counts}")
@@ -1627,13 +1700,10 @@ def variant_kernel_phase(dev):
         ref = mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH)
         err = check_close(f"K11 all-frames block {N}x{T}", o, ref, *K9_TOL)
         del o, ref
-        rows = N * T
-        bnd = bound(2 * nbytes(x) + nbytes(kv) + nbytes(*[t for q in sw for t in q]),
-                    [(rows * 2 * C * (2 * C + 2 * HID), INT8_OPS),
-                     (rows * HEADS * 4 * V * DH, BF16_OPS)])
+        bnd = k2_bound(x, kv, sw)
         q6 = hm(x.transpose(0, 1))  # (T, H, N, D)
         lib_ms, lib_parts = library_chain(
-            gd, dev, rows, ((C, C), (C, C), (C, HID), (HID, C)),
+            gd, dev, N * T, ((C, C), (C, C), (C, HID), (HID, C)),
             lambda: sdpa(q6, hm(kv[..., :C]), hm(kv[..., C:])))
         del q6
         vals = dict(ms=time_ms(k11),
@@ -1842,6 +1912,482 @@ def ubench_phase():
     return counts, res
 
 
+# ------------------------------------------------- the inference surface
+# (phases 16-20): dense and segmentation-mask queries, the reference-format
+# export and the hub, Dynamic Replica evaluation, the demos
+
+DENSE_T = 24  # dense mode's video: 36 pixel offsets of an 85x64 grid, 3 a forward
+SEGM_T, SEGM_GRID = 60, 100
+HUB_T, HUB_GRID = 24, 50
+# Dynamic Replica's sequence: the CLI's sample_len of 300 frames at 1280x720
+DR_T, DR_HW, DR_TRACKS = 300, (720, 1280), 1000
+# the shapes phases 16-19 give the kernels: (padded tracks, frames, real
+# tracks, the rest masked as padding); each phase fails if its forward ran
+# at another shape, so the kernels checked at these are the path's
+SURFACE = {"dense": (16384, DENSE_T, 16320), "segm": (3072, SEGM_T, 2873),
+           "hub": (2560, HUB_T, 2500), "dynamic_replica": (320, DR_T, 276)}
+
+
+def check_surface_shape(phase, n_pad, T):
+    if SURFACE[phase][:2] != (n_pad, T):
+        raise AssertionError(f"{phase}: the forward ran at {n_pad} tracks x {T} frames, not at "
+                             f"the shape the kernels were checked at, {SURFACE[phase][:2]}")
+DEMO_T = 24
+
+
+def route_counts(n_pad, T, corr_chunk=CHUNK):
+    """The launches of one offline forward (iters=6, 3 time and 3 space
+    blocks) at n_pad tracks of T frames, as the JAX package's gates route
+    it (ops/kernels/gates.py): no W8A8 block below the track gate (K5
+    between plain projections); else K2, K3, and each token kind's time
+    blocks on K1 or, past its tile cap, the split K8 -> K5 -> K9."""
+    from cotracker_tpu_torch.ops.kernels import gates
+
+    want = {**dict.fromkeys(WRAPPERS, 0), "K4_corr_volume": 4 * 6 * -(-n_pad // corr_chunk)}
+    if not gates.space_tile_ok(n_pad):
+        want["K5_time_attention"] = 36
+        return want
+    want.update(K2_space_block=18, K3_virtual_from_points_proj=18)
+    for rows, cap in ((n_pad, gates.POINT_TOKENS), (V, gates.FLAT_TOKENS)):
+        if gates.pick_time_tile(rows, T, cap) is not None:
+            want["K1_time_block"] += 18
+        else:
+            for k in ("K8_ln_qkv", "K5_time_attention", "K9_attnout_mlp"):
+                want[k] += 18
+    return want
+
+
+def per_forward_counts(pred):
+    """Record the launch counts of each forward of `pred` (a
+    CoTrackerPredictor) in the returned list, which its _sparse_forward
+    appends to."""
+    rec, forward = [], pred._sparse_forward
+
+    def counted(*a, **k):
+        before = read_counts()
+        out = forward(*a, **k)
+        rec.append({n: c - before[n] for n, c in read_counts().items()})
+        return out
+
+    pred._sparse_forward = counted
+    return rec
+
+
+def surface_kernel_phase(dev, kernels):
+    """Every kernel that phases 16-19 launch, against its plain version at
+    the shapes those phases give it (SURFACE), on the route that
+    route_counts derives from the gates: the point tokens' time block (K1,
+    or past the frame gate K8 -> K5 -> K9, K5 on K8's q and kv and K9 on
+    K5's output), the virtual tokens' (V tracks), K2 and K3 at the padded
+    tracks, K4 at each pyramid level on one chunk of the forward. Bounds as
+    in the earlier kernel phases. The numbers go into each kernel's entry
+    of `kernels` under `*_m{tracks}_t{frames}` (K4: `*_m{points}_t{frames}_l{level}`)."""
+    from cotracker_tpu_torch.ops.kernels import gates
+
+    g = torch.Generator().manual_seed(21)
+    bf = torch.bfloat16
+    by_name = {k["name"]: k for k in kernels}
+    tw = mlp_int8_cuda.TimeBlockWeights(lin(g, 3 * C, C, dev), lin(g, C, C, dev),
+                                        lin(g, HID, C, dev), lin(g, C, HID, dev))
+    sw = mlp_int8_cuda.SpaceBlockWeights(lin(g, C, C, dev), lin(g, C, C, dev),
+                                         lin(g, HID, C, dev), lin(g, C, HID, dev))
+    wkv = lin(g, 2 * C, C, dev)
+    gamma = (1 + 0.1 * torch.randn(C, generator=g)).to(dev)
+    beta = (0.05 * torch.randn(C, generator=g)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # shapes already checked, and by which kernels: kernel_phase's offline chunk, every level
+    checked = {("K4_corr_volume", CHUNK, T_FRAMES): {"K4_corr_volume"}}
+
+    def record(name, sfx, err, fn, plain, bnd, library=None, **extra):
+        e = by_name[name]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        vals = {"err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain, reps=1),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None if library is None else time_ms(library), **extra}
+        e.update({k + sfx: v for k, v in vals.items()})
+        lib = "" if library is None else f", library call {vals['library_ms']:.3f} ms"
+        log(f"  {name}{sfx}: {vals['ms']:.3f} ms (plain {vals['plain_ms']:.3f} ms{lib}, bound "
+            f"{bnd[0]:.3f} ms by {bnd[1]})")
+
+    def time_block(M, T, cap):
+        """K1 where the frame gate takes M x T, else K8 -> K5 -> K9."""
+        sfx = f"_m{M}_t{T}"
+        x = torch.randn(M, T, C, generator=g).to(dev, bf)
+        if gates.pick_time_tile(M, T, cap) is not None:
+            out = mlp_int8_cuda.fused_time_block_int8(x, tw, HEADS, DH)
+            err = check_close(f"K1 time block {M}x{T}", out,
+                              mlp_int8_cuda.time_block_plain(x, tw, HEADS, DH), 0.01, 0.05)
+            record("K1_time_block", sfx, err,
+                   lambda: mlp_int8_cuda.fused_time_block_int8(x, tw, HEADS, DH),
+                   lambda: mlp_int8_cuda.time_block_plain(x, tw, HEADS, DH), k1_bound(x, tw),
+                   plan=mlp_int8_cuda.k1_plan(M, T)._asdict())
+            return {"K1_time_block"}
+        q, kv = mlp_int8_cuda.fused_ln_qkv_int8(x, tw.qkv)
+        rq, rkv = mlp_int8_cuda.ln_qkv_plain(x, tw.qkv)
+        o, r = torch.cat([q, kv], -1), torch.cat([rq, rkv], -1)
+        err = check_close(f"K8 ln + q|kv {M}x{T}", o, r, 2.0**-9, 2.0**-7)
+        frac = bf16_ulp_frac(o, r)
+        log(f"    elements further than one bf16 ulp: {frac:.2e} (bound 1e-2)")
+        if frac > 1e-2:
+            raise AssertionError("K8: kernel disagrees with its plain version")
+        del o, r, rq, rkv
+        record("K8_ln_qkv", sfx, err, lambda: mlp_int8_cuda.fused_ln_qkv_int8(x, tw.qkv),
+               lambda: mlp_int8_cuda.ln_qkv_plain(x, tw.qkv), k8_bound(x, tw))
+        a = attention_cuda.fused_time_attention(q, kv, HEADS, DH)
+        err = check_close(f"K5 time attention {M}x{T}", a,
+                          attention_cuda.time_attention_plain(q, kv, HEADS, DH), *CORE_TOL)
+        record("K5_time_attention", sfx, err,
+               lambda: attention_cuda.fused_time_attention(q, kv, HEADS, DH),
+               lambda: attention_cuda.time_attention_plain(q, kv, HEADS, DH),
+               k5_bound(q, kv, a), lambda: sdpa(hm(q), hm(kv[..., :C]), hm(kv[..., C:])),
+               plan=attention_cuda.k5_plan(T, HEADS, True)._asdict())
+        y = mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, tw)
+        err = check_close(f"K9 out + MLP {M}x{T}", y,
+                          mlp_int8_cuda.attnout_mlp_plain(a, x, tw), 0.01, 0.05)
+        record("K9_attnout_mlp", sfx, err,
+               lambda: mlp_int8_cuda.fused_attnout_res_mlp_int8(a, x, tw),
+               lambda: mlp_int8_cuda.attnout_mlp_plain(a, x, tw), k9_bound(x, tw))
+        return {"K8_ln_qkv", "K5_time_attention", "K9_attnout_mlp"}
+
+    def space_blocks(N, T, real):
+        """K2 and K3 at N tracks, the last N - real masked as the predictors'
+        padding."""
+        sfx = f"_m{N}_t{T}"
+        x = torch.randn(N, T, C, generator=g).to(dev, bf)
+        kv = torch.randn(T, V, 2 * C, generator=g).to(dev, bf)
+        out = mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH)
+        err = check_close(f"K2 space block {N}x{T}", out,
+                          mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH), 0.01, 0.05)
+        record("K2_space_block", sfx, err,
+               lambda: mlp_int8_cuda.fused_space_block_int8(x, kv, sw, HEADS, DH),
+               lambda: mlp_int8_cuda.space_block_plain(x, kv, sw, HEADS, DH),
+               k2_bound(x, kv, sw))
+        kbias = torch.zeros(N, device=dev)
+        kbias[real:] = attention_cuda.NEG_BIG
+        q = (0.3 * torch.randn(T, V, C, generator=g)).to(dev, bf)
+        args = (q, x, wkv, gamma, beta, HEADS, DH, kbias)
+        out = attention_cuda.fused_virtual_from_points_proj(*args)
+        err = check_close(f"K3 virtual<-points {N}x{T}", out,
+                          attention_cuda.v2p_proj_plain(*args), 0.01, 0.05)
+        record("K3_virtual_from_points_proj", sfx, err,
+               lambda: attention_cuda.fused_virtual_from_points_proj(*args),
+               lambda: attention_cuda.v2p_proj_plain(*args), k3_bound(*args[:3], kbias, out),
+               plan=attention_cuda.k3_plan(N, T, V, bf, sms=sms)._asdict())
+        return {"K2_space_block", "K3_virtual_from_points_proj"}
+
+    def corr(points, T):
+        for level, hw in enumerate((LVL0,) + tuple(m[1] for m in K4_MORE[:3])):
+            ops = k4_operands(g, dev, hw, T, points)
+            vol, scale = k4_exact(f"{hw[0]}x{hw[1]}, {points} points x {T}", ops)
+            record("K4_corr_volume", f"_m{points}_t{T}_l{level}", 0.0,
+                   lambda: corr_cuda.corr_volume_int8(*ops), lambda: k4_plain(*ops),
+                   k4_bound(ops, vol, scale), plan=corr_cuda.k4_plan(points, T)._asdict())
+            del ops, vol, scale
+        return {"K4_corr_volume"}
+
+    for phase, (n_pad, T, real) in SURFACE.items():
+        want = {k for k, c in route_counts(n_pad, T).items() if c}
+        covered = set()
+        for key, fn in ((("time", n_pad, T), lambda: time_block(n_pad, T, gates.POINT_TOKENS)),
+                        (("time", V, T), lambda: time_block(V, T, gates.FLAT_TOKENS)),
+                        (("space", n_pad, T), lambda: space_blocks(n_pad, T, real)),
+                        (("K4_corr_volume", min(n_pad, CHUNK), T),
+                         lambda: corr(min(n_pad, CHUNK), T))):
+            if key[0] == "space" and not gates.space_tile_ok(n_pad):
+                continue
+            if key not in checked:
+                checked[key] = fn()
+                torch.cuda.empty_cache()
+            covered |= checked[key]
+        log(f"  {phase} ({n_pad} x {T}): its forward launches {sorted(want)}, checked at its "
+            f"shapes {sorted(covered)}")
+        if covered != want:
+            raise AssertionError(f"{phase}: the kernels checked are not those its route launches")
+
+
+def dense_phase(dev):
+    """Phase 16: dense mode, CoTrackerPredictor(fast=True) with no queries
+    and no grid on a 384x512 video: a grid step of 6 (85 x 64 = 5,440
+    points an offset), 36 offsets, 3 a forward: 12 forwards of 16,320
+    tracks (16,384 padded). Launches of each forward, shapes, snap-back of
+    every track at frame 0 onto its pixel, the union of the queries tiling
+    the 510 x 384 area once; seconds and points*frames/s."""
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    pred = CoTrackerPredictor(fast=True, device="cuda")
+    video = synthetic_video(DENSE_T, 384, 512, dev)
+    step = 512 // 80
+    gw, gh = 512 // step, 384 // step
+    per = pred.dense_offsets_per_forward
+    n_fwd, n = -(-step * step // per), gw * gh * step * step
+    n_pad = -(-gw * gh * per // 512) * 512
+    check_surface_shape("dense", n_pad, DENSE_T)
+    want = route_counts(n_pad, DENSE_T)
+    # warm-up: one forward at the dense track count
+    q = torch.zeros(1, gw * gh * per, 3)
+    q[..., 1:] = torch.rand(1, gw * gh * per, 2, generator=torch.Generator().manual_seed(16)) * 383
+    pred(video, queries=q)
+    rec = per_forward_counts(pred)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = pred(video)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {n_fwd} forwards of {gw * gh * per} tracks ({n_pad} padded): {dt:.3f} s for {n} points "
+        f"x {DENSE_T} frames = {n * DENSE_T / dt:.0f} points*frames/s; peak memory {peak:.1f} GiB")
+    log(f"  launches per forward {rec[0]} (expected {want}); in all {total}")
+    if len(rec) != n_fwd or any(r != want for r in rec):
+        raise AssertionError(f"dense: a forward did not launch the kernels as expected: {rec}")
+    if total != {k: n_fwd * c for k, c in want.items()}:
+        raise AssertionError("dense: launches outside the forwards")
+    if tuple(tracks.shape) != (1, DENSE_T, n, 2) or tuple(vis.shape) != (1, DENSE_T, n):
+        raise AssertionError(f"dense: shapes {tuple(tracks.shape)}, {tuple(vis.shape)}")
+    if not torch.isfinite(tracks).all():
+        raise AssertionError("dense: non-finite tracks")
+    offs = np.arange(step * step)
+    qx = (np.tile(np.arange(gw), gh)[None] * step + (offs % step)[:, None]).reshape(-1)
+    qy = (np.repeat(np.arange(gh), gw)[None] * step + (offs // step)[:, None]).reshape(-1)
+    first = tracks[0, 0].cpu().numpy()
+    snap = float(np.abs(first - np.stack([qx, qy], -1)).max())
+    xy = np.rint(first).astype(np.int64)
+    inside = (xy >= 0).all() and (xy[:, 0] < gw * step).all() and (xy[:, 1] < gh * step).all()
+    hits = np.bincount(xy[:, 1] * gw * step + xy[:, 0], minlength=gw * gh * step * step)
+    log(f"  frame 0: max |track - its pixel| {snap:.2e} px (bound 1e-3); every pixel of the "
+        f"{gw * step}x{gh * step} area queried once: {bool(inside and (hits == 1).all())}")
+    if not (snap <= 1e-3 and inside and (hits == 1).all() and bool(vis[0, 0].all())):
+        raise AssertionError("dense: the queries do not tile the frame, or snap-back failed")
+    return rec[0], dict(seconds=dt, points_frames_per_s=n * DENSE_T / dt, peak_gib=peak,
+                        forwards=n_fwd, tracks_per_forward=gw * gh * per)
+
+
+def segm_phase(dev):
+    """Phase 17: a 100 x 100 grid inside a seeded segmentation mask (two
+    ellipses) at 60 frames: the kept count against one computed from the
+    mask and a grid built here, the tracks at frame 0 on the kept grid
+    points, the launches of the forward."""
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[:384, :512]
+    mask = np.zeros((384, 512), np.float32)
+    for _ in range(2):
+        cy, cx, ry, rx = rng.uniform(80, 300), rng.uniform(100, 400), *rng.uniform(50, 140, 2)
+        mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 1
+    margin = 512 / 64  # the grid: SEGM_GRID^2 points, W/64 from each border, row-major
+    gy, gx = np.meshgrid(np.linspace(margin, 384 - margin, SEGM_GRID),
+                         np.linspace(margin, 512 - margin, SEGM_GRID), indexing="ij")
+    pts = np.stack([gx, gy], -1).reshape(-1, 2).astype(np.float32)
+    keep = mask[np.rint(pts[:, 1]).astype(int), np.rint(pts[:, 0]).astype(int)] > 0
+    n = int(keep.sum())
+    n_pad = -(-(n + 36) // 512) * 512
+    check_surface_shape("segm", n_pad, SEGM_T)
+    want = route_counts(n_pad, SEGM_T)
+    pred = CoTrackerPredictor(fast=True, device="cuda")
+    video = synthetic_video(SEGM_T, 384, 512, dev)
+    pred(video, grid_size=SEGM_GRID, segm_mask=mask[None, None])  # warm-up
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = pred(video, grid_size=SEGM_GRID, segm_mask=mask[None, None])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    err = (tracks[0, 0].cpu() - torch.from_numpy(pts[keep])).abs().max().item() \
+        if tracks.shape[2] == n else float("inf")
+    log(f"  mask keeps {mask.mean():.3f} of the frame: {tracks.shape[2]} of {SEGM_GRID**2} grid "
+        f"points tracked (computed here: {n}), + 36 support, {n_pad} padded; {dt:.3f} s; frame 0 "
+        f"against the kept grid points: max {err:.2e} px; launches {counts} (expected {want})")
+    if tuple(tracks.shape) != (1, SEGM_T, n, 2) or not torch.isfinite(tracks).all():
+        raise AssertionError(f"segmentation mask: shape {tuple(tracks.shape)}, expected {n} tracks")
+    if not (err <= 1e-3 and bool(vis[0, 0].all())) or counts != want:
+        raise AssertionError("segmentation mask: snap-back or launches wrong")
+    return counts, dict(seconds=dt, kept=n, padded=n_pad)
+
+
+def hub_phase(dev, pred):
+    """Phase 18: save_reference_checkpoint of phase 4's model, then
+    hub.cotracker3_offline(checkpoint=path, fast=True): its state_dict, its
+    tracks and visibility on a video bit for bit the original predictor's,
+    the launches of its forward; a URL raises with the URL."""
+    from cotracker_tpu_torch import hub
+    from cotracker_tpu_torch.models.checkpoint import save_reference_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hub_")
+    try:
+        path = os.path.join(root, "scaled_offline.pth")
+        save_reference_checkpoint(path, pred.model)
+        loaded = hub.cotracker3_offline(checkpoint=path, fast=True)
+        a, b = pred.model.state_dict(), loaded.model.state_dict()
+        same_sd = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        video = synthetic_video(HUB_T, 384, 512, dev)
+        ref = pred(video, grid_size=HUB_GRID)
+        zero_counts()
+        out = loaded(video, grid_size=HUB_GRID)
+        counts = read_counts()
+        check_surface_shape("hub", -(-HUB_GRID**2 // 512) * 512, HUB_T)
+        want = route_counts(-(-HUB_GRID**2 // 512) * 512, HUB_T)
+        same = torch.equal(ref[0], out[0]) and torch.equal(ref[1], out[1])
+        log(f"  {os.path.getsize(path) / 2**20:.1f} MiB reference checkpoint; state_dict equal: "
+            f"{same_sd}; tracks and visibility bit for bit the original's: {same}; launches "
+            f"{counts} (expected {want})")
+        if not (same_sd and same) or counts != want:
+            raise AssertionError("hub: the loaded predictor differs from the original")
+        url = hub.CHECKPOINT_URLS["cotracker3_offline"]
+        try:
+            hub.cotracker3_offline(url)
+        except ValueError as e:
+            if url not in str(e):
+                raise AssertionError(f"hub: the URL's error does not name it: {e}") from e
+            log(f"  a URL raises: {e}")
+        else:
+            raise AssertionError("hub: a URL did not raise")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def write_dynamic_replica(root):
+    """A Dynamic Replica tree from a seed: one sequence of DR_T left-camera
+    frames at DR_HW (uint8), each with a right-camera record, and
+    DR_TRACKS trajectories a frame on a texture drifting at constant
+    velocity (10% of the points occluded at random, some leaving the
+    frame)."""
+    import gzip
+
+    rng = np.random.default_rng(19)
+    H, W = DR_HW
+    vel = np.array([1.5, 0.75])  # pixels a frame the texture moves by
+    pad = int(np.ceil(vel.max() * DR_T)) + 8
+    tex = rng.integers(0, 256, ((H + pad) // 8 + 1, (W + pad) // 8 + 1, 3), dtype=np.uint8)
+    tex = np.repeat(np.repeat(tex, 8, axis=0), 8, axis=1)
+    start = rng.uniform([0, 0], [W - 1, H - 1], (DR_TRACKS, 2))
+    split = os.path.join(root, "valid")
+    os.makedirs(os.path.join(split, "seq", "traj"))
+    records = []
+    for t in range(DR_T):
+        ox, oy = np.floor(pad - vel * t).astype(int)  # the crop's origin in the texture
+        img = np.ascontiguousarray(tex[oy: oy + H, ox: ox + W])
+        xy = start + [pad - ox, pad - oy]
+        rec = {"sequence_name": "seq", "frame_number": t, "frame_timestamp": t / 30.0,
+               "image": {"path": f"seq/images/{t:05d}.png", "size": [H, W]},
+               "trajectories": {"path": f"seq/traj/{t:05d}.pth"}}
+        records += [{**rec, "camera_name": "left"}, {**rec, "camera_name": "right"}]
+        torch.save({"img": torch.from_numpy(img),
+                    "traj_2d": torch.from_numpy(
+                        np.concatenate([xy, np.ones((DR_TRACKS, 1))], 1).astype(np.float32)),
+                    "verts_inds_vis": torch.from_numpy(rng.random(DR_TRACKS) > 0.1)},
+                   os.path.join(split, "seq", "traj", f"{t:05d}.pth"))
+    with gzip.open(os.path.join(split, "frame_annotations_valid.jgz"), "wt") as f:
+        json.dump(records, f)
+
+
+def dynamic_replica_phase(dev):
+    """Phase 19: evaluate.run_eval(dataset_name="dynamic_replica",
+    fast=True) on write_dynamic_replica's tree: the forward's launches
+    against route_counts at its track count and frame count, the metrics
+    finite, the result files written; seconds per sequence."""
+    from cotracker_tpu_torch.evaluation.evaluate import DefaultConfig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dr_")
+    try:
+        t0 = time.perf_counter()
+        write_dynamic_replica(root)
+        log(f"  tree written in {time.perf_counter() - t0:.1f} s")
+        cfg = DefaultConfig(exp_dir=os.path.join(root, "exp"), dataset_root=root,
+                            dataset_name="dynamic_replica", fast=True, device="cuda")
+        t0 = time.perf_counter()
+        metrics, per_call = run_eval_counted(cfg)
+        wall = time.perf_counter() - t0
+        if len(per_call) != 1:
+            raise AssertionError(f"Dynamic Replica: {len(per_call)} sequences, expected 1")
+        counts, sec, shape, n = per_call[0]
+        n_pad = -(-(n + 25) // 64) * 64  # the 5x5 support grid; the evaluation predictor's bucket
+        check_surface_shape("dynamic_replica", n_pad, DR_T)
+        want = route_counts(n_pad, DR_T)
+        log(f"  sequence: {shape[1]} frames of {shape[3]}x{shape[4]}, {n} tracks + 25 grid "
+            f"points = {n_pad} padded: forward {sec:.2f} s, run_eval {wall:.2f} s; launches "
+            f"{counts} (expected {want})")
+        if tuple(shape[1:]) != (DR_T, 3, *DR_HW) or counts != want:
+            raise AssertionError("Dynamic Replica: the sequence or its launches are wrong")
+        avg = metrics["avg"]
+        log(f"  Dynamic Replica metrics (random weights: the values mean nothing) {avg}")
+        if not avg or not all(math.isfinite(v) for v in avg.values()):
+            raise AssertionError("Dynamic Replica: missing or non-finite metrics")
+        for f in ("expconfig.json", "result_eval_.json", "result_dynamic_replica.json"):
+            if not os.path.exists(os.path.join(cfg.exp_dir, f)):
+                raise AssertionError(f"Dynamic Replica: {f} not written")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(seconds_per_sequence=sec, run_eval_seconds=wall, tracks=n, padded=n_pad)
+
+
+def demos_phase(dev):
+    """Phase 20: the demos as built by their entry points (the plain float32
+    model, no kernel) on a seeded .npy video at 384x512: demo.track_video
+    (a 10 x 10 grid; its rendered frames), online_demo.track_stream (its
+    tracks against the same online predictor driven by hand with the
+    loop's chunks; rendered frames). No mp4: without OpenCV save_video
+    raises an ImportError naming cv2."""
+    from cotracker_tpu_torch import demo, online_demo
+    from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
+    from cotracker_tpu_torch.utils.visualizer import Visualizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        path = os.path.join(root, "clip.npy")
+        np.save(path, synthetic_video(DEMO_T, 384, 512, dev)[0].permute(0, 2, 3, 1)
+                .round().to(torch.uint8).cpu().numpy())
+        video = demo.read_video(path)
+        zero_counts()
+        t0 = time.perf_counter()
+        tracks, vis, frames = demo.track_video(video, grid_size=10)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        log(f"  demo: tracks {tuple(tracks.shape)} on {tracks.device}, rendered "
+            f"{frames.shape} {frames.dtype} in {dt:.2f} s; launches {sum(counts.values())}")
+        if (tuple(tracks.shape) != (1, DEMO_T, 100, 2) or tracks.device.type != dev.type
+                or not torch.isfinite(tracks).all()
+                or frames.shape != (10 + DEMO_T - 1, 384 + 240, 512 + 240, 3)):
+            raise AssertionError("demo: wrong tracks or rendered frames")
+
+        pred = CoTrackerOnlinePredictor(device="cuda")
+        t0 = time.perf_counter()
+        tracks, vis, read = online_demo.track_stream(iter(video), pred, grid_size=10)
+        dt = time.perf_counter() - t0
+        # by hand: a chunk every 8 frames of the last 16 read, then the tail
+        chunk = torch.from_numpy(video).permute(0, 3, 1, 2)[None].float()
+        step = pred.step
+        pred(chunk[:, :1], is_first_step=True, grid_size=10)
+        for end in range(step + 1, DEMO_T + 1, step):
+            ref = pred(chunk[:, max(0, end - 2 * step):end])
+        ref = pred(chunk[:, DEMO_T - (DEMO_T % step + step):])
+        err = (tracks - ref[0]).abs().max().item()
+        rendered = online_demo.render(read, tracks, vis)
+        log(f"  online demo: tracks {tuple(tracks.shape)} in {dt:.2f} s; against the predictor "
+            f"driven by hand: max {err:.2e} px (bound 1e-3), visibility equal "
+            f"{torch.equal(vis, ref[1])}; rendered {rendered.shape}")
+        if not (err <= 1e-3 and torch.equal(vis, ref[1]) and tracks.shape[1] == DEMO_T
+                and rendered.shape == (10 + DEMO_T - 1, 384 + 240, 512 + 240, 3)):
+            raise AssertionError("online demo: its tracks differ from the loop by hand")
+        try:
+            import cv2  # noqa: F401
+        except ImportError:
+            try:
+                Visualizer(save_dir=root).save_video(frames[:2], "clip")
+            except ImportError as e:
+                if "cv2" not in str(e):
+                    raise AssertionError(f"save_video's ImportError does not name cv2: {e}") from e
+                log(f"  no mp4: {e}")
+            else:
+                raise AssertionError("save_video wrote an mp4 without OpenCV")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1875,9 +2421,12 @@ def main():
         f"{LONG_T} frames):")
     kernels += split_kernel_phase(dev)
     torch.cuda.empty_cache()
+    log("the inference surface's kernels vs plain versions (bf16) at the shapes of phases 16-19:")
+    surface_kernel_phase(dev, kernels)
+    torch.cuda.empty_cache()
 
     log("offline main path: CoTrackerPredictor(fast=True), 384x512, iters=6:")
-    launches, pfs = main_path(dev)
+    launches, pfs, main_pred = main_path(dev)
     torch.cuda.empty_cache()
     counts_a, counts_b, pfs_a, pfs_b = streaming_paths(dev)
     torch.cuda.empty_cache()
@@ -1908,6 +2457,25 @@ def main():
     torch.cuda.empty_cache()
     log(f"micro-benchmark: scripts/torch_ubench.py int8pallas corr (reps={UB_REPS}):")
     ub_counts, ub_res = ubench_phase()
+    torch.cuda.empty_cache()
+    log(f"dense mode: CoTrackerPredictor(fast=True), 384x512, {DENSE_T} frames, no queries:")
+    dense_counts, dense = dense_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"segmentation mask: CoTrackerPredictor(fast=True), a {SEGM_GRID}x{SEGM_GRID} grid, "
+        f"{SEGM_T} frames:")
+    segm_counts, segm = segm_phase(dev)
+    torch.cuda.empty_cache()
+    log("reference-format export and hub: save_reference_checkpoint, hub.cotracker3_offline:")
+    hub_counts = hub_phase(dev, main_pred)
+    del main_pred
+    torch.cuda.empty_cache()
+    log(f"Dynamic Replica: evaluate.run_eval(fast=True), {DR_T} frames of "
+        f"{DR_HW[1]}x{DR_HW[0]}, {DR_TRACKS} trajectories a frame:")
+    dr_counts, dr = dynamic_replica_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"demos: demo.track_video and online_demo.track_stream on a {DEMO_T}-frame .npy video:")
+    demos_phase(dev)
+    torch.cuda.empty_cache()
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -1917,6 +2485,10 @@ def main():
         k["launches_long_forward"] = long_counts[name]
         k["launches_600_frame_forward"] = v600_counts[name]
         k["launches_eval_sequence_a"] = eval_counts[name]
+        k["launches_dense_forward"] = dense_counts[name]
+        k["launches_segm_forward"] = segm_counts[name]
+        k["launches_hub_forward"] = hub_counts[name]
+        k["launches_dynamic_replica_forward"] = dr_counts[name]
     for k in train_kernels:
         # per training step: K4r in the online K4r run, K4f in the K4f run
         k["launches"] = step_r[k["name"]] or step_f[k["name"]]
@@ -1952,6 +2524,12 @@ def main():
     log(f"quasi-dense (c) vs (a): {qd_diff}; offline with the variants: {off_c['seconds']:.3f} s, "
         f"{off_c['points_frames_per_s']:.0f} points*frames/s (off: {pfs:.0f}); "
         f"micro-benchmark {json.dumps(ub_res)} ({smi})")
+    log(f"dense mode ({dense['forwards']} forwards of {dense['tracks_per_forward']} tracks, "
+        f"{DENSE_T} frames): {dense['seconds']:.3f} s, {dense['points_frames_per_s']:.0f} "
+        f"points*frames/s, peak memory {dense['peak_gib']:.1f} GiB; segmentation mask "
+        f"({segm['kept']} points, {SEGM_T} frames): {segm['seconds']:.3f} s; Dynamic Replica "
+        f"({dr['tracks']} tracks, {DR_T} frames): {dr['seconds_per_sequence']:.3f} s per sequence "
+        f"({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,16 +5,19 @@ cotracker_tpu/evaluation/evaluate.py flags, plus --device):
         --dataset_name tapvid_davis_first --dataset_root /path/to/tapvid_davis.pkl \\
         --checkpoint scaled_offline.pth --fast
 
+    python -m cotracker_tpu_torch.evaluation.evaluate \\
+        --dataset_name dynamic_replica --dataset_root /path/to/dynamic_replica --fast
+
 Runs on the GPU (`--device cuda`, the default; it raises without one) or,
 asked, on the CPU (`--device cpu`, the plain PyTorch path). `--fast` is the
 bf16 kernel path; a video longer than 128 frames runs its time blocks
 through the split K8 -> K5 -> K9. `--online` evaluates the streaming
-predictor. Writes expconfig.json and result_eval_.json (the metrics'
-average and the wall time) into --exp_dir, and the per-sequence metrics
-into result_<dataset_name>.json.
+predictor. TAP-Vid reads a pickle; Dynamic Replica reads the first 300
+frames of each sequence of `{dataset_root}/valid`. Writes expconfig.json
+and result_eval_.json (the metrics' average and the wall time) into
+--exp_dir, and the per-sequence metrics into result_<dataset_name>.json.
 
-Not ported yet: the legacy model (`--v2`) and the Dynamic Replica reader
-(`--dataset_name dynamic_replica`); both raise.
+Not ported yet: the legacy model (`--v2`), which raises.
 """
 
 import argparse
@@ -50,6 +53,7 @@ class DefaultConfig:
 
 
 def run_eval(cfg: DefaultConfig):
+    from cotracker_tpu_torch.datasets.dynamic_replica import DynamicReplicaDataset
     from cotracker_tpu_torch.datasets.tap_vid import TapVidDataset
     from cotracker_tpu_torch.evaluation.evaluation_predictor import EvaluationPredictor
     from cotracker_tpu_torch.evaluation.evaluator import Evaluator, OnlineWrapper
@@ -60,10 +64,14 @@ def run_eval(cfg: DefaultConfig):
         raise NotImplementedError("the legacy CoTracker2 model is not ported yet "
                                   "(ROADMAP.md queue 1 item 12)")
     name = cfg.dataset_name
-    if name == "dynamic_replica":
-        raise NotImplementedError("the Dynamic Replica reader is not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
-    if "tapvid" not in name:
+    if "tapvid" in name:
+        dataset = TapVidDataset(
+            data_root=cfg.dataset_root, dataset_type=name.split("_")[1],
+            queried_first="strided" not in name, fast_eval=cfg.fast_eval)
+    elif name == "dynamic_replica":
+        dataset = DynamicReplicaDataset(root=cfg.dataset_root, sample_len=300,
+                                        only_first_n_samples=1)
+    else:
         raise ValueError(f"unknown dataset {name}")
     os.makedirs(cfg.exp_dir, exist_ok=True)
     with open(os.path.join(cfg.exp_dir, "expconfig.json"), "w") as f:
@@ -87,9 +95,6 @@ def run_eval(cfg: DefaultConfig):
             model_resolution=model_resolution, fast=cfg.fast, return_full_buffers=True,
             device=cfg.device))
 
-    dataset = TapVidDataset(
-        data_root=cfg.dataset_root, dataset_type=name.split("_")[1],
-        queried_first="strided" not in name, fast_eval=cfg.fast_eval)
     t0 = time.time()
     metrics = Evaluator(cfg.exp_dir).evaluate_sequence(predictor, dataset, dataset_name=name)
     dt = time.time() - t0

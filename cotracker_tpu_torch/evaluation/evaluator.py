@@ -1,9 +1,10 @@
 """Evaluator: drives a predictor over a dataset and aggregates metrics (port
 of cotracker_tpu/evaluation/evaluator.py): the per-sequence loop, the
 (t, y, x) -> (t, x, y) query conversion, the strided protocol's backward
-pass, TAP-Vid / Dynamic Replica metrics with running averages, and the
-per-sequence results file. Predictions arrive as numpy arrays or tensors on
-any device and are compared on the host."""
+pass, TAP-Vid / Dynamic Replica metrics with running averages, the
+optional track overlays, and the per-sequence results file. Predictions
+arrive as numpy arrays or tensors on any device and are compared on the
+host."""
 
 import json
 import logging
@@ -69,11 +70,15 @@ class Evaluator:
         logging.info("%s: %s", sample.seq_name, out)
         return out
 
-    def evaluate_sequence(self, predictor, dataset, dataset_name: str, verbose: bool = True):
+    def evaluate_sequence(self, predictor, dataset, dataset_name: str, verbose: bool = True,
+                          visualizer=None, visualize_every: int = 1, writer=None, step: int = 0):
         """predictor: callable (video (1, T, 3, H, W), queries (1, N, 3) as
         (t, x, y)) -> (tracks, vis); an online predictor goes through
-        OnlineWrapper. With exp_dir set, the per-sequence metrics and their
-        average are written to result_<dataset_name>.json."""
+        OnlineWrapper. With a `visualizer` (utils.visualizer.Visualizer) the
+        tracks of every `visualize_every`-th sequence are drawn over its
+        video and saved (to `writer`, a TensorBoard SummaryWriter, at
+        `step`, if given). With exp_dir set, the per-sequence metrics and
+        their average are written to result_<dataset_name>.json."""
         metrics = {}
         for ind in range(len(dataset)):
             sample = dataset[ind]
@@ -96,6 +101,10 @@ class Evaluator:
                 mask = pred_tracks == 0
                 pred_tracks = np.where(mask, inv_tracks, pred_tracks)
                 pred_vis = np.where(mask[..., 0], inv_vis, pred_vis)
+            if visualizer is not None and ind % max(1, visualize_every) == 0:
+                visualizer.visualize(
+                    video, pred_tracks, pred_vis if pred_vis.dtype == bool else pred_vis > 0.6,
+                    filename=f"{dataset_name}_{sample.seq_name}", writer=writer, step=step)
             self.compute_metrics(metrics, sample, pred_tracks, pred_vis, dataset_name)
             if verbose:
                 print(f"[{ind + 1}/{len(dataset)}] {sample.seq_name}: avg={metrics['avg']}")

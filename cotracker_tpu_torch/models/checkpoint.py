@@ -5,6 +5,9 @@ Two loaders fill the same module:
     as nested dicts of numpy arrays (params["fnet"], params["iter_core"], ...);
   * `load_reference_state_dict(model, sd)`: the reference `.pth` format
     (cotracker/models/core/cotracker/cotracker3_offline.py state_dict).
+`export_reference_state_dict(model)` and `save_reference_checkpoint(path,
+model)` write that format back (the JAX package's export_torch_state_dict /
+save_torch_checkpoint).
 
 The port's module and parameter names are the reference's, so the flax tree
 maps onto them by name: conv kernels (kh, kw, in, out) -> (out, in, kh, kw),
@@ -100,6 +103,42 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> 
             continue
         out[key.replace("updateformer.virual_tracks", "updateformer.virtual_tracks")] = val
     return _load(model, out)
+
+
+# the reference's parameter names, module by module (the census of the JAX
+# package's _export_fnet / _export_updateformer); `virual_tracks` apart
+_REFERENCE_KEYS = re.compile("|".join((
+    r"fnet\.conv[123]\.(weight|bias)",
+    r"fnet\.layer\d\.\d\.(conv1|conv2|downsample\.0)\.(weight|bias)",
+    r"corr_mlp\.fc[12]\.(weight|bias)",
+    r"updateformer\.(input_transform|flow_head|vis_conf_head)\.(weight|bias)",
+    r"updateformer\.(time_blocks|space_virtual_blocks|space_point2virtual_blocks"
+    r"|space_virtual2point_blocks)\.\d+\.((attn|cross_attn)\.to_(q|kv|out)|mlp\.fc[12]"
+    r"|norm_context)\.(weight|bias)",
+)))
+
+
+def export_reference_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's CoTrackerThree -> a reference-format state_dict (CPU
+    tensors, the parameters' own bits): `virtual_tracks` back to the
+    reference's `virual_tracks`, no time/position embedding buffers (load
+    them with strict=False, as the reference's restore path does). A key
+    outside the reference's modules raises instead of being dropped."""
+    out = {}
+    for key, val in model.state_dict().items():
+        if key.split(".")[-1] in ("time_emb", "pos_emb"):
+            continue
+        if key == "updateformer.virtual_tracks":
+            key = "updateformer.virual_tracks"
+        elif not _REFERENCE_KEYS.fullmatch(key):
+            raise KeyError(f"no reference name for the port's state_dict key {key}")
+        out[key] = val.detach().cpu().clone()
+    return out
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module) -> None:
+    """Write `model` as a reference-loadable `.pth`: {"model": state_dict}."""
+    torch.save({"model": export_reference_state_dict(model)}, path)
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -70,6 +70,7 @@ class CoTrackerPredictor:
     def _video(self, video):
         return torch.as_tensor(video, dtype=torch.float32).to(self.device)
 
+    @torch.inference_mode()
     def _compute_dense_tracks(self, video, grid_query_frame, backward_tracking, grid_size=80):
         """A dense grid over pixel offsets, `dense_offsets_per_forward`
         offsets' grids tracked jointly per forward."""
@@ -95,6 +96,7 @@ class CoTrackerPredictor:
             vis.append(v)
         return torch.cat(tracks, dim=2), torch.cat(vis, dim=2)
 
+    @torch.inference_mode()
     def _compute_sparse_tracks(self, video, queries, segm_mask=None, grid_size: int = 0,
                                add_support_grid: bool = False, grid_query_frame: int = 0,
                                backward_tracking: bool = False):

@@ -50,7 +50,9 @@ library chain. Then K4r (the raw int8 volume of the training path: K4's
 cluster kernel in its K4r mode) at 768 x 16, 2,048 x 60 and 256 x 80 (two
 passes), bit for bit against corr_volume_raw_plain, beside the plain
 version, with its plan, device launches and bound; on an earlier checkout
-(--root) its first body.
+(--root) its first body. The byte bounds of K4, K4r and K4f count of the
+edge-padded level map only the pixels the 8 x 8 windows read
+(`window_bytes`).
 
     python3 scripts/torch_cores.py              # the main paths' shapes
     python3 scripts/torch_cores.py --sweep      # also K7 at each key-range
@@ -253,7 +255,7 @@ def k4_section(dev, g):
              code_mismatches=int((vol != rvol).sum().item()),
              scale_mismatches=int((scale != rscale).sum().item()),
              ms=time_ms(lambda: corr_cuda.corr_volume_int8(fmq, supq, starts, wxy), reps=10),
-             bound_ms=bound_ms(nbytes(fmq, supq, starts, wxy, vol, scale),
+             bound_ms=bound_ms(window_bytes(fmq, starts) + nbytes(supq, starts, wxy, vol, scale),
                                n * Tp * 64 * 49 * 128 * 2 / INT8_OPS
                                + n * Tp * 64 * 49 * 10 / F32_OPS))
         del fmq, supq, starts, wxy, vol, rvol
@@ -683,7 +685,8 @@ def k4f_section(dev, g):
     checkout its first body) against corr_volume_float_plain (max |err| /
     max |ref|), its time, its device launches, the plain version's time
     (the window gather + torch.bmm with TF32 off: also the library chain),
-    torch.bmm alone on windows gathered beforehand, the byte bound and the
+    torch.bmm alone on windows gathered beforehand, the byte bound (of the
+    level map only the pixels the windows read) and the
     operation bounds (3xTF32's three tf32 products at the tf32 peak, the
     products at the f32 FMA peak and at the bf16 peak), the bound of the
     dtype (bytes against 3xTF32 in f32, against the bf16 peak in bf16), and
@@ -703,7 +706,7 @@ def k4f_section(dev, g):
             fn = lambda: corr_cuda.corr_volume_float(fmf, supf, starts)  # noqa: E731
             vol = fn()
             ref = corr_cuda.corr_volume_float_plain(fmf, supf, starts)
-            byte_ms = bound_ms(nbytes(fmf, supf, starts, vol), 0.0)
+            byte_ms = bound_ms(window_bytes(fmf, starts) + nbytes(supf, starts, vol), 0.0)
             ops = {"tf32_3x": 1e3 * 3 * mm / TF32_OPS, "f32_fma": 1e3 * mm / F32_OPS,
                    "bf16": 1e3 * mm / BF16_OPS}
             op_ms = ops["tf32_3x" if dtype == torch.float32 else "bf16"]

@@ -176,7 +176,7 @@ def test_evaluation_predictor_matches_jax(eval_predictors, single_point):
     np.testing.assert_allclose(ours[1], np.asarray(ref[1]), rtol=1e-3, atol=1e-3)
 
 
-def test_cli_flag_surface():
+def test_cli_flag_surface(tmp_path):
     assert parse_config([]).offline_model is True
     assert parse_config([]).device == "cuda"
     assert parse_config(["--no-offline_model"]).offline_model is False
@@ -187,8 +187,13 @@ def test_cli_flag_surface():
     assert (cfg.device, cfg.window_len, cfg.n_iters, cfg.checkpoint) == ("cpu", 16, 2, "w.pth")
     with pytest.raises(NotImplementedError):
         run_eval(DefaultConfig(v2=True))
-    with pytest.raises(NotImplementedError):
-        run_eval(DefaultConfig(dataset_name="dynamic_replica"))
+    # Dynamic Replica reads {root}/valid/frame_annotations_valid.jgz before
+    # anything is built or written
+    exp = tmp_path / "exp"
+    with pytest.raises(FileNotFoundError, match="frame_annotations_valid.jgz"):
+        run_eval(DefaultConfig(dataset_name="dynamic_replica", dataset_root=str(tmp_path),
+                               exp_dir=str(exp)))
+    assert not exp.exists()
 
 
 @pytest.mark.parametrize("mode", ["joint", "online"])

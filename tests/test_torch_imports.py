@@ -1,7 +1,8 @@
 """Import hygiene of the port: cotracker_tpu_torch, chip_smoke.py and the
 port's scripts (scripts/torch_*.py) load nothing of JAX, flax or the JAX
-package. The package is checked in a fresh interpreter, because
-tests/conftest.py has already imported JAX in this one."""
+package, and the package (its inference and evaluation surface included)
+loads without OpenCV. The package is checked in a fresh interpreter,
+because tests/conftest.py has already imported JAX in this one."""
 
 import ast
 import os
@@ -21,12 +22,18 @@ for m in pkgutil.walk_packages(cotracker_tpu_torch.__path__, "cotracker_tpu_torc
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
 print("MODULES", len([n for n in sys.modules if n.startswith("cotracker_tpu_torch")]))
 print("FORBIDDEN", bad)
+print("SURFACE", all(("cotracker_tpu_torch." + m) in sys.modules for m in {surface!r}))
+print("CV2", "cv2" in sys.modules)
 """
+# the inference and evaluation surface: it loads without OpenCV, which the
+# GPU machine does not have (video files and mp4s import it when used)
+SURFACE = ("hub", "demo", "online_demo", "utils.visualizer", "datasets.annotations",
+           "datasets.dynamic_replica", "ops.masked", "evaluation.evaluate")
 
 
 def test_port_imports_no_jax():
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN), surface=SURFACE)],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -34,6 +41,7 @@ def test_port_imports_no_jax():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["MODULES"]) >= 15, out.stdout
     assert lines["FORBIDDEN"] == "[]", out.stdout
+    assert lines["SURFACE"] == "True" and lines["CV2"] == "False", out.stdout
 
 
 def test_chip_smoke_imports_no_jax():

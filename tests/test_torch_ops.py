@@ -1,6 +1,8 @@
-"""The port's sampling, resize and embedding ops and its support sampling
-against the JAX package's, float32 on CPU (tolerance 1e-5: the same float32
-formulas, summed in another order)."""
+"""The port's sampling, resize and embedding ops, its support sampling and
+its masked means against the JAX package's, float32 on CPU (tolerance 1e-5:
+the same float32 formulas, summed in another order; the masked means, eager
+jnp against torch, 1e-6 absolute and relative: a few float32 ulps of sums
+of order 10)."""
 
 import numpy as np
 import pytest
@@ -11,8 +13,9 @@ import jax.numpy as jnp
 from cotracker_tpu.models import cotracker3 as jax_model
 from cotracker_tpu.ops import bilinear as jax_bilinear
 from cotracker_tpu.ops import embeddings as jax_embeddings
+from cotracker_tpu.ops import masked as jax_masked
 from cotracker_tpu_torch.models import cotracker3
-from cotracker_tpu_torch.ops import bilinear, embeddings
+from cotracker_tpu_torch.ops import bilinear, embeddings, masked
 
 RNG = np.random.default_rng(0)
 FMAPS = RNG.standard_normal((2, 3, 9, 11, 8)).astype(np.float32)
@@ -66,3 +69,25 @@ def test_track_features(T):
     coords = (RNG.random((2, T, 4, 2)) * [10, 8]).astype(np.float32)
     _close(cotracker3.sample_patch_features(torch.from_numpy(fm), torch.from_numpy(coords), 2),
            jax_model.sample_patch_features(jnp.asarray(fm), jnp.asarray(coords), 2))
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask", "no_mask"])
+def test_masked_mean_and_var(with_mask):
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((3, 7, 5)).astype(np.float32)
+    mask = (rng.random((3, 7, 1)) > 0.4).astype(np.float32)
+    mask[1] = 0  # a row with nothing under the mask: the denominator clamps to 1
+    m = mask if with_mask else None
+    tm = None if m is None else torch.from_numpy(m)
+    for dim in (1, (1, 2)):
+        ours = masked.masked_mean(torch.from_numpy(data), tm, dim)
+        _close_exact(ours, jax_masked.masked_mean(jnp.asarray(data), m, dim))
+        mean_var = masked.masked_mean_var(torch.from_numpy(data), tm, dim)
+        ref = jax_masked.masked_mean_var(jnp.asarray(data), m, dim)
+        for a, b in zip(mean_var, ref):
+            _close_exact(a, b)
+
+
+def _close_exact(out, ref):
+    assert tuple(out.shape) == np.shape(ref)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
