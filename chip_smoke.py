@@ -30,8 +30,10 @@ Phases, each raising on failure:
      then the training kernels K4r (raw int8 volume) and K4f (raw float
      volume) at level 0 at the training shape (768 points x 16 frames, f32)
      and the inference chunk (2,048 points x 60 frames), K4r also at 256
-     points x 80 frames (two passes): K4r's codes and scales bit-identical
-     to its plain version in one device launch, its k4_plan printed, K4f
+     points x 80 frames (two passes) and at the default eval hook's shapes
+     (phase 21: 256 x 250 and 128 x 80, levels 0-3): K4r's codes and
+     scales bit-identical to its plain version in one device launch, its
+     k4_plan printed, K4f
      (3xTF32 tensor cores in f32, FMAs in k order in bf16) within a float32
      bound and, in bf16, within one bf16 ulp, with the bound of each dtype
      under the peak of its products (tf32 for 3xTF32's three, bf16), the
@@ -163,16 +165,48 @@ Phases, each raising on failure:
  20. the demos as their entry points build them (the plain float32 model)
      on a seeded 24-frame 384x512 .npy video: demo.track_video's tracks and
      rendered frames, online_demo.track_stream's tracks against its
-     predictor driven by hand with the loop's chunks; no mp4 (no OpenCV on
-     the card: save_video's ImportError names cv2).
+     predictor driven by hand with the loop's chunks; where OpenCV is
+     missing, no mp4 (save_video's ImportError names cv2);
+ 21. training from a Kubric tree: a MOVi-f-shaped tree written from a seed
+     with write_png (3 sequences of 24 frames at 512x512, 2,000 tracks,
+     the filter types mixed by row); read_png's ms per frame (a sequence
+     decoded together, one frame alone) against the frames written; a
+     24-frame sample's read with and without augmentations; then the
+     trainer's command line, trainer.main, at its full width (384x512
+     crop, the online model in windows of 16, 768 tracks, iters=4,
+     augmentations on, the clip length and frame rate drawn per sample)
+     for 6 steps with a checkpoint and the default eval hook (run_test_eval
+     on phase 10's TAP-Vid pickle) every 3: every step's K4r count that of
+     its clip's windows (4 levels x 4 iterations x windows x 2), no other
+     kernel; losses finite, the checkpoints and eval_records.jsonl there,
+     each eval hook K4r 48 (2 sequences x 4 levels x 6 iterations) at the
+     (points, frames) that phase 3 held to the plain version; the loader
+     reads in processes (the reader's read_in_processes): the median ms of
+     its two-window steps beside training (a)'s and beside the same command
+     line with the reads in the loader's threads (6 steps, no eval); a
+     host loop of 10,000 small torch ops alone and beside the loader
+     reading in threads and in processes; the eval forward's kernel
+     launches by kernel (torch.profiler); the
+     visualisation hook's render_train_batch on the card on one batch (K4r
+     16; an mp4 where OpenCV imports); with cv2 made unimportable, its
+     cadence raises before step 0, naming cv2;
+ 22. the interactive demo's server in a thread (the plain float32 model as
+     its entry point builds it) on a seeded 24-frame .npy video: the page,
+     /frame.png (frame 0 bit for bit), /track with two points and a 10x10
+     grid (the mp4 where OpenCV imports); with cv2 made unimportable, its
+     JSON says why no mp4 was written and /result.mp4 answers 404 with
+     those words.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import importlib.util
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -311,6 +345,11 @@ K4F_TOL = 1e-5
 # the training shape (768 points x 16 frames) and the inference chunk;
 # K4r past 64 frames, where K4's cluster kernel takes two passes
 TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS = (768, 16), (CHUNK, T_FRAMES), (256, 80)
+# the default eval hook's K4r calls (the training model in eval mode on the
+# evaluation phase's sequences, one call a level and iteration over the
+# whole clip): A's 256 tracks x 250 frames (8 blocks of 32 frames each), B's
+# 128 padded tracks x 80 frames; their keys' suffixes
+K4R_EVAL = {(256, 250): "_t250", (128, 80): "_m128_t80"}
 # streaming configuration (b) against (a) after 7 warm-started windows of 6
 # iterations with random weights: W8A8 quantization noise separates them;
 # (median, 90th percentile, max) of the per-point distance in pixels, about
@@ -699,12 +738,13 @@ def train_kernel_phase(dev):
     """K4r and K4f against their plain versions at level 0 (96x128), f32
     level maps and support, at the training shape (the contract's keys) and
     the inference chunk (`*_t60`); K4r also past 64 frames (`*_t80`: K4's
-    cluster kernel in two passes)."""
+    cluster kernel in two passes) and at the eval hook's shapes (K4R_EVAL),
+    where levels 1-3 are held bit for bit to the plain version too."""
     g = torch.Generator().manual_seed(3)
     Hh, W = LVL0
     out = {}
-    for (n, T) in (TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS):
-        sfx = "" if (n, T) == TRAIN_SHAPE else f"_t{T}"
+    for (n, T) in (TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS, *K4R_EVAL):
+        sfx = "" if (n, T) == TRAIN_SHAPE else K4R_EVAL.get((n, T), f"_t{T}")
         fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
         sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g).to(dev), dim=-1)
         coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
@@ -712,7 +752,9 @@ def train_kernel_phase(dev):
         Tp = starts.shape[1]
         mm = n * Tp * 64 * 49 * 128 * 2  # multiply-adds of the window products, as operations
         k4r_entry(out, fm, sup, starts, n, T, mm, sfx)
-        if (n, T) != K4R_TWO_PASS:
+        if (n, T) in K4R_EVAL:
+            k4r_levels_check(out, g, sup, coords, n, T, sfx)
+        elif (n, T) != K4R_TWO_PASS:
             for dtype in (torch.float32, torch.bfloat16):
                 k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx)
         for k in out.values():
@@ -750,7 +792,9 @@ def k4r_entry(out, fm, sup, starts, n, T, mm, sfx):
         replaces="cotracker_tpu/ops/kernels/corr_pallas.py:105", launches=0, max_abs_err=0.0,
         shape=f"level 0 (96x128), {TRAIN_SHAPE[0]} points x {TRAIN_SHAPE[1]} frames "
               f"(also *_t{INFER_SHAPE[1]}: {INFER_SHAPE[0]} x {INFER_SHAPE[1]}; "
-              f"*_t{K4R_TWO_PASS[1]}: {K4R_TWO_PASS[0]} x {K4R_TWO_PASS[1]}, two passes)"))
+              f"*_t{K4R_TWO_PASS[1]}: {K4R_TWO_PASS[0]} x {K4R_TWO_PASS[1]}, two passes; "
+              + "; ".join(f"*{k}: {m} x {t}, the eval hook's" for (m, t), k in K4R_EVAL.items())
+              + ")"))
     bnd = bound(window_bytes(fmq, starts) + nbytes(supq, starts, vol, scale),
                 [(mm, INT8_OPS)])
     e.update({"ms" + sfx: time_ms(fn),
@@ -759,6 +803,31 @@ def k4r_entry(out, fm, sup, starts, n, T, mm, sfx):
               "bound_ms" + sfx: bnd[0], "bound_by" + sfx: bnd[1], "library_ms" + sfx: None,
               "plan" + sfx: plan._asdict(), "device_launches" + sfx: launches})
     del fmq, supq, vol, rvol
+
+
+def k4r_levels_check(out, g, sup, coords, n, T, sfx):
+    """K4r at levels 1-3 (48x64 to 12x16) of `n` points x `T` frames: codes
+    and scales bit-identical to its plain version, one device launch a call."""
+    supq, _ = corr_cuda.quantize_support(sup.transpose(1, 2), torch.float32)
+    supq = supq.reshape(n, 49, 128)
+    for lvl in (1, 2, 3):
+        Hh, W = LVL0[0] >> lvl, LVL0[1] >> lvl
+        fm = torch.nn.functional.normalize(
+            torch.randn(1, T, Hh, W, 128, generator=g).to(supq.device), dim=-1)
+        fmq = corr_cuda.build_int8_level(fm, 3)
+        starts, _ = corr_cuda.level_operands(coords / (1 << lvl), 1, T, Hh, W, 3)
+        fn = lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)  # noqa: E731
+        vol, scale = fn()
+        rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+        codes, scales = int((vol != rvol).sum().item()), int((scale != rscale).sum().item())
+        launches = device_launches(fn)
+        log(f"  K4r {n} points x {T} frames at level {lvl} ({Hh}x{W}): {codes} codes and "
+            f"{scales} scales differ (bound 0); {launches} device launch(es) a call")
+        if codes or scales or launches != 1:
+            raise AssertionError(f"K4r at level {lvl}: disagrees with its plain version or "
+                                 "is not one launch")
+        out["K4r_corr_volume_raw"].setdefault("levels_exact" + sfx, [0]).append(lvl)
+        del fm, fmq, vol, rvol
 
 
 def k4f_entry(out, fm, sup, starts, n, T, Tp, mm, dtype, sfx):
@@ -2388,6 +2457,433 @@ def demos_phase(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------- training from Kubric
+# (phases 21-22): the trainer's command line on a MOVi-f-shaped tree, and the
+# interactive demo's server
+
+KUBRIC_SEQS, KUBRIC_T, KUBRIC_HW, KUBRIC_TRACKS = 3, 24, (512, 512), 2000
+KUBRIC_STEPS, KUBRIC_EVAL_EVERY = 6, 3
+
+
+def write_kubric_tree(root):
+    """A tree in MOVi-f's layout and frame size, from a seed: KUBRIC_SEQS
+    sequences of KUBRIC_T 512x512 frames (MovingClip's smooth texture,
+    written by write_png with the five filter types by row in turn) and
+    KUBRIC_TRACKS tracks each (MovingClip's, occluded outside the frame).
+    The files are written by 8 threads (zlib and numpy release the GIL).
+    Returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cotracker_tpu_torch.datasets.png import write_png
+
+    t0 = time.perf_counter()
+    rows = np.arange(KUBRIC_HW[0]) % 5
+    jobs = []
+    with ThreadPoolExecutor(8) as pool:
+        for s in range(KUBRIC_SEQS):
+            clip = MovingClip(KUBRIC_T, *KUBRIC_HW, KUBRIC_TRACKS, seed=20 + s).sample
+            name = f"seq{s:03d}"
+            os.makedirs(os.path.join(root, name, "frames"))
+            frames = clip.video.transpose(0, 2, 3, 1).round().astype(np.uint8)
+            for t, frame in enumerate(frames):
+                jobs.append(pool.submit(write_png, os.path.join(root, name, "frames",
+                                                                f"{t:03d}.png"), frame, rows))
+            np.save(os.path.join(root, name, name + ".npy"),
+                    {"coords": clip.trajectory.transpose(1, 0, 2),
+                     "visibility": ~clip.visibility.T.astype(bool)}, allow_pickle=True)
+        for job in jobs:
+            job.result()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def signals_restored():
+    """train() installs the SLURM handlers (SIGTERM ignored): put back this
+    process's own afterwards, so that it stays stoppable."""
+    found = {sig: signal.getsignal(sig) for sig in (signal.SIGUSR1, signal.SIGTERM)}
+    try:
+        yield
+    finally:
+        for sig, handler in found.items():
+            signal.signal(sig, handler)
+
+
+@contextlib.contextmanager
+def without_cv2():
+    """`import cv2` raises ImportError inside (as where OpenCV is missing)."""
+    found = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if found is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = found
+
+
+def check_kubric_steps(steps, zeros):
+    """Every step of the Kubric runs launched K4r as its clip's windows
+    need, and nothing else."""
+    for frames, counts, _ in steps:
+        expected = {**zeros, "K4r_corr_volume_raw": k4r_per_step(frames)}
+        if counts != expected:
+            raise AssertionError(f"Kubric training: a step of {frames} frames launched "
+                                 f"{counts}, expected {expected}")
+
+
+def two_window_median(steps):
+    """Median ms of the steps after the first whose clip takes two windows
+    (over 16 frames: training (a)'s shape once padded), or None."""
+    two = sorted(m for f, _, m in steps[1:] if f > 16)
+    return two[len(two) // 2] if two else None
+
+
+def host_loop_probe(tree):
+    """Seconds of a loop of 10,000 small torch ops on the host (a
+    launch-bound step's pattern: the interpreter lock taken back after
+    every op) alone, then beside the command line's loader (4 workers, the
+    Kubric reader with its augmentations and random clips) reading in its
+    threads and in its processes; each loader is timed once its first batch
+    is out, with room in its queue to go on reading."""
+    from cotracker_tpu_torch.datasets.kubric import KubricMovifDataset
+    from cotracker_tpu_torch.training.data_loader import PrefetchLoader
+
+    def loop():
+        x = torch.zeros(10)
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            x = x + 1
+        return time.perf_counter() - t0
+
+    ds = KubricMovifDataset(tree, crop_size=TRAIN_RES, seq_len=KUBRIC_T,
+                            traj_per_sample=TRAIN_TRACKS, use_augs=True, random_seq_len=True,
+                            random_frame_rate=True)
+    out = {"alone": loop()}
+    for mode in ("threads", "processes"):
+        ds.read_in_processes = mode == "processes"
+        loader = PrefetchLoader(ds, 1, seed=0, num_workers=4, prefetch=32)
+        try:
+            next(loader)
+            if not any(t.is_alive() for t in loader._threads):
+                raise AssertionError("host_loop_probe: the loader's workers stopped")
+            out[mode] = loop()
+        finally:
+            loader.close()
+    out["alone_again"] = loop()
+    return out
+
+
+def k4r_per_step(frames):
+    """K4r launches of one online training step of a clip of `frames`
+    frames: 4 levels x TRAIN_ITERS iterations x its windows of 16 at step 8
+    x 2 (the checkpointed forward runs again in the backward)."""
+    windows = max(1, -(-(frames - 16) // 8) + 1)
+    return 4 * TRAIN_ITERS * windows * 2
+
+
+def kubric_phase(dev, smi, moving_ms):
+    """Phase 21 (see the module docstring). Returns the per-step and
+    per-eval launch counts and the metrics."""
+    from cotracker_tpu_torch.datasets.kubric import KubricMovifDataset
+    from cotracker_tpu_torch.datasets.png import read_png, read_pngs
+    from cotracker_tpu_torch.training import trainer
+    from cotracker_tpu_torch.training.data_loader import collate_batch
+    from cotracker_tpu_torch.utils.profiling import kernel_launches
+    from cotracker_tpu_torch.utils.visualizer import Visualizer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_kubric_")
+    zeros = dict.fromkeys(WRAPPERS, 0)
+    metrics = {}
+    try:
+        tree = os.path.join(root, "movi_f")
+        metrics["tree_write_s"] = write_kubric_tree(tree)
+        log(f"  wrote {KUBRIC_SEQS} sequences x {KUBRIC_T} frames of {KUBRIC_HW[1]}x"
+            f"{KUBRIC_HW[0]} and {KUBRIC_TRACKS} tracks in {metrics['tree_write_s']:.2f} s")
+
+        # PNG decoding on the card's host: a sequence's frames in one sweep, one frame alone
+        paths = sorted(os.path.join(tree, "seq000", "frames", f)
+                       for f in os.listdir(os.path.join(tree, "seq000", "frames")))
+        want = MovingClip(KUBRIC_T, *KUBRIC_HW, KUBRIC_TRACKS, seed=20).sample.video
+        want = want.transpose(0, 2, 3, 1).round().astype(np.uint8)
+        per_seq, per_one = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            frames = read_pngs(paths)
+            per_seq.append(1e3 * (time.perf_counter() - t0) / len(paths))
+            t0 = time.perf_counter()
+            one = read_png(paths[0])
+            per_one.append(1e3 * (time.perf_counter() - t0))
+        if not (np.array_equal(np.stack(frames), want) and np.array_equal(one, want[0])):
+            raise AssertionError("read_png: the decoded frames differ from those written")
+        metrics["png_ms_per_frame"] = sorted(per_seq)[1]
+        metrics["png_ms_one_frame"] = sorted(per_one)[1]
+        log(f"  read_png, {KUBRIC_HW[1]}x{KUBRIC_HW[0]} RGB, filters mixed by row: "
+            f"{metrics['png_ms_per_frame']:.2f} "
+            f"ms a frame decoding a sequence's {len(paths)} together, "
+            f"{metrics['png_ms_one_frame']:.2f} ms for one frame alone (medians of 3)")
+
+        # a sample's read: the whole 24-frame sequence, with and without augmentations
+        for augs in (False, True):
+            ds = KubricMovifDataset(tree, crop_size=TRAIN_RES, seq_len=KUBRIC_T,
+                                    traj_per_sample=TRAIN_TRACKS, use_augs=augs)
+            rng = np.random.default_rng(0)
+            secs = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                sample, ok = ds.get(i, rng)
+                secs.append(time.perf_counter() - t0)
+                if not ok or sample.video.shape != (KUBRIC_T, 3, *TRAIN_RES):
+                    raise AssertionError(f"Kubric read (use_augs={augs}): failed sample")
+            metrics[f"sample_read_s_augs_{'on' if augs else 'off'}"] = sorted(secs)[1]
+            log(f"  a sample's read, {KUBRIC_T} frames, use_augs={augs}: "
+                f"{[round(x, 3) for x in secs]} s (median {sorted(secs)[1]:.3f})")
+
+        # the trainer's command line, online model at full width, with the eval hook
+        pkl = os.path.join(root, "tapvid_davis.pkl")
+        write_tapvid_pickle(pkl)
+        exp = os.path.join(root, "exp")
+        argv = ["--dataset_root", tree, "--exp_dir", exp, "--offline_model",
+                "--model_window_len", "16", "--num_steps", str(KUBRIC_STEPS),
+                "--save_every_n_steps", str(KUBRIC_EVAL_EVERY),
+                "--eval_every_n_steps", str(KUBRIC_EVAL_EVERY),
+                "--eval_datasets", f"tapvid_davis_first={pkl}", "--device", dev.type]
+        args = trainer.parse_args(argv)
+        if (args.crop_size, args.traj_per_sample, args.train_iters, args.offline_model,
+                args.use_augs, args.use_corr_kernels) != (TRAIN_RES, TRAIN_TRACKS, TRAIN_ITERS,
+                                                          False, True, True):
+            raise AssertionError(f"the command line parsed to {args}")
+        steps, evals = [], []
+        sink = [steps]  # where counted_step records (frames, counts, ms)
+        step_fn, eval_fn = trainer.train_step, trainer.run_test_eval
+
+        def counted_step(model, optimizer, scheduler, batch, generator, cfg):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(model, optimizer, scheduler, batch, generator, cfg)
+            torch.cuda.synchronize()
+            sink[0].append((batch["video"].shape[1], read_counts(),
+                            1e3 * (time.perf_counter() - t0)))
+            return out
+
+        launch, shapes = corr_cuda._k4_launch, set()
+
+        def recorded(fmq, supq, starts, wxy, plan):  # (points, padded frames) of each K4r
+            if wxy is None:
+                shapes.add(tuple(starts.shape[:2]))
+            return launch(fmq, supq, starts, wxy, plan)
+
+        def counted_eval(model, *a, **kw):
+            zero_counts()
+            shapes.clear()
+            corr_cuda._k4_launch = recorded
+            t0 = time.perf_counter()
+            try:
+                out = eval_fn(model, *a, **kw)
+            finally:
+                corr_cuda._k4_launch = launch
+            torch.cuda.synchronize()
+            evals.append((read_counts(), time.perf_counter() - t0, sorted(shapes)))
+            return out
+
+        trainer.train_step, trainer.run_test_eval = counted_step, counted_eval
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            model = trainer.main(argv)
+        finally:
+            trainer.train_step, trainer.run_test_eval = step_fn, eval_fn
+        metrics["cli_s"] = time.perf_counter() - t0
+        metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        check_kubric_steps(steps, zeros)
+        losses = [r["total_loss"] for r in read_losses(exp)]
+        log(f"  trainer.main: {len(steps)} steps in {metrics['cli_s']:.1f} s (model build, "
+            f"loader and evals included), peak memory {metrics['peak_gib']:.2f} GiB; clip "
+            f"frames per step {[f for f, _, _ in steps]}, K4r per step "
+            f"{[c['K4r_corr_volume_raw'] for _, c, _ in steps]} (4 levels x {TRAIN_ITERS} "
+            f"iterations x windows x 2), every other kernel 0; ms per step "
+            f"{[round(m, 1) for _, _, m in steps]}; total loss {[round(x, 4) for x in losses]}")
+        if len(losses) != KUBRIC_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError("Kubric training: losses missing or not finite")
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        if ckpts != ["model_000000003.pth", "model_000000006.pth", "model_final.pth"]:
+            raise AssertionError(f"Kubric training: checkpoints {ckpts}")
+        with open(os.path.join(exp, "eval_records.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        per_seq = dict(K4r_corr_volume_raw=4 * 6 * len(EVAL_SEQS))  # levels x n_iters=6
+        if ([r["step"] for r in records] != [3, 6] or len(evals) != 2
+                or any(c != {**zeros, **per_seq} for c, _, _ in evals)):
+            raise AssertionError(f"Kubric training: eval records {records}, launches {evals}")
+        checked = sorted((m, t + t % 2) for m, t in K4R_EVAL)  # K4r's phase, padded frames
+        if any(sh != checked for _, _, sh in evals):
+            raise AssertionError(f"the eval hook ran K4r at {[sh for _, _, sh in evals]} "
+                                 f"(points, padded frames), the K4r phase checked {checked}")
+        avg = records[-1]["results"]["tapvid_davis_first"]
+        log(f"  eval hook at steps {[r['step'] for r in records]}: {[round(s, 2) for _, s, _ in evals]}"
+            f" s each, launches {evals[0][0]['K4r_corr_volume_raw']} K4r ({len(EVAL_SEQS)} "
+            f"sequences x 4 levels x 6 iterations) at {evals[0][2]} (points, padded frames), "
+            f"each held to its plain version in the K4r phase; every other kernel 0; metrics {avg}")
+        metrics["ms_per_step"] = [m for _, _, m in steps]
+        metrics["frames_per_step"] = [f for f, _, _ in steps]
+        metrics["ms_per_step_two_windows_median"] = two_window_median(steps)
+
+        # the same command line with the samples read in the loader's threads
+        # (the reader's read_in_processes off), as many steps, no eval: what
+        # reading in processes takes off the step
+        threads_steps = []
+        sink[0] = threads_steps
+        KubricMovifDataset.read_in_processes = False
+        trainer.train_step = counted_step
+        try:
+            trainer.main(argv[:2] + ["--exp_dir", os.path.join(root, "exp_threads")] + argv[4:9]
+                         + ["--device", dev.type])
+        finally:
+            del KubricMovifDataset.read_in_processes
+            trainer.train_step = step_fn
+        check_kubric_steps(threads_steps, zeros)
+        metrics["ms_per_step_threads"] = [m for _, _, m in threads_steps]
+        metrics["frames_per_step_threads"] = [f for f, _, _ in threads_steps]
+        metrics["ms_per_step_two_windows_median_threads"] = two_window_median(threads_steps)
+        threads_ms = [round(m, 1) for m in metrics["ms_per_step_threads"]]
+        log(f"  steps after the first with two windows ({TRAIN_RES[0]}x{TRAIN_RES[1]}, 24 frames "
+            f"padded, {TRAIN_TRACKS} tracks), median: "
+            f"{metrics['ms_per_step_two_windows_median']} ms with the reads in the loader's "
+            f"processes (the default); {metrics['ms_per_step_two_windows_median_threads']} ms "
+            f"with them in its threads (ms per step {threads_ms} at "
+            f"{metrics['frames_per_step_threads']} frames); "
+            f"MovingClip's training (a) in this call: {moving_ms:.1f} ms ({smi})")
+        metrics["host_loop_s"] = host_loop_probe(tree)
+        log(f"  a host loop of 10,000 small torch ops (a launch-bound step's pattern), seconds: "
+            f"{metrics['host_loop_s']}")
+
+        # the eval forward's device launches by kernel (sequence B at the model's resolution)
+        from cotracker_tpu_torch.datasets.tap_vid import TapVidDataset
+        from cotracker_tpu_torch.ops.bilinear import resize_bilinear
+
+        sample = TapVidDataset(pkl, "davis")[1]
+        video = torch.from_numpy(sample.video[None]).to(dev).float()
+        video_cl = resize_bilinear(video.permute(0, 1, 3, 4, 2), TRAIN_RES, align_corners=True)
+        qp = sample.query_points
+        q = np.zeros((1, 128, 3), np.float32)
+        q[0, : len(qp)] = np.stack([qp[:, 0], qp[:, 2] * 511 / 255, qp[:, 1] * 383 / 255], 1)
+        mask = torch.zeros(1, 128, dtype=torch.bool, device=dev)
+        mask[0, : len(qp)] = True
+        q = torch.from_numpy(q).to(dev)
+        model.eval()
+        with torch.inference_mode():
+            by_kernel = kernel_launches(lambda: model(video_cl, q, iters=6, track_mask=mask))
+        model.train()
+        metrics["eval_forward_launches"] = sum(by_kernel.values())
+        k4r = {k: v for k, v in by_kernel.items() if "k4r" in k}
+        log(f"  the eval forward (80 frames, 128 tracks, iters=6) on the card: "
+            f"{metrics['eval_forward_launches']} kernel launches (profiler; copies and memsets "
+            f"apart), K4r kernels {k4r}; "
+            f"the five largest counts {sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]}")
+        if sum(k4r.values()) != 24:
+            raise AssertionError(f"the eval forward ran K4r {k4r}, expected 24")
+
+        # the visualisation hook: its render on the card; its cadence raises before step 0
+        # where the video has no sink (no cv2, and no TensorBoard writer with moviepy)
+        ds = KubricMovifDataset(tree, crop_size=TRAIN_RES, seq_len=KUBRIC_T,
+                                traj_per_sample=TRAIN_TRACKS)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in collate_batch(
+            [ds.get(0, np.random.default_rng(0))[0]]).items()}
+        zero_counts()
+        rendered = trainer.render_train_batch(model, batch, TRAIN_ITERS,
+                                              Visualizer(save_dir=root, fps=6))
+        counts = read_counts()
+        log(f"  render_train_batch on the card: {rendered.shape} {rendered.dtype}, K4r "
+            f"{counts['K4r_corr_volume_raw']} (4 levels x {TRAIN_ITERS} iterations)")
+        if (rendered.shape != (KUBRIC_T + 9, *TRAIN_RES, 3)
+                or counts != {**zeros, "K4r_corr_volume_raw": 4 * TRAIN_ITERS}):
+            raise AssertionError("render_train_batch: wrong frames or launches")
+        if importlib.util.find_spec("cv2") is not None:
+            path = Visualizer(save_dir=root, fps=6).save_video(rendered, "train_step")
+            log(f"  OpenCV is here: the rendered batch as an mp4, {os.path.getsize(path)} bytes")
+        exp2 = os.path.join(root, "exp_vis")
+        with without_cv2():
+            try:
+                trainer.main(argv[:2] + ["--exp_dir", exp2, "--save_vis_every_n_steps", "1",
+                                         "--num_steps", "1", "--device", dev.type])
+            except ImportError as e:
+                if "cv2" not in str(e) or os.path.exists(os.path.join(exp2, "train_log.jsonl")):
+                    raise AssertionError(f"the visualisation cadence: {e}") from e
+                log(f"  without cv2, save_vis_every_n_steps raises before step 0: {e}")
+            else:
+                raise AssertionError("the visualisation cadence trained without a video sink")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return steps, evals, metrics
+
+
+def interactive_demo_phase(dev):
+    """Phase 22 (see the module docstring)."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from cotracker_tpu_torch.datasets.png import read_png
+    from cotracker_tpu_torch.interactive_demo import DemoState, make_handler
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_idemo_")
+    srv = None
+    try:
+        video = synthetic_video(DEMO_T, 384, 512, dev)[0].permute(0, 2, 3, 1).round()
+        video = video.to(torch.uint8).cpu().numpy()
+        np.save(os.path.join(root, "clip.npy"), video)
+        state = DemoState(os.path.join(root, "clip.npy"), max_frames=DEMO_T, device=dev.type,
+                          save_dir=root)
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def get(path):
+            return urllib.request.urlopen(base + path, timeout=300).read()
+
+        def track(body):
+            req = urllib.request.Request(base + "/track", data=json.dumps(body).encode(),
+                                         method="POST")
+            return json.loads(urllib.request.urlopen(req, timeout=300).read())
+
+        if "/frame.png" not in get("/").decode():
+            raise AssertionError("interactive demo: the page does not show /frame.png")
+        with open(os.path.join(root, "frame.png"), "wb") as f:
+            f.write(get("/frame.png"))
+        if not np.array_equal(read_png(os.path.join(root, "frame.png")), video[0]):
+            raise AssertionError("interactive demo: /frame.png is not frame 0")
+        zero_counts()
+        points = track({"points": [[100, 120], [300, 200]], "grid_size": 0})
+        grid = track({"points": [], "grid_size": 10})
+        log(f"  /track with 2 points: {points}; with a 10x10 grid: {grid}; kernel launches "
+            f"{sum(read_counts().values())} (the plain model); tracks on "
+            f"{next(state.predictor().model.parameters()).device}")
+        if (points["n_tracks"], grid["n_tracks"], points["n_frames"]) != (2, 100, DEMO_T):
+            raise AssertionError("interactive demo: wrong track counts")
+        if importlib.util.find_spec("cv2") is not None:
+            if points["mp4"] != "/result.mp4" or len(get("/result.mp4")) < 500:
+                raise AssertionError("interactive demo: OpenCV is here but no mp4 was served")
+            log("  OpenCV is here: /result.mp4 served")
+        with without_cv2():
+            out = track({"points": [[100, 120]], "grid_size": 0})
+        try:
+            get("/result.mp4")
+        except urllib.error.HTTPError as e:
+            body = e.read().decode()
+            if (e.code != 404 or body != out["no_mp4"] or "cv2" not in body
+                    or out["mp4"] is not None or out["n_tracks"] != 1):
+                raise AssertionError(f"interactive demo: /result.mp4 {e.code} {body}") from e
+            log(f"  without cv2: /track {out}; /result.mp4 404 {body}")
+        else:
+            raise AssertionError("interactive demo: an mp4 was served without OpenCV")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2430,7 +2926,8 @@ def main():
     torch.cuda.empty_cache()
     counts_a, counts_b, pfs_a, pfs_b = streaming_paths(dev)
     torch.cuda.empty_cache()
-    step_r, step_f, step_m, train_metrics = training_phase(dev, smi)
+    with signals_restored():
+        step_r, step_f, step_m, train_metrics = training_phase(dev, smi)
     torch.cuda.empty_cache()
     log("gradients on the card, K4r and K4f training models against the plain model:")
     gradient_phase(dev)
@@ -2476,6 +2973,16 @@ def main():
     log(f"demos: demo.track_video and online_demo.track_stream on a {DEMO_T}-frame .npy video:")
     demos_phase(dev)
     torch.cuda.empty_cache()
+    log(f"training from a Kubric tree: trainer.main, online model, {TRAIN_RES[0]}x{TRAIN_RES[1]}, "
+        f"{TRAIN_TRACKS} tracks, iters={TRAIN_ITERS}, augmentations on, the eval hook:")
+    t0 = time.perf_counter()
+    with signals_restored():
+        kubric_steps, kubric_evals, kubric = kubric_phase(dev, smi, train_metrics["ms_per_step"])
+    kubric["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"interactive demo: its server in a thread, a {DEMO_T}-frame .npy video:")
+    interactive_demo_phase(dev)
+    torch.cuda.empty_cache()
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -2493,6 +3000,8 @@ def main():
         # per training step: K4r in the online K4r run, K4f in the K4f run
         k["launches"] = step_r[k["name"]] or step_f[k["name"]]
         k["launches_per_step"] = {"k4r_run": step_r[k["name"]], "k4f_run": step_f[k["name"]]}
+        k["launches_per_step_kubric_cli"] = [c[k["name"]] for _, c, _ in kubric_steps]
+        k["launches_per_eval_hook"] = [c[k["name"]] for c, _, _ in kubric_evals]
     kernels += train_kernels
     for k in variant_kernels:
         # K4m and K11 from a quasi-dense window with the variants on, K10 and
@@ -2530,6 +3039,13 @@ def main():
         f"({segm['kept']} points, {SEGM_T} frames): {segm['seconds']:.3f} s; Dynamic Replica "
         f"({dr['tracks']} tracks, {DR_T} frames): {dr['seconds_per_sequence']:.3f} s per sequence "
         f"({smi})")
+    log(f"training from a Kubric tree: read_png {kubric['png_ms_per_frame']:.2f} ms a 512x512 "
+        f"frame ({kubric['png_ms_one_frame']:.2f} alone); a 24-frame sample's read "
+        f"{kubric['sample_read_s_augs_off']:.3f} s without augmentations, "
+        f"{kubric['sample_read_s_augs_on']:.3f} s with; ms per step "
+        f"{[round(m, 1) for m in kubric['ms_per_step']]} at {kubric['frames_per_step']} frames, "
+        f"two-window median {kubric['ms_per_step_two_windows_median']} against MovingClip's "
+        f"{train_metrics['ms_per_step']:.1f}; phase {kubric['phase_s']:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

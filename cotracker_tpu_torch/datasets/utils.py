@@ -1,4 +1,4 @@
-"""The evaluation sample container and its collation (port of
+"""The sample container and its collation, for evaluation and training (port of
 cotracker_tpu/datasets/utils.py): numpy arrays, moved to the card by the
 predictor that reads them."""
 
@@ -43,3 +43,11 @@ def collate_fn(batch):
         else:
             out[f.name] = np.stack([np.asarray(v) for v in vals])
     return CoTrackerData(**out)
+
+
+def collate_fn_train(batch):
+    """Training collation of (CoTrackerData, gotit) pairs (bare samples count
+    as read): the stacked samples and the list of gotit flags."""
+    samples = [b[0] if isinstance(b, tuple) else b for b in batch]
+    gotit = [b[1] if isinstance(b, tuple) else True for b in batch]
+    return collate_fn(samples), gotit

@@ -1,6 +1,7 @@
 """Profiling surface of the port (port of cotracker_tpu/utils/profiling.py):
-torch.profiler traces, per-stage timers, and two readings of one call of a
-function on the card: its device launches and its device time by kernel.
+torch.profiler traces, per-stage timers, and three readings of one call of
+a function on the card: its device launches (from a CUDA graph, or by
+kernel name from the profiler) and its device time by kernel.
 
 The users' metric is points·frames per second on the card, so a stage's
 time must include the device work it queued: `StageTimer` synchronises the
@@ -62,6 +63,25 @@ def kernel_ms(fn: Callable[[], object], reps: int = 10) -> Dict[str, float]:
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         if t > 0 and e.device_type.name == "CUDA":
             out[e.key] = out.get(e.key, 0.0) + t / 1e3 / reps
+    return out
+
+
+def kernel_launches(fn: Callable[[], object]) -> Dict[str, int]:
+    """Device kernel launches of one call of fn by kernel name (torch.
+    profiler's CUDA activity over one call after a warm one; its Memcpy and
+    Memset events are not kernels and are left out): for a call that cannot
+    be captured in a CUDA graph, such as a model forward that copies a host
+    value to the device."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: Dict[str, int] = {}
+    for e in prof.key_averages():
+        if (e.device_type.name == "CUDA" and e.count
+                and not e.key.startswith(("Memcpy", "Memset"))):
+            out[e.key] = out.get(e.key, 0) + e.count
     return out
 
 

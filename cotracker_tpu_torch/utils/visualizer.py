@@ -59,10 +59,15 @@ def _one_minus(a, b):
     return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
 
 
-def hsv_to_rgb(hsv):
+def hsv_to_rgb(hsv, truncate: bool = False):
     """(..., 3) uint8 HSV, hue in [0, 180) -> (..., 3) uint8 RGB, the codes
     of cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB): OpenCV's float32 formula with
-    its two fused multiply-adds, rounded half to even."""
+    its two fused multiply-adds, rounded half to even as OpenCV's scalar
+    loop does or, with `truncate`, truncated as its vector loop does.
+    cvtColor runs each row's whole blocks of 4 x SIMD-width pixels (16-64)
+    through the vector loop and the rest through the scalar one: a few
+    pixels (the colour maps) take the scalar loop, a 512-wide frame only
+    the vector one."""
     hsv = np.asarray(hsv, np.uint8)
     f32 = np.float32
     h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
@@ -74,7 +79,8 @@ def hsv_to_rgb(hsv):
     tab = np.stack([v, v * (f32(1.0) - s), v * _one_minus(s, frac),
                     v * _one_minus(s, f32(1.0) - frac)], axis=-1)
     bgr = np.take_along_axis(tab, _HSV_SECTORS[sector], axis=-1) * f32(255.0)
-    return np.clip(np.rint(bgr), 0, 255).astype(np.uint8)[..., ::-1]
+    bgr = np.trunc(bgr) if truncate else np.rint(bgr)
+    return np.clip(bgr, 0, 255).astype(np.uint8)[..., ::-1]
 
 
 def _colormap(name: str, x):
@@ -305,18 +311,29 @@ class Visualizer:
                 draw_line(frame, (x - L, y - L), (x + L, y + L), (255, 0, 0), self.linewidth)
                 draw_line(frame, (x + L, y - L), (x - L, y + L), (255, 0, 0), self.linewidth)
 
+    @staticmethod
+    def video_sink(writer=None) -> str:
+        """Where save_video puts a video: "tensorboard" (a writer, and
+        moviepy for its add_video) or else "mp4" (through OpenCV, whose
+        absence raises here an ImportError naming cv2)."""
+        if writer is not None:
+            import importlib.util
+
+            if importlib.util.find_spec("moviepy") is not None:
+                return "tensorboard"
+        import_cv2("writing an mp4")
+        return "mp4"
+
     def save_video(self, frames, filename: str, writer=None, step: int = 0):
         """frames (T, H, W, 3) uint8. With a TensorBoard writer and moviepy,
         add_video (which writes nothing without moviepy, so then the mp4);
         else an mp4 in save_dir through OpenCV, which raises an ImportError
         naming cv2 where it is missing. Returns the mp4's path or None."""
+        if self.video_sink(writer) == "tensorboard":
+            writer.add_video(filename, torch.from_numpy(frames).permute(0, 3, 1, 2)[None],
+                             global_step=step, fps=self.fps)
+            return None
         if writer is not None:
-            import importlib.util
-
-            if importlib.util.find_spec("moviepy") is not None:
-                writer.add_video(filename, torch.from_numpy(frames).permute(0, 3, 1, 2)[None],
-                                 global_step=step, fps=self.fps)
-                return None
             print("TensorBoard's add_video needs moviepy (absent); writing an mp4 instead")
         cv2 = import_cv2("writing an mp4")
         os.makedirs(self.save_dir, exist_ok=True)

@@ -1,7 +1,7 @@
 """Import hygiene of the port: cotracker_tpu_torch, chip_smoke.py and the
 port's scripts (scripts/torch_*.py) load nothing of JAX, flax or the JAX
-package, and the package (its inference and evaluation surface included)
-loads without OpenCV. The package is checked in a fresh interpreter,
+package, and the package (its inference, evaluation and training surface
+included) loads without OpenCV or PIL. The package is checked in a fresh interpreter,
 because tests/conftest.py has already imported JAX in this one."""
 
 import ast
@@ -24,11 +24,15 @@ print("MODULES", len([n for n in sys.modules if n.startswith("cotracker_tpu_torc
 print("FORBIDDEN", bad)
 print("SURFACE", all(("cotracker_tpu_torch." + m) in sys.modules for m in {surface!r}))
 print("CV2", "cv2" in sys.modules)
+print("PIL", "PIL" in sys.modules)
 """
-# the inference and evaluation surface: it loads without OpenCV, which the
-# GPU machine does not have (video files and mp4s import it when used)
-SURFACE = ("hub", "demo", "online_demo", "utils.visualizer", "datasets.annotations",
-           "datasets.dynamic_replica", "ops.masked", "evaluation.evaluate")
+# the inference, evaluation and training surface: it loads without OpenCV
+# or PIL, which the GPU machine does not have (video files and mp4s import
+# cv2 when used, JPEG frames PIL)
+SURFACE = ("hub", "demo", "online_demo", "interactive_demo", "utils.visualizer",
+           "datasets.annotations", "datasets.dynamic_replica", "datasets.png",
+           "datasets.image_ops", "datasets.kubric", "ops.masked", "evaluation.evaluate",
+           "training.train_utils", "training.trainer")
 
 
 def test_port_imports_no_jax():
@@ -42,6 +46,7 @@ def test_port_imports_no_jax():
     assert int(lines["MODULES"]) >= 15, out.stdout
     assert lines["FORBIDDEN"] == "[]", out.stdout
     assert lines["SURFACE"] == "True" and lines["CV2"] == "False", out.stdout
+    assert lines["PIL"] == "False", out.stdout
 
 
 def test_chip_smoke_imports_no_jax():

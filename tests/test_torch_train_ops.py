@@ -2,12 +2,19 @@
 sampling, the autograd wrapper of the correlation kernels against autograd
 through the plain featurizer, the training model's switches (remat, K4r /
 K4f, the corr_fuse_mlp1 variable) against the plain model, gradients
-across the online windows, the data loader and the trainer's checkpoints
-and hooks. The comparisons with the JAX package are in test_torch_train.py.
+across the online windows, the data loader, the trainer's checkpoints and
+hooks, its training from a Kubric tree with the default eval and
+visualisation hooks, and its command line. The comparisons with the JAX
+package are in test_torch_train.py.
 """
 
+import concurrent.futures
+import dataclasses
+import importlib.util
 import json
 import os
+import pickle
+import signal
 import sys
 import types
 
@@ -22,7 +29,12 @@ from cotracker_tpu_torch.training import train_step as TS
 from cotracker_tpu_torch.training.data_loader import (
     PrefetchLoader, RepeatedDataset, Sample, collate_batch,
 )
-from cotracker_tpu_torch.training.trainer import TrainerArgs, find_auto_resume, train
+from cotracker_tpu_torch.datasets.kubric import KubricMovifDataset
+from cotracker_tpu_torch.datasets.png import write_png
+from cotracker_tpu_torch.training.train_utils import sig_handler, term_handler
+from cotracker_tpu_torch.training.trainer import (
+    TrainerArgs, find_auto_resume, main, parse_args, train,
+)
 
 torch.set_num_threads(2)
 
@@ -206,11 +218,12 @@ def test_collate_pads_ragged_time():
     np.testing.assert_array_equal(batch["video"][0, 6], batch["video"][0, 4])
 
 
-def test_loader_workers_draw_from_their_own_generators():
+def test_loader_workers_draw_from_their_own_generators(tmp_path):
     """Each worker owns a generator seeded (seed, worker): with one worker
     the stream of draws is reproducible, and failed samples are skipped;
     RepeatedDataset serves index i from i % len. A worker's exception comes
-    out of next()."""
+    out of next(). A worker reading in a process of its own reads as its
+    thread does (_loader_reads_in_processes_as_in_threads)."""
     def draws(seed):
         loader = PrefetchLoader(RepeatedDataset(_Clips(), 2), 1, seed=seed, num_workers=1,
                                 prefetch=2)
@@ -233,6 +246,44 @@ def test_loader_workers_draw_from_their_own_generators():
         next(loader)
     loader.close()
     assert not any(t.is_alive() for t in loader._threads)
+    _loader_reads_in_processes_as_in_threads(tmp_path)
+
+
+def _loader_reads_in_processes_as_in_threads(tmp_path):
+    """The Kubric reader asks for reading processes (read_in_processes, also
+    through RepeatedDataset): one spawned process a worker, holding the
+    dataset and the worker's generator, gives the batch that the worker's
+    thread reads, and a read that fails in the process (a PNG chunk whose
+    CRC does not match) comes out of next() with its traceback; close()
+    ends the threads and the process."""
+    tree = tmp_path / "kubric"
+    _write_kubric_tree(tree, T=4, H=32, W=48, n_tracks=48)
+    second = f"seq{np.random.default_rng(0).permutation(2)[1]:03d}"  # the loader's second read
+    with open(tree / second / "frames" / "001.png", "r+b") as f:
+        f.seek(45)  # a byte of the IDAT chunk's data
+        byte = f.read(1)[0]
+        f.seek(45)
+        f.write(bytes([byte ^ 255]))
+    ds = KubricMovifDataset(str(tree), crop_size=(24, 32), seq_len=4, traj_per_sample=4,
+                            use_augs=True)
+    assert ds.read_in_processes and RepeatedDataset(ds, 2).read_in_processes
+    batches = {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # a hung read fails, in 120 s
+        for processes in (True, False):
+            ds.read_in_processes = processes
+            loader = PrefetchLoader(ds, 1, seed=0, num_workers=1, prefetch=1)
+            try:
+                assert len(loader._readers) == processes
+                batches[processes] = pool.submit(next, loader).result(timeout=120)
+                with pytest.raises((RuntimeError, ValueError), match="CRC of its IDAT chunk"):
+                    pool.submit(next, loader).result(timeout=120)
+            finally:
+                loader.close()
+            assert not any(t.is_alive() for t in loader._threads)
+            assert not any(r.proc.is_alive() for r in loader._readers)
+    assert batches[True].keys() == batches[False].keys()
+    for k in batches[True]:
+        np.testing.assert_array_equal(batches[True][k], batches[False][k])
 
 
 class _Moving:
@@ -247,17 +298,38 @@ class _Moving:
                       valids[0].numpy()), True
 
 
-def test_trainer_checkpoints_resume_and_hooks(tmp_path, monkeypatch):
-    """train() on the CPU (offline model, window 8, iters=1): a checkpoint
-    every 2 steps and a final one, auto-resume from the latest step
-    checkpoint at its step (a removed step-4 checkpoint makes the second
-    call resume at 2 and redo steps 2-3 with the same losses), the hooks on
-    their cadences, and NotImplementedError for what is not ported. The
-    TensorBoard writer runs on tensorboard's own no-TensorFlow stub (its
+@pytest.fixture
+def handlers():
+    """train() installs the SLURM handlers (SIGUSR1 requeues, SIGTERM is
+    ignored): put back the ones the test found, or the worker would go on
+    ignoring SIGTERM."""
+    found = {sig: signal.getsignal(sig) for sig in (signal.SIGUSR1, signal.SIGTERM)}
+    yield
+    for sig, handler in found.items():
+        signal.signal(sig, handler)
+
+
+@pytest.fixture
+def no_tensorflow(monkeypatch):
+    """The TensorBoard writer on tensorboard's own no-TensorFlow stub (its
     `tensorboard.compat.notf` switch): where TensorFlow is installed,
     tensorboard would otherwise import it to write the event files, ~20 s."""
     monkeypatch.setitem(sys.modules, "tensorboard.compat.notf",
                         types.ModuleType("tensorboard.compat.notf"))
+
+
+def test_trainer_checkpoints_resume_and_hooks(tmp_path, monkeypatch, handlers, no_tensorflow):
+    """train() on the CPU (offline model, window 8, iters=1): a checkpoint
+    every 2 steps and a final one, auto-resume from the latest step
+    checkpoint at its step (a removed step-4 checkpoint makes the second
+    call resume at 2 and redo steps 2-3 with the same losses), the hooks on
+    their cadences and the SLURM handlers installed. Its entry point: the
+    command line's parsing, and training from a Kubric tree with the
+    default eval and visualisation hooks. What it cannot run raises before
+    a step: no data (no dataset and an empty dataset_root), an eval cadence
+    with neither eval_datasets nor a hook, and a visualisation cadence
+    without a hook where cv2 is missing (no writer with moviepy: the mp4
+    needs it)."""
     args = TrainerArgs(exp_dir=str(tmp_path), num_steps=4, train_iters=1, save_every_n_steps=2,
                        eval_every_n_steps=2, save_vis_every_n_steps=3, num_loader_workers=1,
                        dataset_repeats=1, crop_size=(32, 32), model_window_len=8,
@@ -266,6 +338,8 @@ def test_trainer_checkpoints_resume_and_hooks(tmp_path, monkeypatch):
     train(args, dataset=_Moving(), eval_hook=lambda m, s: calls.append(("eval", s)) or {"s": s},
           vis_hook=lambda m, b, s: calls.append(("vis", s)))
     assert calls == [("eval", 2), ("vis", 3), ("eval", 4)]
+    assert signal.getsignal(signal.SIGTERM) is term_handler
+    assert signal.getsignal(signal.SIGUSR1) is sig_handler
     ckpt = tmp_path / "checkpoints"
     assert sorted(os.listdir(ckpt)) == ["model_000000002.pth", "model_000000004.pth",
                                         "model_final.pth"]
@@ -281,9 +355,90 @@ def test_trainer_checkpoints_resume_and_hooks(tmp_path, monkeypatch):
     for a, b in zip(log[2:], log2):
         np.testing.assert_allclose(b["total_loss"], a["total_loss"], rtol=1e-5)
 
-    with pytest.raises(NotImplementedError, match="Kubric"):
-        train(args)
-    with pytest.raises(NotImplementedError, match="eval"):
+    quiet = dataclasses.replace(args, exp_dir=str(tmp_path / "none"), eval_every_n_steps=0,
+                                save_vis_every_n_steps=0)
+    with pytest.raises(ValueError, match="--dataset_root"):
+        train(quiet)
+    with pytest.raises(ValueError, match="--eval_datasets or an eval_hook"):
         train(args, dataset=_Moving(), vis_hook=lambda m, b, s: None)
-    with pytest.raises(NotImplementedError, match="visualisation"):
+    _command_line_parses_as_jaxs()
+    _train_from_a_kubric_tree(tmp_path / "kubric_run")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
         train(args, dataset=_Moving(), eval_hook=lambda m, s: {})
+    assert not (tmp_path / "none").exists()
+    assert len(open(tmp_path / "train_log.jsonl").readlines()) == 6  # no step ran
+
+
+def _write_kubric_tree(root, n_seqs=2, T=8, H=64, W=96, n_tracks=64, seed=0):
+    """A Kubric MOVi-f tree of PNG frames (write_png, filters mixed by row)
+    and tracks uniform in the frame, 10% occluded."""
+    rng = np.random.default_rng(seed)
+    for s in range(n_seqs):
+        name = f"seq{s:03d}"
+        os.makedirs(root / name / "frames")
+        for t in range(T):
+            write_png(str(root / name / "frames" / f"{t:03d}.png"),
+                      (rng.random((H, W, 3)) * 255).astype(np.uint8), filters=np.arange(H) % 5)
+        coords = (rng.random((n_tracks, T, 2)) * [W - 1, H - 1]).astype(np.float32)
+        np.save(root / name / f"{name}.npy",
+                {"coords": coords, "visibility": rng.random((n_tracks, T)) > 0.9},
+                allow_pickle=True)
+
+
+def _write_tapvid_pickle(path, T=8, H=64, W=64, N=5, seed=1):
+    """A TAP-Vid DAVIS-format pickle with one video of noise and N tracks."""
+    rng = np.random.default_rng(seed)
+    data = {"clip": {"video": (rng.random((T, H, W, 3)) * 255).astype(np.uint8),
+                     "points": rng.random((N, T, 2)).astype(np.float32),
+                     "occluded": rng.random((N, T)) > 0.8}}
+    data["clip"]["occluded"][:, 0] = False
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+
+
+def _train_from_a_kubric_tree(tmp_path):
+    """train() with no dataset reads args.dataset_root through the Kubric
+    reader (augmentations on): 2 steps at 48x64, the default eval hook
+    (run_test_eval on a TAP-Vid pickle: eval_records.jsonl holds the step's
+    metrics) and the default visualisation hook (render_train_batch and an
+    mp4 in exp_dir where cv2 imports; here TensorBoard has no moviepy)."""
+    tree = tmp_path / "kubric"
+    _write_kubric_tree(tree)
+    pkl = tmp_path / "davis.pkl"
+    _write_tapvid_pickle(pkl)
+    exp = tmp_path / "exp"
+    args = TrainerArgs(exp_dir=str(exp), dataset_root=str(tree), crop_size=(48, 64), seq_len=8,
+                       traj_per_sample=8, num_steps=2, train_iters=1, model_window_len=8,
+                       save_every_n_steps=0, eval_every_n_steps=2, save_vis_every_n_steps=2,
+                       eval_datasets=f"tapvid_davis_first={pkl}", num_loader_workers=1,
+                       dataset_repeats=1, device="cpu")
+    model = train(args)
+    assert model.training
+    log = [json.loads(line) for line in open(exp / "train_log.jsonl")]
+    assert [r["step"] for r in log] == [0, 1] and all(np.isfinite(r["total_loss"]) for r in log)
+    records = [json.loads(line) for line in open(exp / "eval_records.jsonl")]
+    assert [r["step"] for r in records] == [2]
+    avg = records[0]["results"]["tapvid_davis_first"]
+    assert {"average_jaccard", "average_pts_within_thresh", "occlusion_accuracy"} <= set(avg)
+    assert os.path.exists(exp / "result_tapvid_davis_first.json")
+    if importlib.util.find_spec("cv2") is not None:
+        assert os.path.getsize(exp / "train_step_2.mp4") > 0
+
+
+def _command_line_parses_as_jaxs():
+    """The command line is TrainerArgs' fields as the JAX trainer parses
+    them: a bool with default True is a flag that turns it off, one with
+    default False a flag that turns it on; crop_size is not a flag; main()
+    trains on what it parsed (an empty --dataset_root raises there)."""
+    args = parse_args(["--dataset_root", "/data/kubric", "--use_augs", "--evaluate_at_start",
+                       "--use_corr_kernels", "--num_steps", "7", "--lr", "0.001",
+                       "--eval_datasets", "tapvid_davis_first=a.pkl", "--device", "cpu"])
+    assert args == TrainerArgs(dataset_root="/data/kubric", use_augs=False,
+                               evaluate_at_start=True, use_corr_kernels=False, num_steps=7,
+                               lr=0.001, eval_datasets="tapvid_davis_first=a.pkl", device="cpu")
+    assert parse_args([]) == TrainerArgs()
+    with pytest.raises(SystemExit):
+        parse_args(["--crop_size", "64"])
+    with pytest.raises(ValueError, match="--dataset_root"):
+        main(["--device", "cpu"])
