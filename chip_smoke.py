@@ -195,7 +195,24 @@ Phases, each raising on failure:
      /frame.png (frame 0 bit for bit), /track with two points and a 10x10
      grid (the mp4 where OpenCV imports); with cv2 made unimportable, its
      JSON says why no mp4 was written and /result.mp4 answers 404 with
-     those words.
+     those words;
+ 23. the legacy CoTracker2 family (plain PyTorch: the JAX package has no
+     kernel for it), its random weights damped as the CPU tests damp them
+     (damp_v2): (a) CoTrackerPredictor(v2=True, fast=True) with window 8
+     (v2) and 16 (v2.1), 384x512, a 50x50 grid (2,500 points), 60 frames,
+     iters=6: the median of 3 forwards after a warm-up, points*frames/s,
+     peak memory, snap-back, and one float32 forward of the same weights,
+     the bf16 tracks within 1 px of it (median); (b)
+     CoTrackerOnlinePredictor(v2=True, window_len=16, fast=True) at the
+     distillation teacher's shape, 384 queries + the 5x5 support grid over
+     64 frames (7 windows at step 8): seconds per steady window, peak
+     memory; (c) the same weights and inputs at 48x64, iters=2, f32: the
+     card against the CPU (an offline forward with masked padding and three
+     streaming chunks) within the CPU tests' tolerances; (d) the port's
+     export of (a)'s v2 and (b)'s v2.1 models through hub.cotracker2 and
+     hub.cotracker2v1_online on the card, bit for bit the originals, and a
+     URL raises; (e) the launch counters zeroed before (a) and read after
+     (d): every kernel zero.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -1075,8 +1092,9 @@ def read_counts():
 def drive_stream(step_fn, n_windows, n_points, step, counted_window=3):
     """Feed `n_windows` windows through step_fn(ind) -> (tracks, vis), each
     synchronized and timed; the launch counts are zeroed before window
-    `counted_window` and read after it. Returns the last outputs, the
-    counts, and the mean seconds of the steady windows 2..n-1."""
+    `counted_window` and read after it (-1: left alone, counts None).
+    Returns the last outputs, the counts, and the mean seconds of the
+    steady windows 2..n-1."""
     secs, counts = [], None
     torch.cuda.reset_peak_memory_stats()
     for w in range(n_windows):
@@ -2884,6 +2902,239 @@ def interactive_demo_phase(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+V2_T, V2_GRID, V2_RUNS = 60, 50, 3  # (a): 2,500 points x 60 frames, the median of 3 forwards
+V2_STREAM_T, V2_STREAM_QUERIES, V2_SUPPORT = 64, 384, 5  # (b): the distillation teacher's shape
+V2_WINDOWS = (("v2", 8), ("v2.1", 16))
+
+
+def damp_v2(model):
+    """The CPU tests' damping of random CoTracker2 weights
+    (tests/test_torch_cotracker2.py): the flow head x 0.1 and the input
+    projection's columns of the sin/cos flow embedding x 0.02. Random
+    weights otherwise turn the embedding's ~970 radians a feature-map pixel
+    into chaos: two float roundings of one input part by pixels within two
+    windows."""
+    uf = model.updateformer
+    with torch.no_grad():
+        uf.flow_head.weight.mul_(0.1)
+        uf.flow_head.bias.mul_(0.1)
+        uf.input_transform.weight[:, 2:130].mul_(0.02)
+    return model
+
+
+def within(name, out, ref, rtol, atol):
+    """|out - ref| <= atol + rtol |ref| everywhere, else raises; returns
+    the max |diff| and the largest excess over the bound, as text."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    err = (out - ref).abs()
+    excess = (err - (atol + rtol * ref.abs())).max().item()
+    if not (math.isfinite(err.max().item()) and excess <= 0):
+        raise AssertionError(f"{name}: outside rtol {rtol} / atol {atol}")
+    return (f"{name} max |diff| {err.max().item():.3e} (rtol {rtol}, atol {atol}; "
+            f"{-excess:.3e} inside the bound)")
+
+
+def v2_offline(dev, smi):
+    """(a): CoTrackerPredictor(v2=True, fast=True) for v2 and v2.1 at 2,500
+    points x 60 frames, iters=6: the median of 3 timed forwards after a
+    warm-up, and one float32 forward of the same weights."""
+    from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    video = synthetic_video(V2_T, 384, 512, dev)
+    grid_pts = get_points_on_a_grid(V2_GRID, (384, 512)).to(dev)[0]
+    n = V2_GRID**2
+    preds, res = {}, {}
+    for name, window in V2_WINDOWS:
+        pred = CoTrackerPredictor(window_len=window, fast=True, v2=True)
+        damp_v2(pred.model)
+        t0 = time.perf_counter()
+        pred(video, grid_size=V2_GRID)  # warm-up
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(V2_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracks, vis = pred(video, grid_size=V2_GRID)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if tuple(tracks.shape) != (1, V2_T, n, 2) or tuple(vis.shape) != (1, V2_T, n):
+            raise AssertionError(f"{name}: shapes {tuple(tracks.shape)}, {tuple(vis.shape)}")
+        if not torch.isfinite(tracks).all():
+            raise AssertionError(f"{name}: non-finite tracks")
+        if not (torch.equal(tracks[0, 0], grid_pts) and bool(vis[0, 0].all())):
+            raise AssertionError(f"{name}: snap-back: frame-0 tracks differ from the queries")
+        f32 = CoTrackerPredictor(window_len=window, v2=True)
+        f32.model.load_state_dict(pred.model.state_dict())
+        t0 = time.perf_counter()
+        ref, _ = f32(video, grid_size=V2_GRID)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        med, p90, mx = px_stats(tracks, ref)
+        sec = sorted(secs)[len(secs) // 2]
+        windows = max((V2_T - window + window // 2 - 1) // (window // 2) + 1, 1)
+        res[name] = dict(window_len=window, windows=windows, seconds=secs, median_s=sec,
+                         points_frames_per_s=n * V2_T / sec, peak_gib=peak, warm_up_s=warm,
+                         f32_s=f32_s, bf16_vs_f32_px=(med, p90, mx))
+        log(f"  {name} (window {window}, {windows} windows): forwards {[round(s, 3) for s in secs]}"
+            f" s, median {sec:.3f} s = {n * V2_T / sec:.0f} points*frames/s, peak memory "
+            f"{peak:.2f} GiB (warm-up {warm:.2f} s); float32 forward {f32_s:.3f} s; bf16 vs f32 "
+            f"tracks median {med:.3e} px, p90 {p90:.3e}, max {mx:.3e} ({smi})")
+        if not med <= 1.0:
+            raise AssertionError(f"{name}: bf16 tracks over 1 px (median) from float32")
+        preds[name] = pred
+        del f32, ref
+        torch.cuda.empty_cache()
+    return preds, res
+
+
+def v2_stream_queries(dev):
+    """384 seeded queries at frames in [0, 64) and the 5x5 support grid at
+    frame 0: the distillation teacher's 409, at 384x512."""
+    from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
+
+    g = torch.Generator().manual_seed(4)
+    q = torch.stack([torch.randint(0, V2_STREAM_T, (V2_STREAM_QUERIES,), generator=g).float(),
+                     torch.rand(V2_STREAM_QUERIES, generator=g) * 511,
+                     torch.rand(V2_STREAM_QUERIES, generator=g) * 383], -1)
+    grid = get_points_on_a_grid(V2_SUPPORT, (384, 512))[0]
+    support = torch.cat([torch.zeros(V2_SUPPORT**2, 1), grid], -1)
+    return torch.cat([q, support])[None].to(dev)
+
+
+def v2_streaming(dev, smi):
+    """(b): CoTrackerOnlinePredictor(v2=True, window_len=16, fast=True),
+    409 queries over 64 frames, 7 windows at step 8."""
+    from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
+
+    pred = CoTrackerOnlinePredictor(window_len=16, capacity=V2_STREAM_T, fast=True, v2=True)
+    damp_v2(pred.model)
+    video = synthetic_video(V2_STREAM_T, 384, 512, dev)
+    queries = v2_stream_queries(dev)
+    n, n_windows = queries.shape[1], (V2_STREAM_T - 16) // 8 + 1
+    log(f"  {n} queries, {n_windows} windows:")
+    pred(video[:, :1], is_first_step=True, queries=queries)
+    (tracks, vis), _, steady = drive_stream(lambda ind: pred(video[:, ind : ind + 16]),
+                                            n_windows, n, 8, counted_window=-1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {steady:.4f} s a steady window, peak memory {peak:.2f} GiB ({smi})")
+    if tuple(tracks.shape) != (1, V2_STREAM_T, n, 2) or tuple(vis.shape) != (1, V2_STREAM_T, n):
+        raise AssertionError(f"v2 streaming: shapes {tuple(tracks.shape)}, {tuple(vis.shape)}")
+    if not torch.isfinite(tracks).all():
+        raise AssertionError("v2 streaming: non-finite tracks")
+    return pred, dict(steady_s=steady, peak_gib=peak, queries=n, windows=n_windows)
+
+
+def v2_card_vs_cpu(dev, smi):
+    """(c): the same damped random weights and inputs at 48x64, iters=2, f32
+    with TF32 off: the offline forward (v2, 12 frames, 4 real + 5 masked
+    padding queries) and three streaming chunks, on the card against the
+    CPU, within the CPU tests' tolerances."""
+    import copy
+
+    from cotracker_tpu_torch.models.cotracker2 import CoTracker2
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        cpu = damp_v2(CoTracker2(window_len=8, model_resolution=(48, 64)).eval())
+    card = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(5)
+    video = torch.rand(1, 16, 48, 64, 3, generator=g) * 255
+    q = torch.stack([torch.randint(0, 12, (9,), generator=g).float(),
+                     torch.rand(9, generator=g) * 63, torch.rand(9, generator=g) * 47], -1)[None]
+    q[:, 4:, 0] = 0
+    mask = (torch.arange(9) < 4)[None]
+    with torch.inference_mode():
+        a = card(video[:, :12].to(dev), q.to(dev), iters=2, track_mask=mask.to(dev))
+        b = cpu(video[:, :12], q, iters=2, track_mask=mask)
+        res = [within("offline coords", a[0][:, :, :4], b[0][:, :, :4], 1e-3, 2e-2),
+               within("offline vis", a[1][:, :, :4], b[1][:, :, :4], 1e-3, 1e-3)]
+        sa, sb = card.online_init(1, 9, 32), cpu.online_init(1, 9, 32)
+        for ind in (0, 4, 8):
+            sa, ca, va = card.online_step(sa, video[:, ind : ind + 8].to(dev), q.to(dev),
+                                          iters=2, track_mask=mask.to(dev))
+            sb, cb, vb = cpu.online_step(sb, video[:, ind : ind + 8], q, iters=2, track_mask=mask)
+        res += [within("three chunks' coords", ca[:, :16, :4], cb[:, :16, :4], 1e-3, 2e-2),
+                within("three chunks' vis", va[:, :16, :4], vb[:, :16, :4], 1e-3, 2e-3)]
+    log(f"  real tracks, card against CPU: {'; '.join(res)} ({smi})")
+
+
+def v2_hub(dev, smi, offline_pred, stream_pred):
+    """(d): the port's export of the v2 model of (a) and the v2.1 model of
+    (b), loaded through hub.cotracker2 and hub.cotracker2v1_online on the
+    card: state_dicts, tracks and visibility bit for bit the in-memory
+    predictors'."""
+    from cotracker_tpu_torch import hub
+    from cotracker_tpu_torch.models.checkpoint import save_reference_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_v2hub_")
+    try:
+        same = {}
+        p2, p21 = os.path.join(root, "cotracker2.pth"), os.path.join(root, "cotracker2v1.pth")
+        save_reference_checkpoint(p2, offline_pred.model)
+        save_reference_checkpoint(p21, stream_pred.model)
+        loaded = hub.cotracker2(p2, fast=True)
+        a, b = offline_pred.model.state_dict(), loaded.model.state_dict()
+        same["v2 state_dict"] = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        video = synthetic_video(HUB_T, 384, 512, dev)
+        ref, out = offline_pred(video, grid_size=HUB_GRID), loaded(video, grid_size=HUB_GRID)
+        same["v2 outputs"] = torch.equal(ref[0], out[0]) and torch.equal(ref[1], out[1])
+        online = hub.cotracker2v1_online(p21, fast=True, capacity=V2_STREAM_T)
+        a, b = stream_pred.model.state_dict(), online.model.state_dict()
+        same["v2.1 online state_dict"] = (a.keys() == b.keys()
+                                          and all(torch.equal(a[k], b[k]) for k in a))
+        video = synthetic_video(V2_STREAM_T, 384, 512, dev)
+        queries = v2_stream_queries(dev)
+
+        def stream(pred):  # the first step and three windows
+            pred(video[:, :1], is_first_step=True, queries=queries)
+            return [pred(video[:, ind : ind + 16]) for ind in (0, 8, 16)][-1]
+
+        (rt, rv), (ot, ov) = stream(stream_pred), stream(online)
+        same["v2.1 online outputs"] = torch.equal(rt, ot) and torch.equal(rv, ov)
+        log(f"  {os.path.getsize(p2) / 2**20:.1f} MiB reference checkpoint each; bit for bit: "
+            f"{same} ({smi})")
+        if not all(same.values()):
+            raise AssertionError("v2 hub: a loaded predictor differs from the original")
+        for name in ("cotracker2", "cotracker2v1_online"):
+            url = hub.CHECKPOINT_URLS[name.removesuffix("_online")]
+            try:
+                getattr(hub, name)(url)
+            except ValueError as e:
+                if url not in str(e):
+                    raise AssertionError(f"v2 hub: the URL's error does not name it: {e}") from e
+            else:
+                raise AssertionError("v2 hub: a URL did not raise")
+        log(f"  a URL raises with the URL ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def v2_phase(dev, smi):
+    """Phase 23 (see the module docstring): (a)-(d) with the launch counters
+    zeroed before and read after, (e) every count zero."""
+    t0 = time.perf_counter()
+    zero_counts()
+    log("  (a) offline, CoTrackerPredictor(v2=True, fast=True), "
+        f"{V2_GRID**2} points x {V2_T} frames, iters=6:")
+    offline_preds, offline = v2_offline(dev, smi)
+    log("  (b) streaming, CoTrackerOnlinePredictor(v2=True, window_len=16, fast=True), "
+        f"the distillation teacher's shape, {V2_STREAM_T} frames:")
+    stream_pred, stream = v2_streaming(dev, smi)
+    log("  (c) card against CPU, f32, TF32 off, 48x64, iters=2:")
+    v2_card_vs_cpu(dev, smi)
+    log("  (d) hub: hub.cotracker2 and hub.cotracker2v1_online from the port's export:")
+    v2_hub(dev, smi, offline_preds["v2"], stream_pred)
+    counts = read_counts()
+    log(f"  (e) kernel launches across (a)-(d): {counts} ({smi})")
+    if any(counts.values()):
+        raise AssertionError("v2: the legacy model's path launched a kernel")
+    return counts, dict(offline=offline, streaming=stream, phase_s=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2983,6 +3234,9 @@ def main():
     log(f"interactive demo: its server in a thread, a {DEMO_T}-frame .npy video:")
     interactive_demo_phase(dev)
     torch.cuda.empty_cache()
+    log("legacy CoTracker2 family (v2 / v2.1), plain PyTorch, no kernel on its path:")
+    v2_counts, v2 = v2_phase(dev, smi)
+    torch.cuda.empty_cache()
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -3014,6 +3268,7 @@ def main():
         k["launches_per_train_step_fuse_mlp1"] = step_m[name]
     kernels += variant_kernels
     for k in kernels:
+        k["launches_v2_phase"] = v2_counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3046,6 +3301,15 @@ def main():
         f"{[round(m, 1) for m in kubric['ms_per_step']]} at {kubric['frames_per_step']} frames, "
         f"two-window median {kubric['ms_per_step_two_windows_median']} against MovingClip's "
         f"{train_metrics['ms_per_step']:.1f}; phase {kubric['phase_s']:.1f} s ({smi})")
+    for name, r in v2["offline"].items():
+        log(f"{name} offline ({V2_GRID**2} points x {V2_T} frames, {r['windows']} windows of "
+            f"{r['window_len']}): {r['median_s']:.3f} s, {r['points_frames_per_s']:.0f} "
+            f"points*frames/s, peak memory {r['peak_gib']:.2f} GiB, bf16 vs f32 median "
+            f"{r['bf16_vs_f32_px'][0]:.3e} px ({smi})")
+    st = v2["streaming"]
+    log(f"v2.1 streaming ({st['queries']} queries, {st['windows']} windows of 16): "
+        f"{st['steady_s']:.4f} s per steady window, peak memory {st['peak_gib']:.2f} GiB; "
+        f"v2 phase {v2['phase_s']:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

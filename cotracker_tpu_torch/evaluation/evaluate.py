@@ -12,12 +12,12 @@ Runs on the GPU (`--device cuda`, the default; it raises without one) or,
 asked, on the CPU (`--device cpu`, the plain PyTorch path). `--fast` is the
 bf16 kernel path; a video longer than 128 frames runs its time blocks
 through the split K8 -> K5 -> K9. `--online` evaluates the streaming
-predictor. TAP-Vid reads a pickle; Dynamic Replica reads the first 300
+predictor. `--v2` evaluates the legacy CoTracker2 model (give its
+window, `--window_len 8` for v2 or 16 for v2.1, and its checkpoint).
+TAP-Vid reads a pickle; Dynamic Replica reads the first 300
 frames of each sequence of `{dataset_root}/valid`. Writes expconfig.json
 and result_eval_.json (the metrics' average and the wall time) into
 --exp_dir, and the per-sequence metrics into result_<dataset_name>.json.
-
-Not ported yet: the legacy model (`--v2`), which raises.
 """
 
 import argparse
@@ -60,9 +60,6 @@ def run_eval(cfg: DefaultConfig):
     from cotracker_tpu_torch.models.build import build_cotracker
     from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
 
-    if cfg.v2:
-        raise NotImplementedError("the legacy CoTracker2 model is not ported yet "
-                                  "(ROADMAP.md queue 1 item 12)")
     name = cfg.dataset_name
     if "tapvid" in name:
         dataset = TapVidDataset(
@@ -82,7 +79,7 @@ def run_eval(cfg: DefaultConfig):
     if cfg.offline_model:
         model = build_cotracker(cfg.checkpoint, offline=True, window_len=cfg.window_len,
                                 model_resolution=model_resolution, fast=cfg.fast,
-                                device=cfg.device)
+                                device=cfg.device, v2=cfg.v2)
         predictor = EvaluationPredictor(
             model, interp_shape=model_resolution, grid_size=cfg.grid_size,
             local_grid_size=cfg.local_grid_size, single_point=cfg.single_point,
@@ -93,7 +90,7 @@ def run_eval(cfg: DefaultConfig):
         predictor = OnlineWrapper(CoTrackerOnlinePredictor(
             cfg.checkpoint, window_len=cfg.window_len, capacity=cfg.online_capacity,
             model_resolution=model_resolution, fast=cfg.fast, return_full_buffers=True,
-            device=cfg.device))
+            device=cfg.device, v2=cfg.v2))
 
     t0 = time.time()
     metrics = Evaluator(cfg.exp_dir).evaluate_sequence(predictor, dataset, dataset_name=name)

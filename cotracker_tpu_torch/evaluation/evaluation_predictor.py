@@ -11,7 +11,8 @@ The video is resized on the model's device; the tracks are padded to a
 multiple of 64 with a track mask, as in the JAX package: with few queries
 that leaves fewer than 256 tracks, where the updateformer's kernel gates
 put the W8A8 blocks off. Visibility is returned fused with the confidence
-(vis * conf), as host arrays.
+(vis * conf), as host arrays; the legacy CoTracker2 model has no confidence
+head, and its conf is ones.
 """
 
 from typing import Tuple
@@ -50,7 +51,8 @@ class EvaluationPredictor:
         n_iters: int = 6,
         local_extent: int = 50,
     ):
-        """model: the port's offline CoTrackerThree, on the device it runs on."""
+        """model: the port's offline CoTrackerThree or CoTracker2, on the
+        device it runs on."""
         self.model = model
         self.device = next(model.parameters()).device
         self.interp_shape = interp_shape
@@ -73,9 +75,14 @@ class EvaluationPredictor:
         qp[:, :n] = queries
         mask = np.zeros((B, n_pad), bool)
         mask[:, :n] = True
-        coords, vis, conf, _ = self.model(
+        out = self.model(
             video_cl, torch.from_numpy(qp).to(self.device), iters=self.n_iters,
             track_mask=torch.from_numpy(mask).to(self.device))
+        if len(out) == 3:  # CoTracker2: (coords, vis, train_data)
+            coords, vis = out[:2]
+            conf = torch.ones_like(vis)
+        else:
+            coords, vis, conf, _ = out
         return tuple(t[:, :, :n].float().cpu().numpy() for t in (coords, vis, conf))
 
     @torch.inference_mode()

@@ -11,8 +11,9 @@ by hand.
 
 `**kw` reaches the predictor (`fast`, `device`, `model_resolution`, ...);
 the device is CUDA unless `device="cpu"` is passed. The legacy CoTracker2
-constructors raise until the v2 model is ported (ROADMAP.md queue 1 item
-12).
+family loads the same way: `cotracker2` / `cotracker2_online` (window 8)
+from cotracker2.pth, `cotracker2v1` / `cotracker2v1_online` (window 16)
+from cotracker2v1.pth.
 """
 
 from typing import Optional
@@ -54,27 +55,37 @@ def cotracker3_online(checkpoint: Optional[str] = None, **kw):
     )
 
 
-def _v2(name: str):
-    raise NotImplementedError(
-        f"{name}: the legacy CoTracker2 model is not ported yet (ROADMAP.md queue 1 item 12)"
+def cotracker2(checkpoint: Optional[str] = None, **kw):
+    """Legacy CoTracker2 offline predictor (window_len=8)."""
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    return CoTrackerPredictor(
+        checkpoint=_resolve(checkpoint, "cotracker2"), window_len=8, v2=True, **kw
     )
 
 
-def cotracker2(checkpoint: Optional[str] = None, **kw):
-    """Legacy CoTracker2 offline predictor (window_len=8): not ported yet."""
-    _v2("cotracker2")
-
-
 def cotracker2_online(checkpoint: Optional[str] = None, **kw):
-    """Legacy CoTracker2 online predictor (window_len=8, step 4): not ported yet."""
-    _v2("cotracker2_online")
+    """Legacy CoTracker2 online predictor (window_len=8, step 4)."""
+    from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
+
+    return CoTrackerOnlinePredictor(
+        checkpoint=_resolve(checkpoint, "cotracker2"), window_len=8, v2=True, **kw
+    )
 
 
 def cotracker2v1(checkpoint: Optional[str] = None, **kw):
-    """Legacy CoTracker2.1 offline predictor (window_len=16): not ported yet."""
-    _v2("cotracker2v1")
+    """Legacy CoTracker2.1 offline predictor (window_len=16)."""
+    from cotracker_tpu_torch.predictor import CoTrackerPredictor
+
+    return CoTrackerPredictor(
+        checkpoint=_resolve(checkpoint, "cotracker2v1"), window_len=16, v2=True, **kw
+    )
 
 
 def cotracker2v1_online(checkpoint: Optional[str] = None, **kw):
-    """Legacy CoTracker2.1 online predictor (window_len=16, step 8): not ported yet."""
-    _v2("cotracker2v1_online")
+    """Legacy CoTracker2.1 online predictor (window_len=16, step 8)."""
+    from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
+
+    return CoTrackerOnlinePredictor(
+        checkpoint=_resolve(checkpoint, "cotracker2v1"), window_len=16, v2=True, **kw
+    )

@@ -1,11 +1,13 @@
-"""Model factories (port of cotracker_tpu/models/build.py, CoTracker3 only,
-and of the model that cotracker_tpu/training/trainer.py builds)."""
+"""Model factories (port of cotracker_tpu/models/build.py: CoTracker3 and the
+legacy CoTracker2 family; and of the model that
+cotracker_tpu/training/trainer.py builds)."""
 
 from typing import Optional, Tuple
 
 import torch
 
 from cotracker_tpu_torch import resolve_device
+from cotracker_tpu_torch.models.cotracker2 import CoTracker2
 from cotracker_tpu_torch.models.cotracker3 import CoTrackerThree
 from cotracker_tpu_torch.ops.kernels.variants import KernelVariants
 
@@ -20,10 +22,12 @@ def build_cotracker(
     device="cuda",
     seed: int = 0,
     variants: Optional[KernelVariants] = None,
-) -> CoTrackerThree:
-    """Build a CoTrackerThree on `device` (CUDA by default; raises without
-    one unless device="cpu"), from a reference `.pth` checkpoint or randomly
-    initialised from `seed` (the global RNG is left untouched).
+    v2: bool = False,
+):
+    """Build a CoTrackerThree, or with `v2` a CoTracker2, on `device` (CUDA
+    by default; raises without one unless device="cpu"), from a reference
+    `.pth` checkpoint or randomly initialised from `seed` (the global RNG is
+    left untouched).
 
     variants: the kernel-variant switches; None reads the JAX package's
     environment variables now (`KernelVariants.from_env()`), a
@@ -33,8 +37,18 @@ def build_cotracker(
     coords/vis/conf carries, N chunks of 2048 in the correlation, the K4
     int8 correlation kernel, the folded input projection and the W8A8 block
     kernels K1-K3. On a CPU device the kernel wrappers run their plain
-    PyTorch versions."""
+    PyTorch versions.
+
+    v2: the legacy model, window_len 8 (v2) unless given (16 is v2.1);
+    `offline` and `variants` do not apply to it, and fast=True is bf16
+    compute and nothing else: no kernel runs on its path, as in JAX."""
     dev = resolve_device(device)
+    if v2:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = CoTracker2(window_len=window_len or 8, model_resolution=model_resolution,
+                               dtype=torch.bfloat16 if fast else dtype)
+        return _load(model, checkpoint).to(dev).eval()
     if window_len is None:
         window_len = 60 if offline else 16
     kw = (
@@ -46,11 +60,16 @@ def build_cotracker(
         model = CoTrackerThree(
             window_len=window_len, model_resolution=model_resolution,
             variants=KernelVariants.from_env() if variants is None else variants, **kw)
+    return _load(model, checkpoint).to(dev).eval()
+
+
+def _load(model, checkpoint: Optional[str]):
+    """Fill `model` from a reference `.pth` checkpoint, if one is given."""
     if checkpoint is not None:
         from cotracker_tpu_torch.models.checkpoint import load_checkpoint
 
         load_checkpoint(model, checkpoint)
-    return model.to(dev).eval()
+    return model
 
 
 def build_training_model(

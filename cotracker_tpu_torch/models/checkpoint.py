@@ -1,19 +1,25 @@
-"""Weight bridge into the port's CoTrackerThree.
+"""Weight bridge into the port's CoTrackerThree and CoTracker2.
 
-Two loaders fill the same module:
+Two loaders fill the same module, of either family:
   * `from_jax_params(model, params)`: the JAX package's flax parameter tree
-    as nested dicts of numpy arrays (params["fnet"], params["iter_core"], ...);
+    as nested dicts of numpy arrays (CoTrackerThree: params["fnet"],
+    params["iter_core"]; CoTracker2: params["fnet"],
+    params["window_core"]["iter_core"], params["window_core"]["vis_predictor"]);
   * `load_reference_state_dict(model, sd)`: the reference `.pth` format
-    (cotracker/models/core/cotracker/cotracker3_offline.py state_dict).
+    (cotracker/models/core/cotracker/cotracker3_offline.py and, for v2 /
+    v2.1, cotracker.py state_dicts).
 `export_reference_state_dict(model)` and `save_reference_checkpoint(path,
 model)` write that format back (the JAX package's export_torch_state_dict /
-save_torch_checkpoint).
+export_torch_state_dict_v2 / save_torch_checkpoint).
 
 The port's module and parameter names are the reference's, so the flax tree
 maps onto them by name: conv kernels (kh, kw, in, out) -> (out, in, kh, kw),
 dense kernels (in, out) -> (out, in), LayerNorm scale -> weight, indexed
 submodules `name_i` -> `name.i`, the corr MLP's flat `fc1_kernel` ->
-`fc1.weight`. The reference spells the virtual-track parameter
+`fc1.weight`; CoTracker2's updateformer and GroupNorm `norm` move out of the
+window and iteration cores to the top level, and its two Linear layers are
+the reference's Sequential entries `track_feat_updater.0` and
+`vis_predictor.0`. The reference spells the virtual-track parameter
 `virual_tracks`; the time/position embedding buffers are rebuilt by the
 constructor and dropped on load, as the reference's own restore path does.
 """
@@ -56,7 +62,8 @@ def _convert(path, value):
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Flax CoTrackerThree params -> the port's state_dict (numpy values)."""
+    """Flax CoTrackerThree or CoTracker2 params -> the port's state_dict
+    (numpy values)."""
     out = {}
 
     def walk(node, path):
@@ -68,8 +75,15 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]
                 out[key] = arr
 
     walk(params.get("fnet", {}), ("fnet",))
-    iter_core = params.get("iter_core", {})
-    walk(iter_core.get("corr_mlp", {}), ("corr_mlp",))
+    if "window_core" in params:  # CoTracker2
+        window_core = params["window_core"]
+        iter_core = window_core.get("iter_core", {})
+        walk(iter_core.get("norm", {}), ("norm",))
+        walk(iter_core.get("track_feat_updater", {}), ("track_feat_updater", "0"))
+        walk(window_core.get("vis_predictor", {}), ("vis_predictor", "0"))
+    else:
+        iter_core = params.get("iter_core", {})
+        walk(iter_core.get("corr_mlp", {}), ("corr_mlp",))
     walk(iter_core.get("updateformer", {}), ("updateformer",))
     return out
 
@@ -106,7 +120,8 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]) -> 
 
 
 # the reference's parameter names, module by module (the census of the JAX
-# package's _export_fnet / _export_updateformer); `virual_tracks` apart
+# package's _export_fnet / _export_updateformer and of
+# export_torch_state_dict_v2); `virual_tracks` apart
 _REFERENCE_KEYS = re.compile("|".join((
     r"fnet\.conv[123]\.(weight|bias)",
     r"fnet\.layer\d\.\d\.(conv1|conv2|downsample\.0)\.(weight|bias)",
@@ -115,11 +130,13 @@ _REFERENCE_KEYS = re.compile("|".join((
     r"updateformer\.(time_blocks|space_virtual_blocks|space_point2virtual_blocks"
     r"|space_virtual2point_blocks)\.\d+\.((attn|cross_attn)\.to_(q|kv|out)|mlp\.fc[12]"
     r"|norm_context)\.(weight|bias)",
+    r"norm\.(weight|bias)",
+    r"(track_feat_updater|vis_predictor)\.0\.(weight|bias)",
 )))
 
 
 def export_reference_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The port's CoTrackerThree -> a reference-format state_dict (CPU
+    """The port's CoTrackerThree or CoTracker2 -> a reference-format state_dict (CPU
     tensors, the parameters' own bits): `virtual_tracks` back to the
     reference's `virual_tracks`, no time/position embedding buffers (load
     them with strict=False, as the reference's restore path does). A key

@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from cotracker_tpu_torch.models.blocks import BasicEncoder, Mlp
 from cotracker_tpu_torch.models.updateformer import EfficientUpdateFormer
 from cotracker_tpu_torch.ops.bilinear import (
-    bilinear_sample, resize_linear_1d, sample_features_3d,
+    bilinear_sample_frames, resize_linear_1d, sample_features_3d,
 )
 from cotracker_tpu_torch.ops.corr import fused_corr_embs, pad_fmaps, window_starts_and_weights
 from cotracker_tpu_torch.ops.embeddings import get_1d_sincos_pos_embed, posenc
@@ -74,8 +74,7 @@ def sample_patch_features(fmaps, coords, radius: int):
     d = torch.arange(-radius, radius + 1, dtype=coords.dtype, device=coords.device)
     offs = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)  # (P, P, 2)
     pts = (coords[:, :, :, None, None, :] + offs).reshape(B * T, N, P, P, 2)
-    maps = fmaps.reshape(B * T, H, W, C)
-    out = torch.stack([bilinear_sample(maps[i], pts[i]) for i in range(B * T)])
+    out = bilinear_sample_frames(fmaps.reshape(B * T, H, W, C), pts)
     return out.reshape(B, T, N, P, P, C)
 
 

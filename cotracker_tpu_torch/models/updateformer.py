@@ -14,6 +14,12 @@ tokens (the JAX 4D entry, taken whenever the W8A8 space blocks run) and
 1,536 for the virtual tokens. The kernel-variant switches (`variants`,
 ops/kernels/variants.py) reach the W8A8 time blocks and the two cross
 blocks.
+
+Two switches serve the legacy CoTracker2 model (models/cotracker2.py), as
+in JAX: `linear_layer_for_vis_conf=False` leaves one `flow_head` of
+`output_dim` outputs and no vis/conf head, and `v2_masking` makes the track
+mask also a query mask of points <- virtual (a masked query attends
+uniformly to the virtual tokens).
 """
 
 from typing import Optional
@@ -44,11 +50,14 @@ class EfficientUpdateFormer(nn.Module):
         attn_kernels: bool = False,
         quant_int8: bool = False,
         variants: KernelVariants = OFF,
+        linear_layer_for_vis_conf: bool = True,
+        v2_masking: bool = False,
     ):
         super().__init__()
         self.time_depth, self.space_depth = time_depth, space_depth
         self.hidden_size, self.dtype = hidden_size, dtype
         self.add_space_attn, self.quant_int8 = add_space_attn, quant_int8
+        self.v2_masking = v2_masking
         self.input_transform = nn.Linear(input_dim, hidden_size)
         self.virtual_tracks = nn.Parameter(torch.randn(1, num_virtual_tracks, 1, hidden_size))
         blk = dict(num_heads=num_heads, mlp_ratio=mlp_ratio, dtype=dtype)
@@ -69,8 +78,12 @@ class EfficientUpdateFormer(nn.Module):
             self.space_virtual2point_blocks = nn.ModuleList(
                 CrossAttnBlock(hidden_size, hidden_size, **kern) for _ in range(space_depth)
             )
-        self.flow_head = nn.Linear(hidden_size, output_dim - 2)
-        self.vis_conf_head = nn.Linear(hidden_size, 2)
+        if linear_layer_for_vis_conf:
+            self.flow_head = nn.Linear(hidden_size, output_dim - 2)
+            self.vis_conf_head = nn.Linear(hidden_size, 2)
+        else:
+            self.flow_head = nn.Linear(hidden_size, output_dim)
+            self.vis_conf_head = None
 
     def quantize(self):
         """W8A8 weight packs of every kernel block, built once per forward."""
@@ -88,7 +101,8 @@ class EfficientUpdateFormer(nn.Module):
                 packs=None):
         """x (B, N, T, input_dim), or tokens (B, N, T, hidden) with
         x_is_tokens -> (B, N, T, output_dim). track_mask (B, N) True = real
-        track: padded tracks are excluded as keys of virtual <- points."""
+        track: padded tracks are excluded as keys of virtual <- points (and,
+        with v2_masking, are masked queries of points <- virtual)."""
         B, N, T, _ = x.shape
         C = self.hidden_size
         packs = self.quantize() if packs is None else packs
@@ -111,10 +125,13 @@ class EfficientUpdateFormer(nn.Module):
                 )
                 vt = self.space_virtual_blocks[j](vt.reshape(B * T, V, C)).reshape(B, T, V, C)
                 tokens = self.space_point2virtual_blocks[j].points_from_virtual(
-                    tokens, vt, pack=packs["p2v"][j]
+                    tokens, vt, query_mask=track_mask if self.v2_masking else None,
+                    pack=packs["p2v"][j],
                 )
                 virtual = vt.transpose(1, 2)
                 j += 1
+        if self.vis_conf_head is None:
+            return dense(self.flow_head, tokens, self.dtype)
         # flow and vis/conf heads as one matmul over concatenated weights
         w = torch.cat([self.flow_head.weight, self.vis_conf_head.weight]).to(self.dtype)
         b = torch.cat([self.flow_head.bias, self.vis_conf_head.bias]).to(self.dtype)

@@ -26,14 +26,23 @@ def _prep(c, size, align_corners, padding_mode):
 def bilinear_sample(img, coords, align_corners: bool = True, padding_mode: str = "border"):
     """Sample img (H, W, C) at coords (..., 2) as (x, y) pixels ->
     coords.shape[:-1] + (C,)."""
-    H, W, C = img.shape
+    return bilinear_sample_frames(img[None], coords[None], align_corners, padding_mode)[0]
+
+
+def bilinear_sample_frames(imgs, coords, align_corners: bool = True,
+                           padding_mode: str = "border"):
+    """Sample each of F images imgs (F, H, W, C) at its own coords
+    (F, ..., 2) as (x, y) pixels -> coords.shape[:-1] + (C,): bilinear_sample
+    of every image, in one gather a corner."""
+    F, H, W, C = imgs.shape
     x0, wx = _prep(coords[..., 0], W, align_corners, padding_mode)
     y0, wy = _prep(coords[..., 1], H, align_corners, padding_mode)
     wx, wy = wx[..., None], wy[..., None]
-    flat = img.reshape(H * W, C)
+    base = torch.arange(F, device=imgs.device).reshape((F,) + (1,) * (x0.dim() - 1)) * (H * W)
+    flat = imgs.reshape(F * H * W, C)
 
     def tap(yy, xx):
-        v = flat[yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)]
+        v = flat[base + yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)]
         if padding_mode == "zeros":
             inb = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
             v = torch.where(inb[..., None], v, torch.zeros((), dtype=v.dtype, device=v.device))
@@ -67,6 +76,12 @@ def bilinear_sample_3d(vid, coords, align_corners: bool = True, padding_mode: st
         return top * (1.0 - wy) + bot * wy
 
     return plane(t0) * (1.0 - wt) + plane(t0 + 1) * wt
+
+
+def sample_features_2d(fmaps, coords, align_corners: bool = True, padding_mode: str = "border"):
+    """fmaps (B, H, W, C), coords (B, N, 2) as (x, y) -> (B, N, C)
+    (reference `sample_features4d`)."""
+    return bilinear_sample_frames(fmaps, coords, align_corners, padding_mode)
 
 
 def sample_features_3d(fmaps, coords, align_corners: bool = True, padding_mode: str = "border"):

@@ -5,7 +5,9 @@ Videos are (B, T, 3, H, W) in [0, 255] (numpy or torch); results are torch
 tensors on the model's device: tracks (B, T, N, 2) at the input resolution
 and visibility (B, T, N) bool. Queries are built host-side; tracks are padded
 to a bucket with a track mask as in the JAX package, so padding never
-changes real-track results.
+changes real-track results. `v2=True` runs the legacy CoTracker2 family
+(models/cotracker2.py) behind the same surface: its window_len is the
+caller's (8 for v2, 16 for v2.1, as hub.py passes them).
 """
 
 from typing import Optional, Tuple
@@ -40,13 +42,15 @@ class CoTrackerPredictor:
         dense_offsets_per_forward: int = 3,
         seed: int = 0,
         variants: Optional[KernelVariants] = None,
+        v2: bool = False,
     ):
         """variants: the kernel-variant switches of the fast path; None reads
-        the JAX package's environment variables once, here."""
+        the JAX package's environment variables once, here. v2: the legacy
+        CoTracker2 model (see build_cotracker)."""
         self.model = build_cotracker(
             checkpoint, offline=offline, window_len=window_len, dtype=dtype,
             model_resolution=model_resolution, fast=fast, device=device, seed=seed,
-            variants=variants,
+            variants=variants, v2=v2,
         )
         self.device = next(self.model.parameters()).device
         self.interp_shape = self.model.model_resolution
@@ -196,12 +200,16 @@ class CoTrackerOnlinePredictor:
         device="cuda",
         seed: int = 0,
         variants: Optional[KernelVariants] = None,
+        v2: bool = False,
     ):
-        """variants: as CoTrackerPredictor's."""
+        """variants, v2: as CoTrackerPredictor's. The v2 stream thresholds
+        its visibility alone (vis > 0.6): the legacy model has no
+        confidence."""
+        self.v2 = v2
         self.model = build_cotracker(
             checkpoint, offline=False, window_len=window_len, dtype=dtype,
             model_resolution=model_resolution, fast=fast, device=device, seed=seed,
-            variants=variants,
+            variants=variants, v2=v2,
         )
         self.device = next(self.model.parameters()).device
         self.interp_shape = self.model.model_resolution
@@ -252,10 +260,14 @@ class CoTrackerOnlinePredictor:
                 f"to cover the stream length"
             )
         chunk = resize_bilinear(chunk.permute(0, 1, 3, 4, 2), (ih, iw), align_corners=True)
-        self._state, coords, vis, conf = self.model.online_step(
-            self._state, chunk, self._queries, iters=6, track_mask=self._track_mask,
-            chunk_valid_len=T_true,
-        )
+        if self.v2:  # no fmaps-tail cache to gate, no confidence
+            self._state, coords, vis = self.model.online_step(
+                self._state, chunk, self._queries, iters=6, track_mask=self._track_mask)
+        else:
+            self._state, coords, vis, conf = self.model.online_step(
+                self._state, chunk, self._queries, iters=6, track_mask=self._track_mask,
+                chunk_valid_len=T_true,
+            )
         self._frames_seen = min(ind + T_true, self.capacity)
 
         n = self._n_user
@@ -264,8 +276,8 @@ class CoTrackerOnlinePredictor:
         scale = torch.tensor([(W0 - 1) / (iw - 1), (H0 - 1) / (ih - 1)], dtype=torch.float32,
                              device=self.device)
         tracks = coords[:, :end, :n] * scale
-        visibility = vis[:, :end, :n] * conf[:, :end, :n] > 0.6
-        return tracks, visibility
+        visibility = vis[:, :end, :n] if self.v2 else vis[:, :end, :n] * conf[:, :end, :n]
+        return tracks, visibility > 0.6
 
     def _register(self, B, H, W, queries, grid_size, grid_query_frame, add_support_grid):
         """First step: reset the stream and build the padded model-resolution

@@ -5,6 +5,7 @@
     python3 scripts/torch_breakdown.py --online
     python3 scripts/torch_breakdown.py --quasi-dense
     python3 scripts/torch_breakdown.py --train
+    python3 scripts/torch_breakdown.py --v2
 
 Profiles (torch.profiler, CUDA activity) one call of each kernel wrapper
 K1-K5, K8 and K9 at the forward's token shape (the grid's points padded to
@@ -39,6 +40,16 @@ AdamW; the clip is chip_smoke's moving texture. Device time by group (K4r,
 the plain backward's gathers and scatters, library GEMMs, convolutions,
 the optimizer, everything else) and device busy against wall. Writes
 chiprun_out/torch_breakdown_train.json.
+
+With --v2 it profiles the legacy CoTracker2 family, which runs no kernel of
+the port: one forward of CoTrackerPredictor(v2=True, fast=True) for v2
+(window 8) and v2.1 (window 16) at chip_smoke's phase 23 (a) shape (2,500
+grid points, 60 frames, 384x512, iters=6), and one steady window (the
+fourth) of its (b) stream (CoTrackerOnlinePredictor(v2=True, window_len=16,
+fast=True), 409 queries), both with phase 23's damped random weights; device
+time by kernel and by group, wall and device-busy share, and the number of
+device kernels a call launches. Builds no kernel. Writes
+chiprun_out/torch_breakdown_v2.json.
 """
 
 import argparse
@@ -100,6 +111,15 @@ TRAIN_GROUPS = (
 )
 
 
+V2_GROUPS = (
+    ("convolutions (fnet)", ("conv", "cudnn", "fprop", "implicit_gemm", "nchw", "nhwc")),
+    ("library GEMMs (cuBLAS / CUTLASS)", ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
+    ("gathers (bilinear taps, indexing)", ("index", "gather")),
+    ("softmax", ("softmax",)),
+    ("reductions (norms, means)", ("reduce",)),
+)
+
+
 def group_table(prof, groups=GROUPS):
     """Device ms by group of `groups`; what matches none is 'other'."""
     out = {}
@@ -125,11 +145,14 @@ def run(name, fn, warm=True, groups=False, group_spec=GROUPS):
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows, busy = device_table(prof)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"
+                   and (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)))
     print(f"\n{name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall:.1f}%)", flush=True)
+          f"({100 * busy / wall:.1f}%), {launches} device operations", flush=True)
     for key, ms, n in rows:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:110]}")
-    res = dict(name=name, wall_ms=wall, device_ms=busy,
+    res = dict(name=name, wall_ms=wall, device_ms=busy, device_operations=launches,
                kernels=[dict(name=k, ms=m, count=n) for k, m, n in rows])
     if groups:
         print("  by group:")
@@ -239,6 +262,38 @@ def train(dev, smi):
         json.dump({"device": smi, "runs": out}, f, indent=1)
 
 
+def v2(dev, smi):
+    """The legacy model's forward and streaming window (see the module
+    docstring)."""
+    from cotracker_tpu_torch import CoTrackerOnlinePredictor
+
+    video = chip_smoke.synthetic_video(chip_smoke.V2_T, 384, 512, dev)
+    out = []
+    for name, window in chip_smoke.V2_WINDOWS:
+        pred = CoTrackerPredictor(window_len=window, fast=True, v2=True)
+        chip_smoke.damp_v2(pred.model)
+        out.append(run(f"{name} offline forward (window {window}, {chip_smoke.V2_GRID**2} "
+                       f"points x {chip_smoke.V2_T} frames)",
+                       lambda: pred(video, grid_size=chip_smoke.V2_GRID), groups=True,
+                       group_spec=V2_GROUPS))
+        del pred
+        torch.cuda.empty_cache()
+    S = 16
+    video = chip_smoke.synthetic_video(chip_smoke.V2_STREAM_T, 384, 512, dev)
+    pred = CoTrackerOnlinePredictor(window_len=S, capacity=chip_smoke.V2_STREAM_T, fast=True,
+                                    v2=True)
+    chip_smoke.damp_v2(pred.model)
+    pred(video[:, :1], is_first_step=True, queries=chip_smoke.v2_stream_queries(dev))
+    for ind in (0, 8, 16):
+        pred(video[:, ind : ind + S])
+    out.append(run("v2.1 streaming window 4 (409 queries, 512 padded)",
+                   lambda: pred(video[:, 24 : 24 + S]), warm=False, groups=True,
+                   group_spec=V2_GROUPS))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/torch_breakdown_v2.json", "w") as f:
+        json.dump({"device": smi, "runs": out}, f, indent=1)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
@@ -249,6 +304,8 @@ def main():
                     help="profile one steady quasi-dense window, variants off and on")
     ap.add_argument("--train", action="store_true",
                     help="profile one steady online training step at the reference shape")
+    ap.add_argument("--v2", action="store_true",
+                    help="profile the legacy CoTracker2 family's forward and streaming window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -258,6 +315,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    if args.v2:
+        return v2(dev, smi)
     _build.build_all()
     if args.online:
         return online(dev, smi)

@@ -176,7 +176,7 @@ def test_evaluation_predictor_matches_jax(eval_predictors, single_point):
     np.testing.assert_allclose(ours[1], np.asarray(ref[1]), rtol=1e-3, atol=1e-3)
 
 
-def test_cli_flag_surface(tmp_path):
+def test_cli_flag_surface(tmp_path, monkeypatch):
     assert parse_config([]).offline_model is True
     assert parse_config([]).device == "cuda"
     assert parse_config(["--no-offline_model"]).offline_model is False
@@ -185,8 +185,21 @@ def test_cli_flag_surface(tmp_path):
     cfg = parse_config(["--device", "cpu", "--window_len", "16", "--n_iters", "2",
                         "--checkpoint", "w.pth"])
     assert (cfg.device, cfg.window_len, cfg.n_iters, cfg.checkpoint) == ("cpu", 16, 2, "w.pth")
-    with pytest.raises(NotImplementedError):
-        run_eval(DefaultConfig(v2=True))
+    # --v2 reaches build_cotracker: the legacy model, on the CUDA device the
+    # configuration names (which raises here, without one, before anything runs)
+    assert parse_config(["--v2"]).v2 is True and DefaultConfig().v2 is False
+    built = {}
+
+    def probe(*a, **kw):
+        built.update(kw)
+        raise RuntimeError("built")
+
+    monkeypatch.setattr("cotracker_tpu_torch.models.build.build_cotracker", probe)
+    with pytest.raises(RuntimeError, match="built"):
+        run_eval(parse_config(["--v2", "--window_len", "16", "--dataset_root",
+                               _davis_pickle(tmp_path / "d.pkl", T=4, H=8, W=8, N=2),
+                               "--exp_dir", str(tmp_path / "v2")]))
+    assert built["v2"] is True and built["window_len"] == 16 and built["device"] == "cuda"
     # Dynamic Replica reads {root}/valid/frame_annotations_valid.jgz before
     # anything is built or written
     exp = tmp_path / "exp"

@@ -4,8 +4,8 @@
 for value; the parameter tree comes from eval_shape, nothing compiles), the
 round trip through `save_reference_checkpoint` and
 `load_reference_state_dict` (bit for bit), the census of unmapped keys, and
-`hub`: a local checkpoint loads, a URL raises with the URL, the legacy
-constructors raise."""
+`hub`: a local checkpoint loads, a URL raises with the URL, the four
+legacy CoTracker2 constructors build their predictors."""
 
 import numpy as np
 import pytest
@@ -18,7 +18,9 @@ from cotracker_tpu_torch.models.checkpoint import (
     export_reference_state_dict, from_jax_params, load_reference_state_dict,
     save_reference_checkpoint,
 )
+from cotracker_tpu_torch.models.cotracker2 import CoTracker2
 from cotracker_tpu_torch.models.cotracker3 import CoTrackerThree
+from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor, CoTrackerPredictor
 from test_torch_model import random_params
 
 RES = (32, 48)
@@ -78,6 +80,14 @@ def test_hub_refuses_urls_and_legacy_models():
         hub.cotracker3_offline("https://example.org/w.pth")
     with pytest.raises(ValueError, match="scaled_online"):
         hub.cotracker3_online("http://example.org/w.pth")
-    for name in ("cotracker2", "cotracker2_online", "cotracker2v1", "cotracker2v1_online"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            getattr(hub, name)("w.pth")
+    # the legacy constructors: window lengths 8 / 8 / 16 / 16, offline or
+    # online as named, on the CPU when asked; a URL still raises with the URL
+    for name, window, online in (("cotracker2", 8, False), ("cotracker2_online", 8, True),
+                                 ("cotracker2v1", 16, False), ("cotracker2v1_online", 16, True)):
+        pred = getattr(hub, name)(model_resolution=RES, device="cpu")
+        assert isinstance(pred.model, CoTracker2) and pred.model.window_len == window, name
+        assert isinstance(pred, CoTrackerOnlinePredictor if online else CoTrackerPredictor)
+        assert pred.device == torch.device("cpu")
+        url = hub.CHECKPOINT_URLS[name.removesuffix("_online")]
+        with pytest.raises(ValueError, match=url.replace(".", r"\.")):
+            getattr(hub, name)("https://example.org/w.pth")

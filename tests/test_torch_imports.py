@@ -29,8 +29,8 @@ print("PIL", "PIL" in sys.modules)
 # the inference, evaluation and training surface: it loads without OpenCV
 # or PIL, which the GPU machine does not have (video files and mp4s import
 # cv2 when used, JPEG frames PIL)
-SURFACE = ("hub", "demo", "online_demo", "interactive_demo", "utils.visualizer",
-           "datasets.annotations", "datasets.dynamic_replica", "datasets.png",
+SURFACE = ("hub", "models.cotracker2", "demo", "online_demo", "interactive_demo",
+           "utils.visualizer", "datasets.annotations", "datasets.dynamic_replica", "datasets.png",
            "datasets.image_ops", "datasets.kubric", "ops.masked", "evaluation.evaluate",
            "training.train_utils", "training.trainer")
 
