@@ -51,8 +51,9 @@ Phases, each raising on failure:
      bf16 is the streamed body (persistent blocks on a weight stream),
      held bit for bit to its PR 4 body, which is timed beside it; K9 in
      bf16 is K1's streamed tail with K9's prologue; then every kernel that
-     phases 16-19 launch at the shapes they give it (SURFACE: 16,384 x 24,
-     3,072 x 60, 2,560 x 24 and 320 x 300 padded tracks x frames, on the
+     phases 16-19 and phase 24's fast teacher launch at the shapes they
+     give it (SURFACE: 16,384 x 24, 3,072 x 60, 2,560 x 24, 320 x 300 and
+     448 x 64 padded tracks x frames, on the
      route the gates pick: K1 or K8 -> K5 -> K9 for the point tokens and
      for the 64 virtual tokens, K2, K3, and K4 at levels 0-3 of one chunk),
      against their plain versions with the bounds above, each phase
@@ -212,7 +213,29 @@ Phases, each raising on failure:
      export of (a)'s v2 and (b)'s v2.1 models through hub.cotracker2 and
      hub.cotracker2v1_online on the card, bit for bit the originals, and a
      URL raises; (e) the launch counters zeroed before (a) and read after
-     (d): every kernel zero.
+     (d): every kernel zero;
+ 24. pseudo-label distillation: two MJPG .avi clips (96 frames of
+     MovingClip's texture at 480x360) written with OpenCV and decoded back;
+     random-weight v2.1 (damp_v2), v3 online and v3 offline teachers saved
+     as reference-format checkpoints and loaded by default_teacher_ensemble,
+     each run twice on a 64-frame 384x512 clip with 384 SIFT queries + the
+     5x5 support grid (seconds, peak memory), and the v3 offline teacher
+     with fast=True the same way (448 padded tracks x 64 frames, the shape
+     phase 3 held K1-K4 at; its launches those route_counts gives);
+     TAPIRPredictor() raises an ImportError naming tapnet; the command
+     line, distill_trainer.main, on the offline student at full width (64
+     frames, 384 queries, iters=4, K4r) for 3 steps with a checkpoint, again
+     to 4 steps (it auto-resumes at 3), then one step of the online student
+     (--offline_model, windows of 16: 7): each step's K4r count exact (32
+     offline, 224 online: 4 levels x 4 iterations x windows x 2) and no
+     other kernel, K4r run only at (384, 64) and (384, 16) (points, padded
+     frames); the students' vis_conf_head bit for bit their first values,
+     their flow_head moved; ms per step, the host's query and teacher
+     seconds a step, each run's peak memory; then K4r at those two shapes
+     held to its plain version at levels 0-3 (its `*_distill*` keys). The
+     launch counters are zeroed before the teachers and read after the
+     online step (`launches_distill_phase` on every kernel); K4r's
+     `launches_per_distill_step` is the counts the steps measured.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -758,16 +781,11 @@ def train_kernel_phase(dev):
     cluster kernel in two passes) and at the eval hook's shapes (K4R_EVAL),
     where levels 1-3 are held bit for bit to the plain version too."""
     g = torch.Generator().manual_seed(3)
-    Hh, W = LVL0
     out = {}
     for (n, T) in (TRAIN_SHAPE, INFER_SHAPE, K4R_TWO_PASS, *K4R_EVAL):
         sfx = "" if (n, T) == TRAIN_SHAPE else K4R_EVAL.get((n, T), f"_t{T}")
-        fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
-        sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g).to(dev), dim=-1)
-        coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
-        starts, wxy = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+        fm, sup, coords, starts, mm = level0_operands(g, dev, n, T)
         Tp = starts.shape[1]
-        mm = n * Tp * 64 * 49 * 128 * 2  # multiply-adds of the window products, as operations
         k4r_entry(out, fm, sup, starts, n, T, mm, sfx)
         if (n, T) in K4R_EVAL:
             k4r_levels_check(out, g, sup, coords, n, T, sfx)
@@ -780,6 +798,19 @@ def train_kernel_phase(dev):
                     f"bound {k['bound_ms' + sfx]:.3f} ms by {k['bound_by' + sfx]})")
         del fm, sup
     return [out[k] for k in sorted(out)]
+
+
+def level0_operands(g, dev, n, T):
+    """Random operands of one correlation level at level 0 (96x128) for n
+    points x T frames: the f32 map and support (L2-normalised), coords
+    inside the map, the windows' starts, and the window products'
+    multiply-adds (as operations)."""
+    Hh, W = LVL0
+    fm = torch.nn.functional.normalize(torch.randn(1, T, Hh, W, 128, generator=g).to(dev), dim=-1)
+    sup = torch.nn.functional.normalize(torch.randn(1, n, 49, 128, generator=g).to(dev), dim=-1)
+    coords = (torch.rand(1, T, n, 2, generator=g) * torch.tensor([W, Hh])).to(dev)
+    starts, _ = corr_cuda.level_operands(coords, 1, T, Hh, W, 3)
+    return fm, sup, coords, starts, n * starts.shape[1] * 64 * 49 * 128 * 2
 
 
 def k4r_entry(out, fm, sup, starts, n, T, mm, sfx):
@@ -2010,7 +2041,8 @@ HUB_T, HUB_GRID = 24, 50
 DR_T, DR_HW, DR_TRACKS = 300, (720, 1280), 1000
 # the shapes phases 16-19 give the kernels: (padded tracks, frames, real
 # tracks, the rest masked as padding); each phase fails if its forward ran
-# at another shape, so the kernels checked at these are the path's
+# at another shape, so the kernels checked at these are the path's (phase
+# 24's fast teacher adds its own below DISTILL_T)
 SURFACE = {"dense": (16384, DENSE_T, 16320), "segm": (3072, SEGM_T, 2873),
            "hub": (2560, HUB_T, 2500), "dynamic_replica": (320, DR_T, 276)}
 
@@ -2061,7 +2093,8 @@ def per_forward_counts(pred):
 
 
 def surface_kernel_phase(dev, kernels):
-    """Every kernel that phases 16-19 launch, against its plain version at
+    """Every kernel that phases 16-19 and phase 24's fast teacher launch,
+    against its plain version at
     the shapes those phases give it (SURFACE), on the route that
     route_counts derives from the gates: the point tokens' time block (K1,
     or past the frame gate K8 -> K5 -> K9, K5 on K8's q and kv and K9 on
@@ -3135,6 +3168,324 @@ def v2_phase(dev, smi):
     return counts, dict(offline=offline, streaming=stream, phase_s=time.perf_counter() - t0)
 
 
+DISTILL_T, DISTILL_Q, DISTILL_SUPPORT = 64, 384, 5  # the distillation defaults: seq_len, sift_size
+DISTILL_CLIPS, DISTILL_CLIP_T, DISTILL_CLIP_HW = 2, 96, (360, 480)
+DISTILL_STEPS = 3  # then a second run to DISTILL_STEPS + 1, which auto-resumes
+# the student's K4r calls: the offline student's one window of 64 frames,
+# the online student's windows of 16 (384 points each); their keys' suffixes
+K4R_DISTILL = {(DISTILL_Q, DISTILL_T): "_distill", (DISTILL_Q, 16): "_distill_online"}
+# the fast v3 teacher's forward: the queries and the support grid, padded to
+# the evaluation predictor's bucket of 64
+SURFACE["distill_fast"] = (-(-(DISTILL_Q + DISTILL_SUPPORT**2) // 64) * 64, DISTILL_T,
+                           DISTILL_Q + DISTILL_SUPPORT**2)
+
+
+def k4r_per_distill_step(frames, window):
+    """K4r launches of one student step: 4 levels x TRAIN_ITERS iterations x
+    the clip's windows (one for the offline student) x 2 (the checkpointed
+    forward runs again in the backward)."""
+    windows = 1 if window is None else max(1, -(-(frames - window) // (window // 2)) + 1)
+    return 4 * TRAIN_ITERS * windows * 2
+
+
+def write_distill_clips(root):
+    """DISTILL_CLIPS MJPG .avi clips written with OpenCV, DISTILL_CLIP_T
+    frames of MovingClip's texture at DISTILL_CLIP_HW each, then decoded
+    back: every frame there, within 12 (mean absolute, of 255) of the frame
+    written (MJPG is lossy: ~7 on this texture). Returns the seconds both
+    took."""
+    import cv2
+
+    H, W = DISTILL_CLIP_HW
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    for i in range(DISTILL_CLIPS):
+        path = os.path.join(root, f"clip{i}.avi")
+        frames = MovingClip(DISTILL_CLIP_T, H, W, 1, seed=40 + i).sample.video
+        frames = frames.transpose(0, 2, 3, 1).round().astype(np.uint8)
+        wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (W, H))
+        if not wr.isOpened():
+            raise AssertionError(f"OpenCV cannot write {path}")
+        for f in frames:
+            wr.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        wr.release()
+        cap, back = cv2.VideoCapture(path), []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            back.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+        cap.release()
+        err = (np.abs(np.stack(back).astype(np.float32) - frames).mean()
+               if len(back) == len(frames) else math.inf)
+        if err > 12:
+            raise AssertionError(f"{path}: {len(back)} of {len(frames)} frames decode back, "
+                                 f"mean error {err}")
+    return time.perf_counter() - t0
+
+
+def write_teacher_checkpoints(root):
+    """Random-weight v2.1 (damped as damp_v2 says), v3 online and v3
+    offline models saved as reference-format checkpoints; their paths."""
+    from cotracker_tpu_torch.models.build import build_cotracker
+    from cotracker_tpu_torch.models.checkpoint import save_reference_checkpoint
+
+    paths = {}
+    for seed, (name, kw) in enumerate((("v21", dict(v2=True, window_len=16)),
+                                       ("v3_online", dict(offline=False)),
+                                       ("v3_offline", dict(offline=True))), start=1):
+        model = build_cotracker(device="cpu", seed=seed, **kw)
+        if "v2" in kw:
+            damp_v2(model)
+        paths[name] = os.path.join(root, f"{name}.pth")
+        save_reference_checkpoint(paths[name], model)
+    return paths
+
+
+def run_teacher(teacher, video, queries):
+    """One pseudo-label call of one teacher with the support grid, timed
+    (synchronised) with the peak memory; its tracks and vis checked."""
+    from cotracker_tpu_torch.training.distill import TeacherEnsemble
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tracks, vis = TeacherEnsemble([teacher], DISTILL_SUPPORT).pseudo_label(video, queries)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if tracks.shape != (1, DISTILL_T, DISTILL_Q, 2) or vis.shape != (1, DISTILL_T, DISTILL_Q):
+        raise AssertionError(f"a teacher answered {tracks.shape}, {vis.shape}")
+    if not (np.isfinite(tracks).all() and np.isfinite(vis).all()):
+        raise AssertionError("a teacher's tracks or visibility are not finite")
+    return secs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def distill_teachers(dev, smi, videos, ckpts):
+    """Step 3 of phase 24: each teacher of default_teacher_ensemble twice on
+    a 64-frame 384x512 clip with 384 SIFT queries + the 5x5 support grid
+    (the first call and the second), and the v3 offline teacher built with
+    fast=True the same way: the tracks and frames its model is given must
+    be SURFACE's (where phase 3 held K1-K4 to their plain versions), and
+    its launches those route_counts gives there."""
+    from cotracker_tpu_torch.datasets.real_videos import LocalVideoDataset
+    from cotracker_tpu_torch.evaluation.bootstap_predictor import TAPIRPredictor
+    from cotracker_tpu_torch.training.distill import default_teacher_ensemble, sample_distill_queries
+
+    sample, ok = LocalVideoDataset(videos, crop_size=TRAIN_RES, seq_len=DISTILL_T)[0]
+    if not ok or sample.video.shape != (DISTILL_T, 3, *TRAIN_RES):
+        raise AssertionError("LocalVideoDataset: no 64-frame clip at the crop")
+    video_np = sample.video[None]
+    t0 = time.perf_counter()
+    queries = sample_distill_queries(video_np, DISTILL_Q, np.random.default_rng(0))
+    out = {"sift_s": time.perf_counter() - t0}
+    video = torch.from_numpy(video_np).to(dev)
+    ens = default_teacher_ensemble(ckpts["v21"], ckpts["v3_online"], ckpts["v3_offline"],
+                                   support_grid_size=DISTILL_SUPPORT, device=dev)
+    for name, teacher in zip(("v21", "v3_online", "v3_offline"), ens.teachers):
+        out[name] = [run_teacher(teacher, video, queries) for _ in range(2)]
+    del ens
+    fast = default_teacher_ensemble(v3_offline_checkpoint=ckpts["v3_offline"], fast=True,
+                                    device=dev).teachers[0]
+    model, seen = fast.model, []
+
+    def observed(video_cl, queries, **kw):  # (padded tracks, frames) of each forward
+        seen.append((queries.shape[1], video_cl.shape[1]))
+        return model(video_cl, queries, **kw)
+
+    fast.model = observed
+    before = read_counts()
+    out["v3_offline_fast"] = [run_teacher(fast, video, queries) for _ in range(2)]
+    out["v3_offline_fast_launches"] = {k: v - before[k] for k, v in read_counts().items()}
+    del fast, model
+    if len(seen) != 2:
+        raise AssertionError(f"the fast v3 teacher ran {len(seen)} forwards in two calls")
+    for shape in seen:
+        check_surface_shape("distill_fast", *shape)
+    want = {k: 2 * c for k, c in route_counts(*seen[0]).items()}
+    if out["v3_offline_fast_launches"] != want:
+        raise AssertionError(f"the fast v3 teacher launched {out['v3_offline_fast_launches']}, "
+                             f"expected {want} in two calls")
+    for name in ("v21", "v3_online", "v3_offline", "v3_offline_fast"):
+        (s1, g1), (s2, g2) = out[name]
+        log(f"  teacher {name}, {DISTILL_Q} + {DISTILL_SUPPORT**2} queries x {DISTILL_T} frames "
+            f"at {TRAIN_RES[0]}x{TRAIN_RES[1]}: {s1:.3f} s the first call, {s2:.3f} s the second, "
+            f"peak memory {g2:.2f} GiB ({smi})")
+    log(f"  the fast v3 teacher's two calls, at {seen[0][0]} padded tracks x {seen[0][1]} frames, "
+        f"launched { {k: v for k, v in out['v3_offline_fast_launches'].items() if v} }; SIFT queries on "
+        f"the host: {out['sift_s']:.3f} s ({sum(1 for t in queries[0, :, 0] if t < 16)} of "
+        f"{DISTILL_Q} from the first 16 frames)")
+    try:
+        TAPIRPredictor()
+    except ImportError as e:
+        if "tapnet" not in str(e):
+            raise
+        log(f"  TAPIRPredictor() raises: {e}")
+    else:
+        raise AssertionError("TAPIRPredictor() built without a model_fn")
+    return out
+
+
+def distill_runs(dev, smi, videos, ckpts, root):
+    """Steps 5-6 of phase 24: the command line on the offline student for
+    DISTILL_STEPS steps with a checkpoint at the last, again to one step
+    more (it auto-resumes), then one step of the online student (windows
+    of 16); each step's launches, ms and K4r shapes recorded, the host's
+    query and teacher seconds. Returns the steps, shapes, timings and the
+    two students."""
+    from cotracker_tpu_torch.training import distill, distill_trainer
+
+    teachers = ["--teacher_v21", ckpts["v21"], "--teacher_v3_online", ckpts["v3_online"],
+                "--teacher_v3_offline", ckpts["v3_offline"]]
+    exp = os.path.join(root, "exp")
+    argv = ["--dataset_root", videos, "--exp_dir", exp, *teachers, "--seq_len", str(DISTILL_T),
+            "--sift_size", str(DISTILL_Q), "--num_steps", str(DISTILL_STEPS),
+            "--save_every_n_steps", str(DISTILL_STEPS), "--device", dev.type]
+    args = distill_trainer.parse_args(argv)
+    if (args.crop_size, args.seq_len, args.sift_size, args.train_iters, args.offline_model,
+            args.use_corr_kernels, args.corr_quant_int8, args.device) != (
+            TRAIN_RES, DISTILL_T, DISTILL_Q, TRAIN_ITERS, True, True, True, dev.type):
+        raise AssertionError(f"the command line parsed to {args}")
+    steps, host = [], {"queries_s": [], "teacher_s": []}
+    step_fn, query_fn = distill_trainer.distill_step, distill_trainer.sample_distill_queries
+    label_fn, launch, shapes = distill.TeacherEnsemble.pseudo_label, corr_cuda._k4_launch, []
+
+    def counted_step(*a, **kw):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*a, **kw)
+        torch.cuda.synchronize()
+        steps[-1].append(({k: v - before[k] for k, v in read_counts().items()},
+                          1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def recorded(fmq, supq, starts, wxy, plan):  # (points, padded frames) of each K4r
+        if wxy is None:
+            shapes.append(tuple(starts.shape[:2]))
+        return launch(fmq, supq, starts, wxy, plan)
+
+    distill_trainer.distill_step = counted_step
+    distill_trainer.sample_distill_queries = timed("queries_s", query_fn)
+    distill.TeacherEnsemble.pseudo_label = timed("teacher_s", label_fn)
+    corr_cuda._k4_launch = recorded
+    t0 = time.perf_counter()
+    try:
+        runs, host["peak_gib"] = {}, {}
+        for name, extra in (("first", []), ("resumed", ["--num_steps", str(DISTILL_STEPS + 1)]),
+                            ("online", ["--exp_dir", os.path.join(root, "exp_online"),
+                                        "--offline_model", "--model_window_len", "16",
+                                        "--num_steps", "1", "--save_every_n_steps", "0"])):
+            steps.append([])
+            torch.cuda.reset_peak_memory_stats()
+            runs[name] = distill_trainer.main(argv + extra)
+            host["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        distill_trainer.distill_step, distill_trainer.sample_distill_queries = step_fn, query_fn
+        distill.TeacherEnsemble.pseudo_label, corr_cuda._k4_launch = label_fn, launch
+    host["cli_s"] = time.perf_counter() - t0
+    with open(os.path.join(exp, "train_log.jsonl")) as f:
+        host["losses"] = [json.loads(line)["total_loss"] for line in f]
+    ckpts_written = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    if ([len(s) for s in steps] != [DISTILL_STEPS, 1, 1] or len(host["losses"]) != DISTILL_STEPS + 1
+            or ckpts_written != [f"model_{DISTILL_STEPS:09d}.pth", "model_final.pth"]
+            or not all(math.isfinite(x) for x in host["losses"])):
+        raise AssertionError(f"distillation runs: steps {[len(s) for s in steps]}, losses "
+                             f"{host['losses']}, checkpoints {ckpts_written}")
+    return steps, shapes, host, runs
+
+
+def check_frozen_head(name, model, window):
+    """The student's vis_conf_head bit for bit its first values (a fresh
+    build_training_model from the same seed), and its flow_head moved."""
+    from cotracker_tpu_torch.models.build import build_training_model
+
+    start = build_training_model(offline=window is None, window_len=window or 60,
+                                 model_resolution=TRAIN_RES, device="cpu", seed=0).updateformer
+    uf = model.updateformer
+    same = all(torch.equal(getattr(uf.vis_conf_head, p).cpu(), getattr(start.vis_conf_head, p))
+               for p in ("weight", "bias"))
+    moved = not torch.equal(uf.flow_head.weight.cpu(), start.flow_head.weight)
+    log(f"  {name} student: vis_conf_head bit for bit its first values: {same}; "
+        f"flow_head moved: {moved}")
+    if not (same and moved):
+        raise AssertionError(f"{name} student: the frozen head moved or nothing trained")
+
+
+def distill_phase(dev, smi, k4r_row):
+    """Phase 24 (see the module docstring): steps 1-7, the launch counters
+    zeroed before step 3 and read after step 6; then step 8 on `k4r_row`
+    (the K4r entry of the kernels line) and step 9. Returns the phase's
+    launches, the K4r launches each student step made (checked against
+    k4r_per_distill_step) and the metrics."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    t_phase = time.perf_counter()
+    try:
+        videos = os.path.join(root, "videos")
+        clip_s = write_distill_clips(videos)
+        ckpts = write_teacher_checkpoints(root)
+        log(f"  wrote {DISTILL_CLIPS} clips of {DISTILL_CLIP_T} frames at {DISTILL_CLIP_HW[1]}x"
+            f"{DISTILL_CLIP_HW[0]} (MJPG .avi, decoded back) in {clip_s:.2f} s, and the three "
+            "teachers' reference-format checkpoints")
+        zero_counts()
+        teachers = distill_teachers(dev, smi, videos, ckpts)
+        torch.cuda.empty_cache()
+        steps, shapes, host, runs = distill_runs(dev, smi, videos, ckpts, root)
+        phase_counts = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    zeros = dict.fromkeys(WRAPPERS, 0)
+    want = {"offline": k4r_per_distill_step(DISTILL_T, None),
+            "online": k4r_per_distill_step(DISTILL_T, 16)}
+    offline = [c for c, _ in steps[0] + steps[1]]
+    measured = {"offline": [c["K4r_corr_volume_raw"] for c in offline],
+                "online": steps[2][0][0]["K4r_corr_volume_raw"]}
+    if (any(c != {**zeros, "K4r_corr_volume_raw": want["offline"]} for c in offline)
+            or steps[2][0][0] != {**zeros, "K4r_corr_volume_raw": want["online"]}):
+        raise AssertionError(f"distillation steps launched {offline}, {steps[2][0][0]}; "
+                             f"expected K4r {want} a step and nothing else")
+    if sorted(set(shapes)) != sorted(K4R_DISTILL):
+        raise AssertionError(f"the students ran K4r at {sorted(set(shapes))} (points, padded "
+                             f"frames), the phase holds {sorted(K4R_DISTILL)}")
+    check_frozen_head("offline (after the resumed run)", runs["resumed"], None)
+    check_frozen_head("online", runs["online"], 16)
+    del runs
+    torch.cuda.empty_cache()
+    ms = [m for _, m in steps[0] + steps[1]]
+    log(f"  distill_trainer.main: {DISTILL_STEPS} offline steps, then resumed at step "
+        f"{DISTILL_STEPS} for one more, then one online step "
+        f"({max(1, -(-(DISTILL_T - 16) // 8) + 1)} "
+        f"windows of 16): ms per step "
+        f"{[round(m, 1) for m in ms]} offline, {steps[2][0][1]:.1f} online; K4r a step "
+        f"{[c['K4r_corr_volume_raw'] for c in offline]} offline, "
+        f"{steps[2][0][0]['K4r_corr_volume_raw']} online (4 levels x {TRAIN_ITERS} iterations x "
+        f"windows x 2), every other kernel 0; host seconds a step: queries "
+        f"{[round(x, 3) for x in host['queries_s']]}, teacher "
+        f"{[round(x, 3) for x in host['teacher_s']]}; total loss "
+        f"{[round(x, 4) for x in host['losses']]}; the three runs {host['cli_s']:.1f} s, peak "
+        f"memory by run {({k: round(v, 2) for k, v in host['peak_gib'].items()})} GiB ({smi})")
+    log("  K4r at the students' shapes against its plain version, levels 0-3:")
+    out = {"K4r_corr_volume_raw": k4r_row}
+    g = torch.Generator().manual_seed(24)
+    for (n, T), sfx in K4R_DISTILL.items():
+        fm, sup, coords, starts, mm = level0_operands(g, dev, n, T)
+        k4r_entry(out, fm, sup, starts, n, T, mm, sfx)
+        k4r_levels_check(out, g, sup, coords, n, T, sfx)
+        log(f"  K4r {n}x{T}: {k4r_row['ms' + sfx]:.3f} ms (plain {k4r_row['plain_ms' + sfx]:.3f} "
+            f"ms, bound {k4r_row['bound_ms' + sfx]:.3f} ms by {k4r_row['bound_by' + sfx]})")
+        del fm, sup
+    metrics = dict(teachers=teachers, ms_per_offline_step=ms, ms_online_step=steps[2][0][1],
+                   phase_s=time.perf_counter() - t_phase, **host)
+    return phase_counts, measured, metrics
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3168,7 +3519,8 @@ def main():
         f"{LONG_T} frames):")
     kernels += split_kernel_phase(dev)
     torch.cuda.empty_cache()
-    log("the inference surface's kernels vs plain versions (bf16) at the shapes of phases 16-19:")
+    log("the inference surface's kernels vs plain versions (bf16) at the shapes of phases 16-19 "
+        "and of phase 24's fast teacher:")
     surface_kernel_phase(dev, kernels)
     torch.cuda.empty_cache()
 
@@ -3237,6 +3589,12 @@ def main():
     log("legacy CoTracker2 family (v2 / v2.1), plain PyTorch, no kernel on its path:")
     v2_counts, v2 = v2_phase(dev, smi)
     torch.cuda.empty_cache()
+    log(f"distillation: distill_trainer.main, {TRAIN_RES[0]}x{TRAIN_RES[1]}, {DISTILL_T} frames, "
+        f"{DISTILL_Q} queries, the v2.1, v3 online and v3 offline teachers:")
+    k4r_row = next(k for k in train_kernels if k["name"] == "K4r_corr_volume_raw")
+    with signals_restored():
+        distill_counts, distill_k4r, distill = distill_phase(dev, smi, k4r_row)
+    torch.cuda.empty_cache()
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -3256,6 +3614,8 @@ def main():
         k["launches_per_step"] = {"k4r_run": step_r[k["name"]], "k4f_run": step_f[k["name"]]}
         k["launches_per_step_kubric_cli"] = [c[k["name"]] for _, c, _ in kubric_steps]
         k["launches_per_eval_hook"] = [c[k["name"]] for c, _, _ in kubric_evals]
+        if k["name"] == "K4r_corr_volume_raw":
+            k["launches_per_distill_step"] = distill_k4r
     kernels += train_kernels
     for k in variant_kernels:
         # K4m and K11 from a quasi-dense window with the variants on, K10 and
@@ -3269,6 +3629,7 @@ def main():
     kernels += variant_kernels
     for k in kernels:
         k["launches_v2_phase"] = v2_counts[k["name"]]
+        k["launches_distill_phase"] = distill_counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3310,6 +3671,16 @@ def main():
     log(f"v2.1 streaming ({st['queries']} queries, {st['windows']} windows of 16): "
         f"{st['steady_s']:.4f} s per steady window, peak memory {st['peak_gib']:.2f} GiB; "
         f"v2 phase {v2['phase_s']:.1f} s ({smi})")
+    th = distill["teachers"]
+    log(f"distillation ({DISTILL_Q} queries x {DISTILL_T} frames, {TRAIN_RES[0]}x{TRAIN_RES[1]}, "
+        f"iters={TRAIN_ITERS}): ms per offline student step "
+        f"{[round(m, 1) for m in distill['ms_per_offline_step']]}, online (windows of 16) "
+        f"{distill['ms_online_step']:.1f}; a teacher's second call: v2.1 {th['v21'][1][0]:.3f} s, "
+        f"v3 online {th['v3_online'][1][0]:.3f} s, v3 offline {th['v3_offline'][1][0]:.3f} s, "
+        f"fast {th['v3_offline_fast'][1][0]:.3f} s; host query sampling "
+        f"{[round(x, 3) for x in distill['queries_s']]} s a step; peak memory by run "
+        f"{({k: round(v, 2) for k, v in distill['peak_gib'].items()})} GiB; phase "
+        f"{distill['phase_s']:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Query-point samplers (port of cotracker_tpu/ops/samplers.py): regular
-grids, uniform random points and SIFT keypoints. All return float32 CPU
-tensors."""
+grids, uniform random points, SIFT and SuperPoint keypoints. All return
+float32 CPU tensors."""
 
 from typing import Optional, Tuple, Union
 
@@ -76,6 +76,63 @@ def get_sift_sampled_pts(
         frame_num = int(rng.integers(0, max(int(num_frames * sampling_length_percent), 1)))
         key_points, _ = sift.detectAndCompute(video[0, frame_num].astype(np.uint8), None)
         points += [[frame_num, int(kp.pt[0]), int(kp.pt[1])] for kp in key_points]
+    if not points:
+        return torch.zeros((1, 0, 3), dtype=torch.float32)
+    return torch.from_numpy(np.asarray(points[:size], dtype=np.float32)[None])
+
+
+def _superpoint_extractor(max_num_keypoints: int):
+    """The `lightglue` package's SuperPoint as an extract_fn (a float32
+    (H, W, 3) frame in [0, 1] -> (K, 2) xy numpy), on the CPU. lightglue
+    reads its pretrained weights as it always does; this module fetches
+    nothing. Raises ImportError naming lightglue where it is missing."""
+    try:
+        from lightglue import SuperPoint
+    except ImportError as e:
+        raise ImportError(
+            "SuperPoint query sampling needs the `lightglue` package, which is not "
+            "installed; pass extract_fn= (a frame -> (K, 2) xy detector) or sample SIFT "
+            "queries") from e
+    extractor = SuperPoint(max_num_keypoints=max_num_keypoints).eval()
+
+    def extract_fn(frame):
+        with torch.no_grad():
+            t = torch.from_numpy(np.ascontiguousarray(frame)).permute(2, 0, 1).float()
+            out = extractor.extract(t, resize=None)
+        return out["keypoints"][0].cpu().numpy()
+
+    return extract_fn
+
+
+def get_superpoint_sampled_pts(
+    video,
+    size: int,
+    num_frames: int,
+    extent: Tuple[float, ...],
+    num_sampled_frames: int = 8,
+    sampling_length_percent: float = 0.25,
+    max_num_keypoints: int = 48,
+    rng: Optional[np.random.Generator] = None,
+    extract_fn=None,
+) -> torch.Tensor:
+    """SuperPoint keypoints as (t, x, y) queries: at most max_num_keypoints
+    from each of num_sampled_frames random frames among the first
+    `sampling_length_percent` of the video, concatenated and truncated to
+    `size`; `video` (1, T, H, W, 3) in [0, 255] (numpy or torch). Returns
+    (1, <= size, 3); the frame draws are the JAX package's for the same
+    Generator. extract_fn: a (H, W, 3) float32 frame in [0, 1] -> (K, 2)
+    xy detector; None builds lightglue's SuperPoint (ImportError without
+    it)."""
+    rng = rng or np.random.default_rng()
+    if extract_fn is None:
+        extract_fn = _superpoint_extractor(max_num_keypoints)
+    video = np.asarray(torch.as_tensor(video).cpu())
+    points = []
+    for _ in range(num_sampled_frames):
+        frame_num = int(rng.integers(0, max(int(num_frames * sampling_length_percent), 1)))
+        frame = np.asarray(video[0, frame_num], np.float32) / 255.0
+        kps = np.asarray(extract_fn(frame), np.float32)[:max_num_keypoints]
+        points += [[frame_num, xy[0], xy[1]] for xy in kps]
     if not points:
         return torch.zeros((1, 0, 3), dtype=torch.float32)
     return torch.from_numpy(np.asarray(points[:size], dtype=np.float32)[None])

@@ -50,18 +50,16 @@ def sample_queries_from_gt(trajs_g, vis_g, generator: torch.Generator,
     return torch.cat([inds[..., None].to(trajs_g.dtype), xys], dim=-1)
 
 
-def _online_loss_assembly(train_data, trajs_g, vis_g, valids, cfg: TrainConfig):
-    """Per-window losses of the online model, averaged over windows: the
-    ground truth sliced to each S-frame window (step S//2), the frames of a
-    window past T masked (frame_mask), valids gated by the "query started"
-    mask."""
-    coords_w, vis_w, conf_w, valid_mask = train_data
+def window_targets(num_windows: int, S: int, trajs_g, vis_g, valids, valid_mask):
+    """For each of an online forward's windows (S frames at step S//2): the
+    ground truth sliced to its frames and zero-padded past T, valids gated
+    by the "query started" mask, and the frame mask (None where the window
+    lies inside the video; else (S,), 0 on the padded frames, which also
+    zeroes their valids). Yields (traj_gt, vis_gt, val, frame_mask)."""
     T = vis_g.shape[1]
-    S = cfg.sliding_window_len
     step = S // 2
     gated_valids = valids * valid_mask
-    flow = invis = vis_l = conf_l = 0.0
-    for w in range(len(coords_w)):
+    for w in range(num_windows):
         ind = w * step
         n_real = min(S, T - ind)
 
@@ -73,11 +71,21 @@ def _online_loss_assembly(train_data, trajs_g, vis_g, valids, cfg: TrainConfig):
             return torch.cat([part, pad], dim=1)
 
         frame_mask = None
+        traj_gt, vis_gt, val = sl(trajs_g), sl(vis_g), sl(gated_valids)
         if n_real < S:
             frame_mask = (torch.arange(S, device=vis_g.device) < n_real).to(torch.float32)
-        traj_gt, vis_gt, val = sl(trajs_g), sl(vis_g), sl(gated_valids)
-        if frame_mask is not None:
             val = val * frame_mask[None, :, None]
+        yield traj_gt, vis_gt, val, frame_mask
+
+
+def _online_loss_assembly(train_data, trajs_g, vis_g, valids, cfg: TrainConfig):
+    """Per-window losses of the online model, averaged over windows (the
+    targets of window_targets)."""
+    coords_w, vis_w, conf_w, valid_mask = train_data
+    flow = invis = vis_l = conf_l = 0.0
+    targets = window_targets(len(coords_w), cfg.sliding_window_len, trajs_g, vis_g, valids,
+                             valid_mask)
+    for w, (traj_gt, vis_gt, val, frame_mask) in enumerate(targets):
         flow = flow + sequence_loss(coords_w[w], traj_gt, val, vis=vis_gt, gamma=0.8,
                                     add_huber_loss=cfg.add_huber_loss, loss_only_for_visible=True)
         if not cfg.train_only_on_visible:
@@ -142,29 +150,34 @@ def onecycle_lr(count: int, peak_value: float, transition_steps: int, pct_start:
 
 
 def make_optimizer(model: torch.nn.Module, lr: float = 5e-4, wdecay: float = 1e-5,
-                   num_steps: int = 50000):
+                   num_steps: int = 50000, params=None):
     """AdamW (beta 0.9 / 0.999, eps 1e-8, decoupled weight decay `wdecay`)
-    over every parameter, and a LambdaLR that follows the one-cycle cosine
-    schedule over num_steps + 100 steps with its peak `lr` (the JAX
-    package's optax chain). Step with `apply_gradients`."""
-    optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=wdecay)
+    over `params` (every parameter of `model` by default), and a LambdaLR
+    that follows the one-cycle cosine schedule over num_steps + 100 steps
+    with its peak `lr` (the JAX package's optax chain). Step with
+    `apply_gradients`."""
+    optimizer = torch.optim.AdamW(model.parameters() if params is None else params, lr=lr,
+                                  betas=(0.9, 0.999), eps=1e-8, weight_decay=wdecay)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda c: onecycle_lr(c, lr, num_steps + 100) / lr)
     return optimizer, scheduler
 
 
-def apply_gradients(optimizer, scheduler, max_norm: float = 1.0):
+def apply_gradients(optimizer, scheduler, max_norm: float = 1.0, clip_over=None):
     """One optimizer update from the parameters' .grad: clip by the global
     norm (scaled by max_norm/norm where norm >= max_norm, as optax does), an
-    AdamW step at the schedule's rate, the schedule advanced. A parameter
-    without a gradient takes a zero one, so its moments and weight decay
-    advance as they do in optax."""
+    AdamW step at the schedule's rate, the schedule advanced. The norm is
+    taken over `clip_over` (default: the optimizer's parameters): a wider
+    set is optax's clip ahead of a multi_transform that freezes part of the
+    tree, whose gradients count in the norm and which no update moves. A
+    parameter without a gradient takes a zero one, so its moments and
+    weight decay advance as they do in optax."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
-    for p in params:
+    clipped = params if clip_over is None else list(clip_over)
+    for p in params + clipped:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    norm = torch.sqrt(sum((p.grad ** 2).sum() for p in params))
+    norm = torch.sqrt(sum((p.grad ** 2).sum() for p in clipped))
     keep = norm < max_norm  # on the device: no synchronisation
     for p in params:
         p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * max_norm))

@@ -16,8 +16,9 @@ run_test_eval`) and track overlays of a training batch on their cadences,
 and the SLURM handlers. The command line's flags are TrainerArgs' fields,
 as in the JAX package: a bool whose default is True is a flag that turns it
 off (`--use_augs` trains without augmentations); crop_size is not a flag.
-Not ported yet: distillation (ROADMAP queue 1 item 11) and the mesh and
-multi-host paths (item 13).
+Pseudo-label distillation on real videos is `training.distill_trainer`,
+which shares this module's logger, checkpoints and command-line parsing.
+Not ported yet: the mesh and multi-host paths (ROADMAP queue 1 item 13).
 """
 
 import argparse
@@ -116,13 +117,14 @@ class Logger:
 
 
 def save_checkpoint(path, model, optimizer, scheduler, generator, step):
-    """Model, optimizer, schedule, query generator and step counter, written
-    to `path` through a `.tmp` file and an atomic rename."""
+    """Model, optimizer, schedule, query generator (None: a loop without
+    one) and step counter, written to `path` through a `.tmp` file and an
+    atomic rename."""
     blob = {
         "model": model.state_dict(),
         "optimizer": optimizer.state_dict(),
         "scheduler": scheduler.state_dict(),
-        "generator": generator.get_state(),
+        "generator": None if generator is None else generator.get_state(),
         "total_steps": step,
     }
     tmp = path + ".tmp"
@@ -136,7 +138,8 @@ def load_checkpoint(path, model, optimizer, scheduler, generator):
     model.load_state_dict(blob["model"])
     optimizer.load_state_dict(blob["optimizer"])
     scheduler.load_state_dict(blob["scheduler"])
-    generator.set_state(blob["generator"])
+    if generator is not None:
+        generator.set_state(blob["generator"])
     return blob["total_steps"]
 
 
@@ -309,18 +312,24 @@ def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader):
     return model
 
 
-def parse_args(argv=None) -> TrainerArgs:
-    """TrainerArgs from the command line, as the JAX trainer parses it: one
-    flag a scalar field; a bool flag sets the opposite of its default
-    (store_true for False, store_false for True); crop_size is not a flag."""
-    p = argparse.ArgumentParser(description=__doc__,
+def parse_fields(cls, argv=None, description=None):
+    """An instance of the dataclass `cls` from the command line, as the JAX
+    trainers parse theirs: one flag a scalar field; a bool flag sets the
+    opposite of its default (store_true for False, store_false for True);
+    a tuple field (crop_size) is not a flag."""
+    p = argparse.ArgumentParser(description=description,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    for f in dataclasses.fields(TrainerArgs):
+    for f in dataclasses.fields(cls):
         if isinstance(f.default, bool):
             p.add_argument(f"--{f.name}", action="store_false" if f.default else "store_true")
         elif isinstance(f.default, (int, float, str)):
             p.add_argument(f"--{f.name}", type=type(f.default), default=f.default)
-    return TrainerArgs(**vars(p.parse_args(argv)))
+    return cls(**vars(p.parse_args(argv)))
+
+
+def parse_args(argv=None) -> TrainerArgs:
+    """TrainerArgs from the command line (parse_fields)."""
+    return parse_fields(TrainerArgs, argv, __doc__)
 
 
 def main(argv=None):

@@ -321,6 +321,23 @@ def test_corr_volume_raw(dev, T, B, NP):
     assert device_launches(lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)) == 1
 
 
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_corr_volume_raw_distill_shape(dev, level):
+    """K4r at the distillation student's shape, 384 points x 64 frames (the
+    most frames it holds on chip), at levels 0-3 of the 384x512 input
+    (96x128 to 12x16): codes and scales bit-identical to the plain version,
+    one device launch."""
+    g = torch.Generator().manual_seed(90 + level)
+    fm, sup, starts = _raw_operands(g, dev, 1, 64, 96 >> level, 128 >> level, 384)
+    fmq = corr_cuda.build_int8_level(fm, 3)
+    supq = torch.round(sup * 127.0).to(torch.int8)
+    assert starts.shape[:2] == (384, 64) and corr_cuda.k4_plan(384, 64).hold
+    vol, scale = corr_cuda.corr_volume_raw_int8(fmq, supq, starts)
+    rvol, rscale = corr_cuda.corr_volume_raw_plain(fmq, supq, starts)
+    assert torch.equal(scale, rscale) and torch.equal(vol, rvol)
+    assert device_launches(lambda: corr_cuda.corr_volume_raw_int8(fmq, supq, starts)) == 1
+
+
 @pytest.mark.parametrize("T", [16, 80])
 def test_corr_volume_raw_zero_support(dev, T):
     """A point whose support is all zero: its raw volume is 0, so its scale

@@ -32,7 +32,8 @@ print("PIL", "PIL" in sys.modules)
 SURFACE = ("hub", "models.cotracker2", "demo", "online_demo", "interactive_demo",
            "utils.visualizer", "datasets.annotations", "datasets.dynamic_replica", "datasets.png",
            "datasets.image_ops", "datasets.kubric", "ops.masked", "evaluation.evaluate",
-           "training.train_utils", "training.trainer")
+           "training.train_utils", "training.trainer", "datasets.real_videos",
+           "evaluation.bootstap_predictor", "training.distill", "training.distill_trainer")
 
 
 def test_port_imports_no_jax():
