@@ -236,6 +236,32 @@ Phases, each raising on failure:
      launch counters are zeroed before the teachers and read after the
      online step (`launches_distill_phase` on every kernel); K4r's
      `launches_per_distill_step` is the counts the steps measured.
+25. parallelism over torch.distributed (cotracker_tpu_torch/parallel/):
+     rank processes of this script (`--parallel-rank`), started fresh after
+     the build, each failing the phase if it fails or hangs past its
+     timeout: (0) one rank over NCCL, the track-sharded forward on a (1, 1)
+     mesh at the offline cell's shape (10,240 tracks x 60 frames, iters=6,
+     update heads x 0.05): route_counts(10240, 60) with K3 0 (the track
+     group's two-pass softmax bypasses it), within main_path's band of the
+     unsharded forward; then two gloo ranks sharing cuda:0: (a) the same
+     forward over 2 track ranks (5,120 a rank: route_counts(5120, 60), K3 0,
+     per rank), within 0.25 px / 0.01 of (0) and main_path's band of the
+     unsharded forward; (b) two steps of the online model's training at
+     384x512 x 768 tracks on a (1, 2) and a (2, 1) mesh from the same
+     parameters as two unsharded steps on the whole batch: loss within 1e-3,
+     gradients within 1e-3 of the largest gradient and of the vector's norm,
+     parameters within 5e-4 and bit for bit equal on both ranks, K4r 64 a
+     step per rank; (c) window_pipeline_forward on two stages, 3 videos x 64
+     frames, 2,048 tracks, windows of 16 (route_counts(2048, 16) a window
+     run) against forward_windows in main_path's band; (d)
+     CoTrackerOnlinePredictor(mesh=(1, 2)) on 10,000 points over 64 frames
+     against the unsharded stream (window 3: route_counts(5120, 16), K3 0,
+     per rank); (e) `python -m cotracker_tpu_torch.training.trainer
+     --distributed` as two processes on phase 21's Kubric tree, 2 steps
+     then again to 3 (it resumes): both exit 0, equal parameters, only rank
+     0 wrote, K4r 32 a step per rank. Seconds for each part, labelled as 2
+     ranks sharing one card (not a scaling figure); `launches_parallel_phase`
+     on every kernel sums the counted runs of every rank process.
 No phase is cut in depth. The line before the last is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
@@ -3486,6 +3512,541 @@ def distill_phase(dev, smi, k4r_row):
     return phase_counts, measured, metrics
 
 
+
+# (phase 25): data, track and window parallelism over torch.distributed.
+# The ranks are processes of this script (`--parallel-rank PART DIR`),
+# started fresh (never forked after CUDA started), after the kernels are
+# built: they load the same build directory.
+
+PAR_GRID, PAR_N, PAR_LOCAL = 100, 10240, 5120  # (a), (d): 10,000 points, 5,120 a rank
+PAR_DAMP = 0.05  # the update heads' scale: the JAX tests' contractive regime
+PAR_PIPE = (3, 64, 2048, 16)  # (c) videos, frames, tracks, window
+PAR_STREAM_T = 64
+PAR_TIMEOUT_S = 420  # every rank job; every collective waits at most 240 s
+PAR_LABEL = "2 ranks sharing one card; not a scaling figure"
+FAST_TOL = (0.5, 4.0, 0.1)  # coords median, max px; vis/conf max: main_path's card-vs-plain band
+SAME_ROUTE_TOL = (0.25, 0.01)  # coords max px, vis/conf max: the same route over 1 and 2 ranks
+
+
+def damp_heads(model, k=PAR_DAMP):
+    uf = model.updateformer
+    with torch.no_grad():
+        for head in (uf.flow_head, uf.vis_conf_head):
+            head.weight.mul_(k)
+            head.bias.mul_(k)
+    return model
+
+
+def par_queries(n_real, n_pad, T, H, W, dev, spread=False):
+    """(1, n_pad, 3) queries of a grid over (H, W), the tail padding masked;
+    with `spread` the query frames cycle through the video."""
+    from cotracker_tpu_torch.ops.samplers import get_points_on_a_grid
+
+    grid = int(math.isqrt(n_real))
+    xy = get_points_on_a_grid(grid, (H, W))[0][:n_real]
+    t = (torch.arange(n_real) * 7 % (T - 8)).float() if spread else torch.zeros(n_real)
+    q = torch.zeros(1, n_pad, 3)
+    q[0, :n_real] = torch.cat([t[:, None], xy], -1)
+    mask = torch.zeros(1, n_pad, dtype=torch.bool)
+    mask[0, :n_real] = True
+    return q.to(dev), mask.to(dev)
+
+
+def par_expected(n_local, T, runs=1, k3=True):
+    """route_counts at this rank's tracks, `runs` forwards, K3 0 where the
+    track group bypasses it."""
+    want = {k: v * runs for k, v in route_counts(n_local, T).items()}
+    if not k3:
+        want["K3_virtual_from_points_proj"] = 0
+    return want
+
+
+def par_close(name, out, ref, tol):
+    """coords median and max px and vis / conf max between two (coords,
+    vis, conf) triples, against `tol` (median, max, vis) or (max, vis)."""
+    err = (out[0].float() - ref[0].float()).norm(dim=-1).flatten()
+    verr = max((a.float() - b.float()).abs().max().item() for a, b in zip(out[1:], ref[1:]))
+    got = (err.median().item(), err.max().item(), verr)
+    ok = (got[0] <= tol[0] and got[1] <= tol[1] and got[2] <= tol[2]) if len(tol) == 3 else (
+        got[1] <= tol[0] and got[2] <= tol[1])
+    log(f"    {name}: coords median {got[0]:.3e} px, max {got[1]:.3e} px, vis/conf max "
+        f"{got[2]:.3e} (bounds {tol})")
+    if not ok:
+        raise AssertionError(f"parallel: {name} outside its bounds")
+    return got
+
+
+def par_forward(mesh, dev):
+    """(a), or the NCCL world-1 run: the track-sharded offline forward at
+    full width, 384x512, 60 frames, PAR_N tracks over the mesh's track
+    ranks, iters=6, damped heads; its counts from the second call."""
+    from cotracker_tpu_torch.models.build import build_cotracker
+    from cotracker_tpu_torch.parallel.mesh import (
+        COORDS_PSPEC, MASK_PSPEC, QUERY_PSPEC, TN_PSPEC, gather, replicate, shard_batch,
+        track_sharded_forward,
+    )
+
+    model = damp_heads(build_cotracker(fast=True, device=dev))
+    replicate(mesh, model)
+    video = synthetic_video(T_FRAMES, 384, 512, dev).permute(0, 1, 3, 4, 2)
+    queries, mask = par_queries(PAR_GRID**2, PAR_N, T_FRAMES, 384, 512, dev)
+    fwd = track_sharded_forward(model, mesh, iters=6)
+    q, m = shard_batch(mesh, queries, QUERY_PSPEC), shard_batch(mesh, mask, MASK_PSPEC)
+    fwd(video, q, m)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fwd(video, q, m)
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0, "counts": read_counts(), "n_local": q.shape[1]}
+    n = PAR_GRID**2  # the real tracks
+    full = (gather(mesh, out[0], COORDS_PSPEC), gather(mesh, out[1], TN_PSPEC),
+            gather(mesh, out[2], TN_PSPEC))
+    res["out"] = tuple(x[:, :, :n].cpu() for x in full)
+    if mesh.index["track"] == 0:
+        with torch.inference_mode():
+            res["unsharded"] = tuple(x[:, :, :n].cpu() for x in model(
+                video, queries, iters=6, track_mask=mask)[:3])
+    return res
+
+
+def par_params_digest(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_train(dev):
+    """(b): the online model at TRAIN_RES, 2 rows of TRAIN_TRACKS tracks, 24
+    frames (two windows of 16), iters=TRAIN_ITERS: rank 0 runs two unsharded
+    steps on the whole batch, then every rank two sharded steps from the same
+    parameters on a (1, 2) mesh (each rank both rows' halves of the tracks)
+    and on a (2, 1) mesh (each rank one row). K4r's count a step per rank."""
+    import copy
+
+    from cotracker_tpu_torch.models.build import build_training_model
+    from cotracker_tpu_torch.parallel.distributed import is_main_process
+    from cotracker_tpu_torch.parallel.mesh import (
+        BATCH_PSPECS, make_fast_sharded_train_step, make_mesh, replicate, shard_batch,
+    )
+    from cotracker_tpu_torch.training.train_step import (
+        TrainConfig, make_optimizer, train_step,
+    )
+
+    rows = [MovingClip(24, *TRAIN_RES, TRAIN_TRACKS, seed=30 + b).sample for b in range(2)]
+    batch = {"video": torch.from_numpy(np.stack([r.video.transpose(0, 2, 3, 1) for r in rows])),
+             "trajs_g": torch.from_numpy(np.stack([r.trajectory for r in rows])),
+             "vis_g": torch.from_numpy(np.stack([r.visibility for r in rows])),
+             "valids": torch.from_numpy(np.stack([r.valid for r in rows]))}
+    cfg = TrainConfig(iters=TRAIN_ITERS, offline_model=False, sliding_window_len=16)
+    base = build_training_model(offline=False, window_len=16, model_resolution=TRAIN_RES,
+                                device=dev, seed=0)
+    first = is_main_process()
+    out = {}
+    if first:
+        model = copy.deepcopy(base)
+        opt, sched = make_optimizer(model, 1e-4, 1e-5, 100)
+        gen = torch.Generator().manual_seed(0)
+        full = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        aux = train_step(model, opt, sched, full, gen, cfg)
+        out["ref_loss"] = aux["total_loss"].item()
+        out["ref_grads"] = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        train_step(model, opt, sched, full, gen, cfg)
+        torch.cuda.synchronize()
+        out["ref_s"] = time.perf_counter() - t0
+        out["ref_params"] = [p.detach().cpu().clone() for p in model.parameters()]
+        del model, opt, full
+    for shape in ((1, 2), (2, 1)):
+        t_part = time.perf_counter()
+        mesh = make_mesh(shape)
+        model = copy.deepcopy(base)
+        replicate(mesh, model)
+        opt, sched = make_optimizer(model, 1e-4, 1e-5, 100)
+        step = make_fast_sharded_train_step(model, opt, sched, cfg, mesh)
+        gen = torch.Generator().manual_seed(0)
+        local = {k: shard_batch(mesh, v, BATCH_PSPECS[k]) for k, v in batch.items()}
+        res = {"counts": [], "seconds": []}
+        for i in range(2):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            aux = step(local, gen)
+            torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            res["counts"].append(read_counts())
+            if i == 0 and first:  # every rank holds the same (the digests)
+                res["loss"] = aux["total_loss"].item()
+                res["grads"] = {n: p.grad.detach().cpu().clone()
+                                for n, p in model.named_parameters()}
+        res["digest"] = par_params_digest(model)
+        if first:
+            res.update(out, params=[p.detach().cpu().clone() for p in model.parameters()])
+        res["part_s"] = time.perf_counter() - t_part
+        out[str(shape)] = res
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return {k: out[k] for k in ("(1, 2)", "(2, 1)")}
+
+
+def par_pipeline(dev):
+    """(c): window_pipeline_forward on two stages (PAR_PIPE), damped heads;
+    the first stage also runs forward_windows. The counts of the pipeline's
+    call, and the windows this stage ran."""
+    from cotracker_tpu_torch.models.build import build_cotracker
+    from cotracker_tpu_torch.parallel.mesh import replicate
+    from cotracker_tpu_torch.parallel.window_pipeline import (
+        make_window_mesh, window_pipeline_forward,
+    )
+
+    B, T, N, S = PAR_PIPE
+    mesh = make_window_mesh(2)
+    model = damp_heads(build_cotracker(fast=True, offline=False, window_len=S, device=dev))
+    replicate(mesh, model)
+    base = synthetic_video(T, 384, 512, dev).permute(0, 1, 3, 4, 2)
+    video = torch.cat([base, base.flip(2), base.flip(3)])
+    q, mask = par_queries(45 * 45, N, T, 384, 512, dev, spread=True)
+    queries, mask = q.expand(B, -1, -1).contiguous(), mask.expand(B, -1).contiguous()
+    fwd = window_pipeline_forward(model, mesh, iters=6)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fwd(video, queries, mask)
+    torch.cuda.synchronize()
+    res = {"seconds": time.perf_counter() - t0, "counts": read_counts(),
+           "out": tuple(x.cpu() for x in out)}
+    num_windows = -(-(T - S) // (S // 2)) + 1
+    wloc = -(-num_windows // 2)
+    res["windows_run"] = B * min(wloc, num_windows - mesh.index["window"] * wloc)
+    if mesh.index["window"] == 0:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = model.forward_windows(video, queries, iters=6, track_mask=mask)[:3]
+            torch.cuda.synchronize()
+            res["ref_seconds"] = time.perf_counter() - t0
+        res["ref"] = tuple(x.cpu() for x in ref)
+    return res
+
+
+def par_stream(dev):
+    """(d): CoTrackerOnlinePredictor(fast=True, mesh=(1, 2)) on PAR_GRID**2
+    points over PAR_STREAM_T frames, damped heads; rank 0 also streams
+    unsharded. The counts of window 3 of the sharded stream."""
+    from cotracker_tpu_torch.parallel.distributed import is_main_process
+    from cotracker_tpu_torch.parallel.mesh import make_mesh
+    from cotracker_tpu_torch.predictor import CoTrackerOnlinePredictor
+
+    video = synthetic_video(PAR_STREAM_T, 384, 512, dev)
+    res = {}
+    for name, mesh in (("sharded", make_mesh((1, 2))), ("ref", None)):
+        if mesh is None and not is_main_process():
+            continue
+        p = CoTrackerOnlinePredictor(fast=True, capacity=PAR_STREAM_T, mesh=mesh)
+        damp_heads(p.model)
+        p(video[:, :1], is_first_step=True, grid_size=PAR_GRID)
+        secs = []
+        for w, ind in enumerate(range(0, PAR_STREAM_T - p.step, p.step)):
+            if w == 3:
+                zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracks, vis = p(video[:, ind : ind + 2 * p.step])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if w == 3:
+                res[f"{name}_counts"] = read_counts()
+        res[name] = (tracks.cpu(), vis.cpu())
+        res[f"{name}_seconds"] = secs
+        del p
+    return res
+
+
+def par_trainer_rank(argv, out_path):
+    """(e): one rank of the trainer's command line: main(argv), the paths
+    it wrote, its launch counts and a digest of its parameters."""
+    import builtins
+
+    from cotracker_tpu_torch.training import trainer
+
+    written = []
+    real_open, real_save = builtins.open, torch.save
+
+    def open_w(path, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            written.append(str(path))
+        return real_open(path, mode, *a, **k)
+
+    def save_w(obj, f, *a, **k):
+        written.append(str(f))
+        return real_save(obj, f, *a, **k)
+
+    zero_counts()
+    builtins.open, torch.save = open_w, save_w
+    try:
+        with signals_restored():
+            model = trainer.main(argv)
+    finally:
+        builtins.open, torch.save = real_open, real_save
+    torch.save({"written": written, "counts": read_counts(),
+                "digest": par_params_digest(model)}, out_path)
+
+
+def parallel_rank(part, root, extra):
+    """A rank process of phase 25 (`chip_smoke.py --parallel-rank PART DIR
+    [ARGS]`): joins the job from the RANK / WORLD_SIZE / MASTER_* variables,
+    runs its part and writes DIR/PART_rank{r}.pt; a failure writes
+    DIR/PART_rank{r}.err."""
+    import torch.distributed as dist
+
+    from cotracker_tpu_torch.parallel import distributed as pdist
+    from cotracker_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    out = os.path.join(root, f"{part}_rank{rank}")
+    try:
+        if part == "trainer":
+            par_trainer_rank(extra, out + ".pt")
+            return
+        backend = "nccl" if part == "nccl1" else "gloo"
+        pdist.initialize(backend=backend, device="cuda", timeout_s=240)
+        dev = pdist.rank_device()
+        res = {"device": str(dev), "backend": dist.get_backend()}
+        if part == "nccl1":
+            res["forward"] = par_forward(make_mesh((1, 1)), dev)
+        else:
+            t0 = time.perf_counter()
+            res["forward"] = par_forward(make_mesh((1, 2)), dev)
+            res["forward"]["part_s"] = time.perf_counter() - t0
+            for shape, r in par_train(dev).items():
+                res[f"train_{shape}"] = r
+            t0 = time.perf_counter()
+            res["pipeline"] = par_pipeline(dev)
+            res["pipeline"]["part_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res["stream"] = par_stream(dev)
+            res["stream"]["part_s"] = time.perf_counter() - t0
+        pdist.sync_global_devices()
+        torch.save(res, out + ".pt")
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_ranks(root, part, world, extra=()):
+    """Start `world` rank processes of `part`, wait for all (PAR_TIMEOUT_S),
+    stop every one still running, and return their results; a rank that
+    fails or hangs fails the phase with its error and output's tail."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    logs = [open(os.path.join(root, f"{part}_rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank", part, root, *extra],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PAR_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            for ext in (".err", ".log"):
+                path = os.path.join(root, f"{part}_rank{r}{ext}")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        tails.append(f"--- rank {r}{ext} ---\n{f.read()[-3000:]}")
+        raise AssertionError(f"parallel {part}: ranks {bad} failed or hung (exit codes "
+                             f"{[p.returncode for p in procs]})\n" + "\n".join(tails))
+    return [torch.load(os.path.join(root, f"{part}_rank{r}.pt"), weights_only=False)
+            for r in range(world)], time.perf_counter() - t0
+
+
+def par_check_counts(name, got, want):
+    if got != want:
+        raise AssertionError(f"parallel {name}: launched {got}, expected {want}")
+
+
+def par_check_train(name, ranks):
+    """(b)'s checks: loss and gradients against the unsharded step, the
+    parameters after two steps too, bit for bit equal on every rank, K4r's
+    count a step per rank. A gradient's difference is measured against the
+    largest gradient of the model: the encoder's biases that an instance
+    norm removes have gradients of float32 noise only, different in each
+    summation order."""
+    ref = ranks[0]
+    k4r = 4 * TRAIN_ITERS * 2 * 2  # levels x iterations x windows x (forward + remat)
+    want = {**dict.fromkeys(WRAPPERS, 0), "K4r_corr_volume_raw": k4r}
+    for r in ranks:
+        for c in r["counts"]:
+            par_check_counts(f"{name} step", c, want)
+    loss_err = abs(ref["loss"] - ref["ref_loss"]) / abs(ref["ref_loss"])
+    scale = max(h.abs().max().item() for h in ref["ref_grads"].values())
+    worst = sorted(((ref["grads"][n] - h).abs().max().item() / scale, n)
+                   for n, h in ref["ref_grads"].items())[-3:]
+    grad_err = worst[-1][0]
+    norm = lambda d: torch.cat([v.flatten() for v in d.values()])  # noqa: E731
+    norm_err = ((norm(ref["grads"]) - norm(ref["ref_grads"])).norm()
+                / norm(ref["ref_grads"]).norm()).item()
+    param_err = max((p - q).abs().max().item() for p, q in zip(ref["params"], ref["ref_params"]))
+    log(f"    {name}: loss {ref['loss']:.6f} (unsharded {ref['ref_loss']:.6f}, relative "
+        f"{loss_err:.2e}, bound 1e-3); gradients: the largest difference over the largest "
+        f"gradient ({scale:.3e}) {grad_err:.2e} (bound 1e-3; the three worst "
+        f"{[(n, round(e, 8)) for e, n in worst]}), of the whole vector's norm {norm_err:.2e} "
+        f"(bound 1e-3); parameters after 2 steps {param_err:.2e} (bound 5e-4); K4r {k4r} a "
+        f"step on every rank; seconds a step {[round(s, 3) for s in ranks[0]['seconds']]} "
+        f"(the unsharded two steps on the whole batch {ref['ref_s']:.3f} s)")
+    if loss_err > 1e-3 or grad_err > 1e-3 or norm_err > 1e-3 or param_err > 5e-4:
+        raise AssertionError(f"parallel {name}: the sharded step differs from the unsharded one")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError(f"parallel {name}: the ranks' parameters differ")
+    return {"loss_rel": loss_err, "grad_rel": grad_err, "grad_norm_rel": norm_err,
+            "param_abs": param_err,
+            "step_s": ranks[0]["seconds"], "part_s": ranks[0]["part_s"]}
+
+
+def parallel_phase(dev, smi):
+    """Phase 25 (see the module docstring). Returns the launch counts of
+    every rank process summed, and the metrics."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    metrics, total = {}, dict.fromkeys(WRAPPERS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    try:
+        log(f"  world 1 over NCCL: the track-sharded forward on a (1, 1) mesh, {PAR_N} tracks x "
+            f"{T_FRAMES} frames:")
+        (one,), secs = run_ranks(root, "nccl1", 1)
+        f1 = one["forward"]
+        want = par_expected(PAR_N, T_FRAMES, k3=False)
+        par_check_counts("world 1", f1["counts"], want)
+        add(f1["counts"])
+        log(f"    backend {one['backend']} on {one['device']}: forward {f1['seconds']:.3f} s, "
+            f"launches {want} (K3 0: the track group bypasses it); job {secs:.1f} s ({smi})")
+        par_close("world 1 vs the unsharded forward (K3)", f1["out"], f1["unsharded"], FAST_TOL)
+        metrics["world1_forward_s"] = f1["seconds"]
+
+        log(f"  two gloo ranks on {dev} ({PAR_LABEL}):")
+        ranks, secs = run_ranks(root, "gloo2", 2)
+        metrics["gloo2_job_s"] = secs
+        fa = [r["forward"] for r in ranks]
+        want = par_expected(PAR_LOCAL, T_FRAMES, k3=False)
+        for r, f in enumerate(fa):
+            par_check_counts(f"(a) rank {r}", f["counts"], want)
+            if f["n_local"] != PAR_LOCAL:
+                raise AssertionError(f"(a) rank {r} held {f['n_local']} tracks")
+        log(f"  (a) track-sharded forward, {PAR_N} tracks ({PAR_LOCAL} a rank) x {T_FRAMES} "
+            f"frames, iters=6: {[round(f['seconds'], 3) for f in fa]} s a forward by rank, "
+            f"part {fa[0]['part_s']:.1f} s; launches per rank {want} ({PAR_LABEL}; {smi})")
+        par_close("(a) vs the same route on one rank (NCCL)", fa[0]["out"], f1["out"],
+                  SAME_ROUTE_TOL)
+        par_close("(a) vs the unsharded forward (K3)", fa[0]["out"], fa[0]["unsharded"], FAST_TOL)
+        metrics["a_forward_s"] = [f["seconds"] for f in fa]
+        metrics["a_part_s"] = fa[0]["part_s"]
+        for shape in ((1, 2), (2, 1)):
+            key = f"train_{shape}"
+            metrics[key] = par_check_train(f"(b) training step on a {shape} mesh",
+                                           [r[key] for r in ranks])
+        log(f"  (b) ({PAR_LABEL}; {smi})")
+        pl = [r["pipeline"] for r in ranks]
+        B, T, N, S = PAR_PIPE
+        for r, p in enumerate(pl):
+            par_check_counts(f"(c) stage {r}", p["counts"], par_expected(N, S, p["windows_run"]))
+        log(f"  (c) window pipeline, 2 stages, {B} videos x {T} frames, {N} tracks, window {S}, "
+            f"iters=6: {pl[0]['seconds']:.3f} s (forward_windows on one rank "
+            f"{pl[0]['ref_seconds']:.3f} s); windows run by stage "
+            f"{[p['windows_run'] for p in pl]} ({PAR_LABEL}; {smi})")
+        par_close("(c) pipeline vs forward_windows", pl[0]["out"], pl[0]["ref"], FAST_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(pl[0]["out"], pl[1]["out"])):
+            raise AssertionError("(c) the stages returned different results")
+        metrics["c_pipeline_s"], metrics["c_ref_s"] = pl[0]["seconds"], pl[0]["ref_seconds"]
+        st = [r["stream"] for r in ranks]
+        want = par_expected(PAR_LOCAL, T_STREAM, k3=False)
+        for r, s in enumerate(st):
+            par_check_counts(f"(d) rank {r} window 3", s["sharded_counts"], want)
+        t1, v1 = st[0]["sharded"]
+        t0_, v0 = st[0]["ref"]
+        err = (t1 - t0_).norm(dim=-1).flatten()
+        agree = (v1 == v0).float().mean().item()
+        log(f"  (d) streaming, mesh (1, 2), {PAR_GRID**2} points: seconds a window "
+            f"{[round(x, 3) for x in st[0]['sharded_seconds']]} (unsharded "
+            f"{[round(x, 3) for x in st[0]['ref_seconds']]}); tracks vs the unsharded stream "
+            f"median {err.median().item():.3e} px, max {err.max().item():.3e} px (bounds "
+            f"{FAST_TOL[:2]}), visibility agreement {agree:.4f} (bound 0.99); launches a "
+            f"window per rank {want} ({PAR_LABEL}; {smi})")
+        if not (err.median().item() <= FAST_TOL[0] and err.max().item() <= FAST_TOL[1]
+                and agree >= 0.99 and torch.equal(st[1]["sharded"][0], t1)):
+            raise AssertionError("(d) the sharded stream differs from the unsharded one")
+        metrics["d_window_s"] = st[0]["sharded_seconds"]
+        for r in ranks:
+            for part in ("forward", "train_(1, 2)", "train_(2, 1)", "pipeline"):
+                add(r[part]["counts"] if part[:5] != "train" else
+                    {k: sum(c[k] for c in r[part]["counts"]) for k in WRAPPERS})
+            add(r["stream"]["sharded_counts"])
+
+        log(f"  (e) trainer --distributed, two gloo ranks, the Kubric tree of phase 21, "
+            f"{TRAIN_TRACKS} tracks, the offline model, augmentations off:")
+        tree = os.path.join(root, "movi_f")
+        write_kubric_tree(tree)
+        exp = os.path.join(root, "exp")
+        argv = ["--distributed", "--dist_backend", "gloo", "--dataset_root", tree,
+                "--exp_dir", exp, "--traj_per_sample", str(TRAIN_TRACKS), "--save_every_n_steps",
+                "1", "--num_loader_workers", "1", "--dataset_repeats", "1", "--use_augs"]
+        runs = []
+        for steps in (2, 3):
+            tr, secs = run_ranks(root, "trainer", 2, argv + ["--num_steps", str(steps)])
+            runs.append((tr, secs))
+            if tr[1]["written"] or not tr[0]["written"]:
+                raise AssertionError(f"(e) rank 1 wrote {tr[1]['written']}")
+            if tr[0]["digest"] != tr[1]["digest"]:
+                raise AssertionError("(e) the ranks' parameters differ")
+            for r in tr:
+                add(r["counts"])
+        with open(os.path.join(exp, "train_log.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        k4r = [r["counts"]["K4r_corr_volume_raw"] for tr, _ in runs for r in tr]
+        log(f"    exit 0 twice; steps logged {logged} (the second run resumed at 2); "
+            f"checkpoints {ckpts}; only rank 0 wrote; parameters equal; K4r by run and rank "
+            f"{k4r} (32 a step: one 24-frame window, 4 levels x 4 iterations x 2); jobs "
+            f"{[round(s, 1) for _, s in runs]} s ({PAR_LABEL}; {smi})")
+        if logged != [0, 1, 2] or k4r != [64, 64, 32, 32]:
+            raise AssertionError("(e) the distributed trainer did not resume as expected")
+        metrics["e_jobs_s"] = [s for _, s in runs]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return total, metrics
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3595,6 +4156,10 @@ def main():
     with signals_restored():
         distill_counts, distill_k4r, distill = distill_phase(dev, smi, k4r_row)
     torch.cuda.empty_cache()
+    log("parallelism over torch.distributed: NCCL with one rank, then two gloo ranks on one "
+        "card (track-sharded forward, training steps, window pipeline, streaming, the "
+        "distributed trainer):")
+    par_counts, par = parallel_phase(dev, smi)
     for k in kernels:
         # K1-K4 from the offline forward, K5-K7 from a window of streaming
         # (b), K8 and K9 from the long forward
@@ -3630,6 +4195,7 @@ def main():
     for k in kernels:
         k["launches_v2_phase"] = v2_counts[k["name"]]
         k["launches_distill_phase"] = distill_counts[k["name"]]
+        k["launches_parallel_phase"] = par_counts[k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3681,6 +4247,14 @@ def main():
         f"{[round(x, 3) for x in distill['queries_s']]} s a step; peak memory by run "
         f"{({k: round(v, 2) for k, v in distill['peak_gib'].items()})} GiB; phase "
         f"{distill['phase_s']:.1f} s ({smi})")
+    log(f"parallelism ({PAR_LABEL}): NCCL world-1 forward {par['world1_forward_s']:.3f} s; "
+        f"(a) {PAR_N} tracks x {T_FRAMES} frames over two ranks "
+        f"{[round(x, 3) for x in par['a_forward_s']]} s a forward; (b) training step "
+        f"(1, 2) {[round(x, 3) for x in par['train_(1, 2)']['step_s']]} s, (2, 1) "
+        f"{[round(x, 3) for x in par['train_(2, 1)']['step_s']]} s; (c) pipeline "
+        f"{par['c_pipeline_s']:.3f} s against forward_windows' {par['c_ref_s']:.3f} s; (d) "
+        f"stream {[round(x, 3) for x in par['d_window_s']]} s a window; (e) trainer jobs "
+        f"{[round(x, 1) for x in par['e_jobs_s']]} s; phase {par['phase_s']:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3688,4 +4262,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(sys.argv[2], sys.argv[3], sys.argv[4:])
+    else:
+        main()

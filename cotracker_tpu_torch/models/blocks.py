@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cotracker_tpu_torch.ops.bilinear import interp_matrix_1d
+from cotracker_tpu_torch.ops.collectives import pmax_nograd, psum
 from cotracker_tpu_torch.ops.kernels import attention_cuda, gates, mlp_int8_cuda
 from cotracker_tpu_torch.ops.kernels.variants import OFF, KernelVariants
 
@@ -205,12 +206,23 @@ class Attention(nn.Module):
         out = _softmax_attend(q, k, v, d**-0.5, attn_bias)
         return dense(self.to_out, out.transpose(1, 2).reshape(B, N1, h * d), self.dtype)
 
-    def virtual_from_points(self, virtual, points, key_mask=None):
+    def virtual_from_points(self, virtual, points, key_mask=None, group=None):
         """Queries virtual (B, T, V, C); keys/values points (B, N, T, C);
-        key_mask (B, N) True = valid key. Returns (B, T, V, C_out)."""
+        key_mask (B, N) True = valid key. Returns (B, T, V, C_out).
+
+        group: a process group over which N (the keys) is sharded. The
+        softmax then takes two passes (JAX blocks.py:264-289): the local row
+        max and the group's max of it, with no gradient; the exponentials;
+        the local numerator and denominator summed over the group
+        (ops/collectives.psum, whose backward sums the cotangents); the
+        division. Masked keys take -finfo(float32).max, so a rank whose keys
+        are all masked adds zeros. K7 normalises locally and never runs
+        here."""
         h, d = self.num_heads, self.dim_head
         B, T, V, _ = virtual.shape
         N = points.shape[1]
+        if group is not None:
+            return self._virtual_from_points_sharded(virtual, points, key_mask, group)
         if self.attn_kernels and gates.space_tile_ok(N):
             q = dense(self.to_q, virtual, self.dtype)  # (B, T, V, C)
             kv = dense(self.to_kv, points, self.dtype)  # (B, N, T, 2C)
@@ -231,6 +243,25 @@ class Attention(nn.Module):
         if key_mask is not None:
             bias = torch.where(key_mask, 0.0, NEG)[:, None, None, None, :]
         out = _softmax_attend(q, k, v, d**-0.5, bias)  # (B, T, h, V, d)
+        out = out.permute(0, 1, 3, 2, 4).reshape(B, T, V, h * d)
+        return dense(self.to_out, out, self.dtype)
+
+    def _virtual_from_points_sharded(self, virtual, points, key_mask, group):
+        h, d = self.num_heads, self.dim_head
+        B, T, V, _ = virtual.shape
+        N = points.shape[1]
+        q = dense(self.to_q, virtual, self.dtype).reshape(B, T, V, h, d).permute(0, 1, 3, 2, 4)
+        k, v = dense(self.to_kv, points, self.dtype).chunk(2, dim=-1)
+        k = k.reshape(B, N, T, h, d).permute(0, 2, 3, 1, 4)  # (B, T, h, N, d)
+        v = v.reshape(B, N, T, h, d).permute(0, 2, 3, 1, 4)
+        sim = torch.einsum("...id,...jd->...ij", q.to(F32), k.to(F32)) * d**-0.5  # (B, T, h, V, N)
+        if key_mask is not None:
+            sim = sim + torch.where(key_mask, 0.0, NEG)[:, None, None, None, :]
+        m = pmax_nograd(sim.amax(dim=-1), group)  # (B, T, h, V)
+        p = torch.exp(sim - m[..., None])
+        num, den = psum((torch.einsum("...ij,...jd->...id", p.to(v.dtype), v), p.sum(dim=-1)),
+                        group)
+        out = num / den[..., None].to(num.dtype)  # (B, T, h, V, d)
         out = out.permute(0, 1, 3, 2, 4).reshape(B, T, V, h * d)
         return dense(self.to_out, out, self.dtype)
 
@@ -363,14 +394,18 @@ class CrossAttnBlock(nn.Module):
             fc2=mlp_int8_cuda.quantize_linear(self.mlp.fc2.weight, self.mlp.fc2.bias),
         )
 
-    def virtual_from_points(self, virtual, points, key_mask=None, pack=None):
-        """virtual (B, T, V, C) queries; points (B, N, T, C) keys/values."""
-        if self.quant_int8 and gates.space_tile_ok(points.shape[1]):
+    def virtual_from_points(self, virtual, points, key_mask=None, pack=None, group=None):
+        """virtual (B, T, V, C) queries; points (B, N, T, C) keys/values.
+        group: N sharded over this process group, the two-pass softmax of
+        Attention.virtual_from_points; K3 normalises locally and is
+        bypassed (JAX blocks.py:542-551). The virtual side's residual and
+        MLP are computed alike on every rank."""
+        if self.quant_int8 and group is None and gates.space_tile_ok(points.shape[1]):
             pack = self.quantize_v2p() if pack is None else pack
             return self._quant_virtual_from_points(virtual, points, key_mask, pack)
         ctx = self.norm_context(points)
         virtual = virtual + self.cross_attn.virtual_from_points(
-            layer_norm(virtual), ctx, key_mask=key_mask
+            layer_norm(virtual), ctx, key_mask=key_mask, group=group
         )
         return virtual + self.mlp(layer_norm(virtual))
 

@@ -293,11 +293,16 @@ class CoTrackerThree(nn.Module):
         return m.fc1.weight.t(), m.fc1.bias, m.fc2.weight.t(), m.fc2.bias
 
     def iterate(self, fmaps_pyramid, support_pyramid, coords, vis, conf, iters: int,
-                track_mask=None):
+                track_mask=None, track_group=None):
         """`iters` transformer updates over one window. coords (B, T, N, 2)
         f32 in fmap units; vis/conf (B, T, N) logits; support_pyramid per
         level (B, P*P, N, C). Returns per-iteration lists of coords (model
-        pixels), vis and conf logits."""
+        pixels), vis and conf logits.
+
+        track_group: a process group over which the N tracks are sharded
+        (JAX `track_axis`, parallel/mesh.py): every input holds this rank's
+        tracks, and the updateformer's virtual <- points sums over the
+        group. None: unsharded, exactly the model without it."""
         T = fmaps_pyramid[0].shape[1]
         time_emb = self.interpolate_time_embed(T)
         # everything iteration-invariant is prepared once per forward: the
@@ -330,7 +335,7 @@ class CoTrackerThree(nn.Module):
         cp, vp, fp = [], [], []
         for _ in range(iters):
             args = (coords, vis, conf, fmaps_pyramid, support_pyramid, track_mask, time_emb,
-                    packs, corr_in)
+                    packs, corr_in, track_group)
             if remat:
                 coords, vis, conf = checkpoint(self._iteration, *args, use_reentrant=False)
             else:
@@ -341,7 +346,7 @@ class CoTrackerThree(nn.Module):
         return cp, vp, fp
 
     def _iteration(self, coords, vis, conf, fmaps_pyramid, support_pyramid, track_mask,
-                   time_emb, packs, corr_in):
+                   time_emb, packs, corr_in, track_group):
         """One update: correlation features, token build, updateformer,
         additive update (mirrors one step of the reference forward_window)."""
         coords = coords.detach()
@@ -376,7 +381,7 @@ class CoTrackerThree(nn.Module):
                 corr_embs, posenc(rel, 0, 10).to(cd),
             ], dim=-1)
             x = x + time_emb[:, None].to(cd)
-            delta = uf(x, track_mask=track_mask, packs=packs).to(F32)
+            delta = uf(x, track_mask=track_mask, packs=packs, track_group=track_group).to(F32)
         else:
             # input layout (1110 rows of Win): [vis, conf, corr x 1024, rel x 84]
             kin = uf.input_transform.weight.t().to(F32)
@@ -412,14 +417,18 @@ class CoTrackerThree(nn.Module):
                     x = contrib if x is None else x + contrib
                 small = small_terms(vis.transpose(1, 2), conf.transpose(1, 2), rel)
                 x = x + small.to(cd)
-            delta = uf(x, track_mask=track_mask, x_is_tokens=True, packs=packs).to(F32)
+            delta = uf(x, track_mask=track_mask, x_is_tokens=True, packs=packs,
+                       track_group=track_group).to(F32)
         delta = delta.transpose(1, 2)  # (B, T, N, 4)
         return coords + delta[..., :2], vis + delta[..., 2], conf + delta[..., 3]
 
     # ------------------------------------------------------------ offline
 
-    def forward_from_pyramid(self, fmaps_pyramid, queries, iters: int = 4, track_mask=None):
-        """Support sampling + masking, cold carry init, iterations."""
+    def forward_from_pyramid(self, fmaps_pyramid, queries, iters: int = 4, track_mask=None,
+                             track_group=None):
+        """Support sampling + masking, cold carry init, iterations (the
+        single-window glue that the unsharded forward and the track-sharded
+        one share; track_group as in `iterate`)."""
         B, N = queries.shape[:2]
         T = fmaps_pyramid[0].shape[1]
         queried_frames = queries[..., 0].to(F32)
@@ -430,20 +439,23 @@ class CoTrackerThree(nn.Module):
         coords = queried_coords[:, None].expand(B, T, N, 2).contiguous()
         vis = torch.zeros((B, T, N), dtype=F32, device=queries.device)
         conf = torch.zeros((B, T, N), dtype=F32, device=queries.device)
-        return self.iterate(fmaps_pyramid, supports, coords, vis, conf, iters, track_mask)
+        return self.iterate(fmaps_pyramid, supports, coords, vis, conf, iters, track_mask,
+                            track_group)
 
     def forward(self, video, queries, iters: int = 4, track_mask=None, is_train: bool = False,
-                fmaps_chunk_size: Optional[int] = 200):
+                fmaps_chunk_size: Optional[int] = 200, track_group=None):
         """Offline forward, whole video as one window. video (B, T, H, W, 3)
         in [0, 255]; queries (B, N, 3) (t, x, y) model pixels; track_mask
         (B, N) marks real tracks. Returns (coords (B, T, N, 2) pixels,
         vis, conf (B, T, N) probabilities, train_data): train_data is None,
         or with is_train the per-iteration stacks (coords (iters, B, T, N, 2)
         pixels, vis and conf (iters, B, T, N) probabilities) and a valid mask
-        of ones (B, T, N)."""
+        of ones (B, T, N). track_group: queries and track_mask hold this
+        rank's tracks of a track-sharded forward (see `iterate`)."""
         fmaps = self.compute_fmaps(video, chunk_size=None if is_train else fmaps_chunk_size)
         cp, vp, fp = self.forward_from_pyramid(
-            self.build_pyramid(fmaps), queries, iters=iters, track_mask=track_mask
+            self.build_pyramid(fmaps), queries, iters=iters, track_mask=track_mask,
+            track_group=track_group,
         )
         train_data = None
         if is_train:
@@ -454,7 +466,8 @@ class CoTrackerThree(nn.Module):
     # ------------------------------------------------------------ multi-window
 
     def forward_windows(self, video, queries, iters: int = 4, track_mask=None,
-                        is_train: bool = False, fmaps_chunk_size: Optional[int] = 200):
+                        is_train: bool = False, fmaps_chunk_size: Optional[int] = 200,
+                        track_group=None):
         """Sliding-window forward over a full video with warm-started window
         chaining: how the window-16 model is trained and runs non-streaming
         inference over videos longer than one window. video (B, T, H, W, 3)
@@ -468,7 +481,7 @@ class CoTrackerThree(nn.Module):
         Each window starts from the previous window's last outputs and no
         buffer is written in place, so gradients flow across windows
         through the warm-started vis and conf (coords are detached at every
-        iteration, as in the reference)."""
+        iteration, as in the reference). track_group as in `forward`."""
         B, T = video.shape[:2]
         S = self.window_len
         step = S // 2
@@ -500,7 +513,7 @@ class CoTrackerThree(nn.Module):
             sup = [s * active[:, None, :, None].to(s.dtype) for s in support_pyramid]
             cp, vp, fp = self.iterate(
                 [f[:, ind : ind + S] for f in fmaps_pyramid], sup, coords_init, vis_init,
-                conf_init, iters, track_mask=wmask,
+                conf_init, iters, track_mask=wmask, track_group=track_group,
             )
             prev = (cp[-1], vp[-1], fp[-1])
             keep = S if w == num_windows - 1 else step
@@ -569,7 +582,7 @@ class CoTrackerThree(nn.Module):
         )
 
     def online_step(self, state: OnlineState, video_chunk, queries, iters: int = 4,
-                    track_mask=None, chunk_valid_len: Optional[int] = None):
+                    track_mask=None, chunk_valid_len: Optional[int] = None, track_group=None):
         """Process one sliding window [ind, ind+S) of the stream.
 
         video_chunk (B, S, H, W, 3): the current window, already padded to
@@ -583,7 +596,9 @@ class CoTrackerThree(nn.Module):
         consumed (see OnlineState); the three returned tensors are copies
         that later steps do not touch. The window index, the cache validity
         and the queries' frames are host values, so no step waits for the
-        device (the first one copies the queries' frames to the host)."""
+        device (the first one copies the queries' frames to the host).
+        track_group: the state, queries and track_mask hold this rank's
+        tracks of a track-sharded stream (see `iterate`)."""
         B, S = video_chunk.shape[:2]
         if S != self.window_len:
             raise ValueError(f"online_step takes chunks of window_len={self.window_len} frames, "
@@ -632,7 +647,8 @@ class CoTrackerThree(nn.Module):
         # has one): a query's support is accumulated only once its window has
         # arrived, so it is still zero wherever that mask would apply
         cp, vp, fp = self.iterate(fmaps_pyramid, list(state.track_support), coords_init,
-                                  vis_init, conf_init, iters, track_mask=track_mask)
+                                  vis_init, conf_init, iters, track_mask=track_mask,
+                                  track_group=track_group)
         state.coords[:, ind : ind + S] = cp[-1]
         state.vis[:, ind : ind + S] = vp[-1]
         state.conf[:, ind : ind + S] = fp[-1]

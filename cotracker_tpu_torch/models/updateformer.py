@@ -98,11 +98,16 @@ class EfficientUpdateFormer(nn.Module):
         return packs
 
     def forward(self, x, track_mask: Optional[torch.Tensor] = None, x_is_tokens: bool = False,
-                packs=None):
+                packs=None, track_group=None):
         """x (B, N, T, input_dim), or tokens (B, N, T, hidden) with
         x_is_tokens -> (B, N, T, output_dim). track_mask (B, N) True = real
         track: padded tracks are excluded as keys of virtual <- points (and,
-        with v2_masking, are masked queries of points <- virtual)."""
+        with v2_masking, are masked queries of points <- virtual).
+
+        track_group: a process group over which N is sharded (JAX
+        `track_axis`): x holds this rank's tracks, virtual <- points takes
+        the two-pass softmax over the group, and every other block runs on
+        the local tracks, the gates judging the local N as in JAX."""
         B, N, T, _ = x.shape
         C = self.hidden_size
         packs = self.quantize() if packs is None else packs
@@ -121,7 +126,7 @@ class EfficientUpdateFormer(nn.Module):
             if self.add_space_attn and i % (self.time_depth // self.space_depth) == 0:
                 vt = virtual.transpose(1, 2)  # (B, T, V, C)
                 vt = self.space_virtual2point_blocks[j].virtual_from_points(
-                    vt, tokens, key_mask=track_mask, pack=packs["v2p"][j]
+                    vt, tokens, key_mask=track_mask, pack=packs["v2p"][j], group=track_group
                 )
                 vt = self.space_virtual_blocks[j](vt.reshape(B * T, V, C)).reshape(B, T, V, C)
                 tokens = self.space_point2virtual_blocks[j].points_from_virtual(

@@ -1,5 +1,5 @@
 """Masked reductions (port of cotracker_tpu/ops/masked.py; the mesh
-`axis_name` psum of `reduce_masked_mean` is the parallelism slice's).
+`axis_name` psum of `reduce_masked_mean` is its `group`).
 
 `reduce_masked_mean` serves the losses. `masked_mean` and `masked_mean_var`
 complete the module's surface; no path of the port calls them yet (nor of
@@ -7,16 +7,25 @@ the JAX package, which only re-exports them)."""
 
 import torch
 
+from cotracker_tpu_torch.ops.collectives import psum_value
+
 EPS = 1e-6
 
 
-def reduce_masked_mean(x, mask, dim=None, keepdim: bool = False):
+def reduce_masked_mean(x, mask, dim=None, keepdim: bool = False, group=None):
     """Mean of `x` over the elements where `mask` is nonzero:
-    sum(x * m) / (eps + sum(m)), the mask broadcast to x's shape."""
+    sum(x * m) / (eps + sum(m)), the mask broadcast to x's shape.
+
+    group: a process group over which x and mask are sharded (JAX
+    `axis_name`): the numerator and the denominator are summed over it, so
+    the mean covers the global elements; the gradient reaches the local
+    terms only (ops/collectives.psum_value)."""
     mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    if dim is None:
-        return (x * mask).sum() / (EPS + mask.sum())
-    return (x * mask).sum(dim=dim, keepdim=keepdim) / (EPS + mask.sum(dim=dim, keepdim=keepdim))
+    kw = {} if dim is None else dict(dim=dim, keepdim=keepdim)
+    numer, denom = (x * mask).sum(**kw), mask.sum(**kw)
+    if group is not None:
+        numer, denom = psum_value(numer, group), psum_value(denom, group)
+    return numer / (EPS + denom)
 
 
 def masked_mean(data, mask, dim):

@@ -186,7 +186,16 @@ class CoTrackerOnlinePredictor:
     `return_full_buffers` the full (B, capacity, ...) buffers instead, valid
     on [0, frames_seen). Memory is constant in video length: `capacity`
     frames of predictions. A chunk shorter than the window is padded by
-    repeating its last frame."""
+    repeating its last frame.
+
+    mesh: a parallel.mesh.Mesh with a "track" axis (every rank of the job
+    makes this predictor and feeds it the same chunks): the stream's tracks
+    split over "track", each rank holding its part of the state, queries,
+    support and track mask, the kernels on its local tracks and virtual <-
+    points summed over the track group (JAX `mesh=`, the quasi-dense
+    multi-device path). The tracks pad to a multiple of the bucket times the
+    track size; the parameters are made rank 0's; every rank returns the
+    whole tracks and visibility."""
 
     def __init__(
         self,
@@ -201,10 +210,15 @@ class CoTrackerOnlinePredictor:
         seed: int = 0,
         variants: Optional[KernelVariants] = None,
         v2: bool = False,
+        mesh=None,
     ):
         """variants, v2: as CoTrackerPredictor's. The v2 stream thresholds
         its visibility alone (vis > 0.6): the legacy model has no
-        confidence."""
+        confidence. mesh: see the class docstring (v3 only)."""
+        if mesh is not None and v2:
+            raise ValueError("track-sharded streaming (mesh=) is v3-only")
+        if mesh is not None and "track" not in mesh.axis_names:
+            raise ValueError(f"mesh= needs a 'track' axis, not {mesh.axis_names}")
         self.v2 = v2
         self.model = build_cotracker(
             checkpoint, offline=False, window_len=window_len, dtype=dtype,
@@ -218,6 +232,12 @@ class CoTrackerOnlinePredictor:
         self.capacity = capacity
         self.return_full_buffers = return_full_buffers
         self._n_bucket = 512 if fast else N_BUCKET
+        self.mesh = mesh
+        if mesh is not None:
+            from cotracker_tpu_torch.parallel.mesh import replicate
+
+            self._n_bucket *= mesh.shape["track"]
+            replicate(mesh, self.model)
         self._state = None
         self._queries = self._track_mask = self._orig_hw = None
         self._n_user = 0
@@ -267,11 +287,18 @@ class CoTrackerOnlinePredictor:
             self._state, coords, vis, conf = self.model.online_step(
                 self._state, chunk, self._queries, iters=6, track_mask=self._track_mask,
                 chunk_valid_len=T_true,
+                track_group=None if self.mesh is None else self.mesh.group("track"),
             )
         self._frames_seen = min(ind + T_true, self.capacity)
 
         n = self._n_user
         end = self.capacity if self.return_full_buffers else self._frames_seen
+        if self.mesh is not None:  # every rank's tracks
+            from cotracker_tpu_torch.parallel.mesh import gather
+
+            spec = (None, None, "track")
+            coords = gather(self.mesh, coords[:, :end], spec + (None,))
+            vis, conf = gather(self.mesh, [vis[:, :end], conf[:, :end]], spec)
         H0, W0 = self._orig_hw
         scale = torch.tensor([(W0 - 1) / (iw - 1), (H0 - 1) / (ih - 1)], dtype=torch.float32,
                              device=self.device)
@@ -307,6 +334,11 @@ class CoTrackerOnlinePredictor:
         mask[:, :n_active] = True
         self._queries = torch.from_numpy(qp).to(self.device)
         self._track_mask = torch.from_numpy(mask).to(self.device)
+        if self.mesh is not None:  # this rank's tracks
+            from cotracker_tpu_torch.parallel.mesh import shard_batch
+
+            self._queries = shard_batch(self.mesh, self._queries, (None, "track", None))
+            self._track_mask = shard_batch(self.mesh, self._track_mask, (None, "track"))
         self._state = None
         self._n_user = n_user
         self._frames_seen = 0

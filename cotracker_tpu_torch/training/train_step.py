@@ -25,7 +25,7 @@ class TrainConfig(NamedTuple):
 
 
 def sample_queries_from_gt(trajs_g, vis_g, generator: torch.Generator,
-                           method: str = "first_visible"):
+                           method: str = "first_visible", shard=None):
     """Training queries (B, N, 3) (t, x, y) from ground truth: trajs_g
     (B, T, N, 2), vis_g (B, T, N) in {0, 1}.
 
@@ -33,19 +33,27 @@ def sample_queries_from_gt(trajs_g, vis_g, generator: torch.Generator,
     N//4 tracks, which go to a visible frame drawn uniformly; "random": every
     track at a visible frame drawn uniformly. The draw is the Gumbel argmax
     over the visible frames, from `generator` (its own device; the result
-    moves to the tracks' device)."""
+    moves to the tracks' device).
+
+    shard: ((b0, B), (n0, N)) where trajs_g and vis_g are the rows from b0
+    and the tracks from n0 of a global batch of B rows and N tracks (the
+    track-sharded step, JAX parallel/mesh.py:318-322): the draw is made at
+    the global shape and sliced, and "the first N//4 tracks" counts global
+    tracks, so the queries equal the unsharded step's bit for bit."""
     B, T, N = vis_g.shape
     dev = vis_g.device
+    (b0, B_all), (n0, N_all) = shard if shard is not None else ((0, B), (0, N))
     first_positive = torch.argmax(vis_g, dim=1)  # (B, N), the first maximum
-    u = torch.rand((B, T, N), generator=generator, device=generator.device)
+    u = torch.rand((B_all, T, N_all), generator=generator, device=generator.device)
+    u = u[b0 : b0 + B, :, n0 : n0 + N]
     gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7))).to(dev)
     logits = torch.where(vis_g > 0, gumbel, torch.full_like(gumbel, -math.inf))
     rand_vis = torch.argmax(logits, dim=1)
     if method == "random":
         inds = rand_vis
     else:
-        track_ix = torch.arange(N, device=dev)[None, :]
-        inds = torch.where(track_ix < N // 4, rand_vis, first_positive)
+        track_ix = torch.arange(n0, n0 + N, device=dev)[None, :]
+        inds = torch.where(track_ix < N_all // 4, rand_vis, first_positive)
     xys = torch.gather(trajs_g, 1, inds[:, None, :, None].expand(B, 1, N, 2))[:, 0]
     return torch.cat([inds[..., None].to(trajs_g.dtype), xys], dim=-1)
 
@@ -78,52 +86,62 @@ def window_targets(num_windows: int, S: int, trajs_g, vis_g, valids, valid_mask)
         yield traj_gt, vis_gt, val, frame_mask
 
 
-def _online_loss_assembly(train_data, trajs_g, vis_g, valids, cfg: TrainConfig):
+def _online_loss_assembly(train_data, trajs_g, vis_g, valids, cfg: TrainConfig, group=None):
     """Per-window losses of the online model, averaged over windows (the
-    targets of window_targets)."""
+    targets of window_targets); group as in tracker_loss_fn."""
     coords_w, vis_w, conf_w, valid_mask = train_data
     flow = invis = vis_l = conf_l = 0.0
     targets = window_targets(len(coords_w), cfg.sliding_window_len, trajs_g, vis_g, valids,
                              valid_mask)
     for w, (traj_gt, vis_gt, val, frame_mask) in enumerate(targets):
         flow = flow + sequence_loss(coords_w[w], traj_gt, val, vis=vis_gt, gamma=0.8,
-                                    add_huber_loss=cfg.add_huber_loss, loss_only_for_visible=True)
+                                    add_huber_loss=cfg.add_huber_loss, loss_only_for_visible=True,
+                                    group=group)
         if not cfg.train_only_on_visible:
             invis = invis + sequence_loss(coords_w[w], traj_gt, val, vis=1.0 - vis_gt, gamma=0.8,
-                                          add_huber_loss=False, loss_only_for_visible=True)
-        vis_l = vis_l + sequence_bce_loss(vis_w[w], vis_gt, frame_mask=frame_mask)
+                                          add_huber_loss=False, loss_only_for_visible=True,
+                                          group=group)
+        vis_l = vis_l + sequence_bce_loss(vis_w[w], vis_gt, frame_mask=frame_mask, group=group)
         conf_l = conf_l + sequence_prob_loss(coords_w[w], conf_w[w], traj_gt, vis_gt,
-                                             frame_mask=frame_mask).mean()
+                                             frame_mask=frame_mask, group=group).mean()
     n = len(coords_w)
     return flow / n, invis / n, vis_l / n, conf_l / n
 
 
 def tracker_loss_fn(model, video, trajs_g, vis_g, valids, queries, cfg: TrainConfig,
-                    track_mask: Optional[torch.Tensor] = None):
+                    track_mask: Optional[torch.Tensor] = None, group=None, track_group=None):
     """Training loss: the single-window forward for the offline model, the
     warm-started multi-window forward and per-window assembly for the online
     model (cfg.offline_model=False). video (B, T, H, W, 3); trajs_g
     (B, T, N, 2); vis_g, valids (B, T, N). Returns (total loss, dict of
-    its weighted terms)."""
+    its weighted terms).
+
+    The track-sharded step (JAX `axis_name`): the inputs are this rank's
+    rows and tracks, `group` the process group over which both are sharded
+    (every masked mean is then the global one) and `track_group` the one
+    over which the tracks are (the model's virtual <- points sums)."""
     if track_mask is not None:
         valids = valids * track_mask[:, None, :].to(valids.dtype)
     if not cfg.offline_model:
         *_, train_data = model.forward_windows(video, queries, iters=cfg.iters, is_train=True,
-                                               track_mask=track_mask)
+                                               track_mask=track_mask, track_group=track_group)
         flow_loss, invis_loss, vis_loss, conf_loss = _online_loss_assembly(
-            train_data, trajs_g, vis_g, valids, cfg)
+            train_data, trajs_g, vis_g, valids, cfg, group=group)
     else:
         *_, train_data = model(video, queries, iters=cfg.iters, is_train=True,
-                               track_mask=track_mask)
+                               track_mask=track_mask, track_group=track_group)
         coord_preds, vis_preds, conf_preds, _ = train_data
         flow_loss = sequence_loss(coord_preds, trajs_g, valids, vis=vis_g, gamma=0.8,
-                                  add_huber_loss=cfg.add_huber_loss, loss_only_for_visible=True)
-        conf_loss = sequence_prob_loss(coord_preds, conf_preds, trajs_g, vis_g).mean()
-        vis_loss = sequence_bce_loss(vis_preds, vis_g)
+                                  add_huber_loss=cfg.add_huber_loss, loss_only_for_visible=True,
+                                  group=group)
+        conf_loss = sequence_prob_loss(coord_preds, conf_preds, trajs_g, vis_g,
+                                       group=group).mean()
+        vis_loss = sequence_bce_loss(vis_preds, vis_g, group=group)
         invis_loss = None
         if not cfg.train_only_on_visible:
             invis_loss = sequence_loss(coord_preds, trajs_g, valids, vis=1.0 - vis_g, gamma=0.8,
-                                       add_huber_loss=False, loss_only_for_visible=True)
+                                       add_huber_loss=False, loss_only_for_visible=True,
+                                       group=group)
     total = flow_loss * cfg.flow_weight + vis_loss + conf_loss
     aux = {"flow_loss": flow_loss * cfg.flow_weight, "vis_loss": vis_loss, "conf_loss": conf_loss}
     if not cfg.train_only_on_visible:

@@ -1,8 +1,10 @@
-"""Supervised training on one GPU (port of cotracker_tpu/training/trainer.py).
+"""Supervised training (port of cotracker_tpu/training/trainer.py).
 
     python -m cotracker_tpu_torch.training.trainer --dataset_root /data/kubric_movi_f \
         --exp_dir runs/a [--eval_datasets tapvid_davis_first=/data/tapvid_davis.pkl \
         --eval_every_n_steps 5000] [--save_vis_every_n_steps 1000] [--device cpu]
+    torchrun --nproc_per_node 8 -m cotracker_tpu_torch.training.trainer --distributed \
+        --dataset_root /data/kubric_movi_f --exp_dir runs/a --batch_size 8
 
     from cotracker_tpu_torch.training.trainer import TrainerArgs, train
     model = train(TrainerArgs(dataset_root="/data/kubric_movi_f", offline_model=False,
@@ -18,18 +20,32 @@ as in the JAX package: a bool whose default is True is a flag that turns it
 off (`--use_augs` trains without augmentations); crop_size is not a flag.
 Pseudo-label distillation on real videos is `training.distill_trainer`,
 which shares this module's logger, checkpoints and command-line parsing.
-Not ported yet: the mesh and multi-host paths (ROADMAP queue 1 item 13).
+
+`--distributed` trains on every rank of a job (torchrun or SLURM; see
+parallel/distributed.py) over a ("data", "track") mesh, JAX's mesh path:
+`mesh_shape` (data, track), by default (gcd(batch, world), world // that);
+the batch must divide over "data" and the tracks over "track" (a ValueError
+before any step). The first rank of each data index reads batch_size //
+data rows of its own (its loader seeded seed + data_index * 7919: JAX
+offsets by the process index, which is the data index wherever "track" is
+1) and broadcasts them to its track group; every rank trains on its rows
+and tracks through parallel.mesh.make_fast_sharded_train_step. Only rank 0
+writes meta.json, the logs, checkpoints, evaluations and overlays; every
+rank resumes from the same checkpoint.
 """
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 from dataclasses import asdict, dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from cotracker_tpu_torch import resolve_device
 from cotracker_tpu_torch.models.build import build_training_model
@@ -69,6 +85,7 @@ class TrainerArgs:
     add_huber_loss: bool = False
     train_only_on_visible: bool = False
     query_sampling_method: str = "first_visible"
+    mesh_shape: Optional[Tuple[int, int]] = None  # (data, track); not a flag
     # the correlation through K4r / K4f and the autograd wrapper, with every
     # iteration rematerialised (JAX `use_pallas_corr`, there off by default:
     # on the GPU this is the trainer's fast configuration)
@@ -78,6 +95,16 @@ class TrainerArgs:
     # rematerialise the iterations without the correlation kernels too
     remat_iterations: bool = False
     device: str = "cuda"
+    # multi-process training: join the job through parallel.distributed.
+    # initialize, its coordinator "host:port" and topology from these fields
+    # (0 / -1 / "": unset) or else SLURM's or torchrun's variables; the
+    # backend "" is NCCL on CUDA, gloo on the CPU (or for ranks that share a
+    # card)
+    distributed: bool = False
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+    dist_backend: str = ""
 
 
 class Logger:
@@ -191,7 +218,9 @@ def train(args: TrainerArgs, dataset=None, model=None, eval_hook=None, vis_hook=
     the cadence raises an ImportError naming cv2 before the first step).
     Installs the SLURM handlers (SIGUSR1, SIGTERM). On CUDA, float32
     products and convolutions run without TF32 (this process-wide setting
-    is what an f32 model trains with in the JAX package). Returns the model."""
+    is what an f32 model trains with in the JAX package). With
+    args.distributed, see the module docstring: the hooks run on rank 0,
+    the vis hook on its rows. Returns the model."""
     install_slurm_handlers()
     dev = resolve_device(args.device)
     eval_specs = _parse_eval_specs(args.eval_datasets)
@@ -199,6 +228,10 @@ def train(args: TrainerArgs, dataset=None, model=None, eval_hook=None, vis_hook=
                                                  or args.evaluate_at_start):
         raise ValueError("an eval cadence (eval_every_n_steps, evaluate_at_start) needs "
                          "--eval_datasets or an eval_hook")
+    mesh = None
+    if args.distributed:
+        dev, mesh = _join(args)
+    main = mesh is None or dist.get_rank() == 0
     if dataset is None:
         if not args.dataset_root:
             raise ValueError("no training data: pass --dataset_root (a Kubric MOVi-f tree) or "
@@ -213,6 +246,8 @@ def train(args: TrainerArgs, dataset=None, model=None, eval_hook=None, vis_hook=
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if not main:
+        return _train_loop(args, dev, dataset, model, None, None, None, mesh)
     os.makedirs(args.exp_dir, exist_ok=True)
     with open(os.path.join(args.exp_dir, "meta.json"), "w") as f:
         json.dump(asdict(args), f, indent=2)
@@ -235,24 +270,97 @@ def train(args: TrainerArgs, dataset=None, model=None, eval_hook=None, vis_hook=
                 return run_test_eval(m, eval_specs, args.exp_dir, n_iters=6,
                                      fast_eval=args.fast_eval, writer=logger.writer, step=step)
 
-        return _train_loop(args, dev, dataset, model, eval_hook, vis_hook, logger)
+        return _train_loop(args, dev, dataset, model, eval_hook, vis_hook, logger, mesh)
     finally:
         logger.close()
 
 
-def _train_loop(args, dev, dataset, model, eval_hook, vis_hook, logger):
+def _mesh_shape(args: TrainerArgs, world: int) -> Tuple[int, int]:
+    """args.mesh_shape, or (gcd(batch, world), world // that): as much data
+    parallelism as the batch divides into, the other ranks on the tracks.
+    Raises a ValueError where the batch or the tracks do not divide (JAX
+    trainer.py:275-279) or the mesh is not the world's."""
+    shape = args.mesh_shape
+    if shape is None:
+        d = math.gcd(args.batch_size, world)
+        shape = (d, world // d)
+    shape = tuple(shape)
+    if args.batch_size % shape[0] or args.traj_per_sample % shape[1]:
+        raise ValueError(f"batch {args.batch_size} / tracks {args.traj_per_sample} don't shard "
+                         f"over mesh {shape}")
+    if shape[0] * shape[1] != world:
+        raise ValueError(f"mesh shape {shape} != {world} ranks")
+    return shape
+
+
+def _join(args: TrainerArgs):
+    """Join the job (parallel.distributed.initialize) and build the
+    training mesh. Returns (this rank's device, the mesh)."""
+    from cotracker_tpu_torch.parallel import distributed as pdist
+    from cotracker_tpu_torch.parallel.mesh import make_mesh
+
+    rank, world = pdist.initialize(
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_processes or None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        backend=args.dist_backend or None, device=args.device)
+    shape = _mesh_shape(args, world)  # every rank raises here alike, before a collective
+    mesh = make_mesh(shape)
+    if rank == 0:
+        print(f"distributed: rank {rank} of {world} ({dist.get_backend()}), mesh "
+              f"{mesh.shape}, device {pdist.rank_device()}")
+    return pdist.rank_device(), mesh
+
+
+def _train_loop(args, dev, dataset, model, eval_hook, vis_hook, logger, mesh):
     # the loader first: its reading processes (if the dataset asks for them)
-    # start while the model is built
-    data = RepeatedDataset(dataset, args.dataset_repeats) if args.dataset_repeats > 1 else dataset
-    loader = PrefetchLoader(data, args.batch_size, seed=args.seed,
-                            num_workers=args.num_loader_workers, prefetch=args.loader_prefetch)
+    # start while the model is built. On a mesh only the first rank of each
+    # data index reads, its data index offsetting the seed.
+    loader = None
+    batch_size, seed = args.batch_size, args.seed
+    if mesh is not None:
+        batch_size //= mesh.shape["data"]
+        seed += mesh.index["data"] * 7919
+    if mesh is None or mesh.index["track"] == 0:
+        data = (RepeatedDataset(dataset, args.dataset_repeats) if args.dataset_repeats > 1
+                else dataset)
+        loader = PrefetchLoader(data, batch_size, seed=seed,
+                                num_workers=args.num_loader_workers, prefetch=args.loader_prefetch)
     try:
-        return _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader)
+        return _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader, mesh)
     finally:
-        loader.close()
+        if loader is not None:
+            loader.close()
 
 
-def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader):
+def _shared_batch(loader, mesh, dev):
+    """The next batch on dev; on a mesh the rows of this rank's data index,
+    every track of them, in float32: read by the track group's first rank
+    (the one holding a loader) and broadcast to the group."""
+    if mesh is None:
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+    keys = ("video", "trajs_g", "vis_g", "valids")
+    if loader is not None:
+        host = next(loader)
+        batch = {k: torch.from_numpy(np.asarray(host[k], dtype=np.float32)).to(dev) for k in keys}
+        if mesh.shape["track"] == 1:
+            return batch
+        dims = torch.tensor(batch["video"].shape[:4] + batch["vis_g"].shape[2:], device=dev)
+    else:
+        dims = torch.zeros(5, dtype=torch.int64, device=dev)
+    group, src = mesh.group("track"), mesh.ranks("track")[0]
+    dist.broadcast(dims, src, group=group)
+    if loader is None:
+        B, T, H, W, N = dims.tolist()
+        shapes = {"video": (B, T, H, W, 3), "trajs_g": (B, T, N, 2), "vis_g": (B, T, N),
+                  "valids": (B, T, N)}
+        batch = {k: torch.empty(shapes[k], device=dev) for k in keys}
+    for k in keys:
+        dist.broadcast(batch[k], src, group=group)
+    return batch
+
+
+def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader, mesh):
     if model is None:
         model = build_training_model(
             offline=args.offline_model, window_len=args.model_window_len,
@@ -268,14 +376,25 @@ def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader):
     )
     optimizer, scheduler = make_optimizer(model, args.lr, args.wdecay, args.num_steps)
     generator = torch.Generator().manual_seed(args.seed)
+    main = logger is not None
 
     step0 = 0
     ckpt_dir = os.path.join(args.exp_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if main:
+        os.makedirs(ckpt_dir, exist_ok=True)
     resume = find_auto_resume(ckpt_dir)
     if resume:
         step0 = load_checkpoint(resume, model, optimizer, scheduler, generator)
-        print(f"auto-resumed from {resume} at step {step0}")
+        if main:
+            print(f"auto-resumed from {resume} at step {step0}")
+    if mesh is not None:
+        from cotracker_tpu_torch.parallel.distributed import global_batch
+        from cotracker_tpu_torch.parallel.mesh import (
+            BATCH_PSPECS, make_fast_sharded_train_step, replicate,
+        )
+
+        replicate(mesh, model)
+        sharded_step = make_fast_sharded_train_step(model, optimizer, scheduler, cfg, mesh)
 
     eval_records = os.path.join(args.exp_dir, "eval_records.jsonl")
     last_eval = [-1]
@@ -289,12 +408,17 @@ def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader):
             f.write(json.dumps({"step": step, "results": res}, default=float) + "\n")
         print(f"eval @ step {step}: {res}")
 
-    if args.evaluate_at_start and step0 == 0:
+    if main and args.evaluate_at_start and step0 == 0:
         run_eval(0)
     t_start = time.time()
     for step in range(step0, args.num_steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
-        aux = train_step(model, optimizer, scheduler, batch, generator, cfg)
+        batch = _shared_batch(loader, mesh, dev)
+        if mesh is None:
+            aux = train_step(model, optimizer, scheduler, batch, generator, cfg)
+        else:
+            aux = sharded_step(global_batch(mesh, BATCH_PSPECS, batch), generator)
+        if not main:
+            continue
         logger.push(aux, step)
         if args.save_every_n_steps and (step + 1) % args.save_every_n_steps == 0:
             save_checkpoint(os.path.join(ckpt_dir, f"model_{step + 1:09d}.pth"), model,
@@ -303,7 +427,10 @@ def _train_steps(args, dev, model, eval_hook, vis_hook, logger, loader):
             run_eval(step + 1)
         if args.save_vis_every_n_steps and (step + 1) % args.save_vis_every_n_steps == 0:
             vis_hook(model, batch, step + 1)
-    loader.close()
+    if loader is not None:
+        loader.close()
+    if not main:
+        return model
     save_checkpoint(os.path.join(ckpt_dir, "model_final.pth"), model, optimizer, scheduler,
                     generator, args.num_steps)
     if args.eval_every_n_steps:

@@ -33,7 +33,9 @@ SURFACE = ("hub", "models.cotracker2", "demo", "online_demo", "interactive_demo"
            "utils.visualizer", "datasets.annotations", "datasets.dynamic_replica", "datasets.png",
            "datasets.image_ops", "datasets.kubric", "ops.masked", "evaluation.evaluate",
            "training.train_utils", "training.trainer", "datasets.real_videos",
-           "evaluation.bootstap_predictor", "training.distill", "training.distill_trainer")
+           "evaluation.bootstap_predictor", "training.distill", "training.distill_trainer",
+           "ops.collectives", "parallel", "parallel.distributed", "parallel.mesh",
+           "parallel.window_pipeline")
 
 
 def test_port_imports_no_jax():
