@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation runs on the device
+(the union of the device operations' intervals against the window)."""
+
+
+def read(rec):
+    t = rec["trace"]
+    if t is None or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
